@@ -2,13 +2,18 @@
 """Drive the PyTorch/CUDA port (`ealdm_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --kernels  # phases 1-2 only: a new kernel's first call
+    python3 chip_smoke.py --kernels  # phases 1-2b only: a new kernel's first call
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes, in bfloat16 and float32, and time kernel / plain / one PyTorch
      library call (a yardstick only; the port never calls it);
+  2b. the op library entry point `ealdm_torch.ops` at full width: the
+     bias_act kernel against `bias_act_plain` (nine activations, any dim,
+     three dtypes), first- and second-order gradients, then filtered_lrelu
+     and EqualizedDense(lrelu) with their bias_act launches counted, a
+     float32 check against the CPU, and the bias_act timings;
   3. the main path at the flagship width: LatentDiffusion in bfloat16 with
      seeded random weights, `sample_images` at batch 24, DDIM-50, eta 1,
      CFG 2, hoisted invariants, with the launch counts checked against what
@@ -84,6 +89,46 @@ def bound(flops, nbytes, peak_flops):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def device_ms(fn, iters=20, warmup=2):
+    """Device time per call: the sum of every CUDA kernel's time under
+    torch.profiler over `iters` calls. Unlike `cuda_ms` it leaves out the
+    gaps where the device waits for the host, which dominate a call of a
+    few microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return us / iters / 1e3
+
+
+def compare(errs, kernel, dtype, got, want, what):
+    """Raise unless `got` is within `tolerance` of `want` element by
+    element; keep the largest bfloat16 error per kernel in `errs`."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    worst = (diff / tolerance(dtype, want)).max().item()
+    if not math.isfinite(worst) or worst > 1:
+        raise RuntimeError(f"{kernel} {what} {dtype}: max abs err {err:.3g}, "
+                           f"{worst:.3g} of the per-element limit")
+    if dtype == torch.bfloat16:
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+    log(f"  {kernel:24s} {what:34s} {str(dtype):15s} max_abs_err {err:.3g} "
+        f"({worst:.3g} of the limit)")
+
+
 # ------------------------------------------------------------------ phase 1
 def phase_build():
     from ealdm_torch.kernels import build
@@ -122,16 +167,7 @@ def phase_kernels():
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     def check(kernel, dtype, got, want, what):
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        worst = (diff / tolerance(dtype, want)).max().item()
-        if not math.isfinite(worst) or worst > 1:
-            raise RuntimeError(f"{kernel} {what} {dtype}: max abs err {err:.3g}, "
-                               f"{worst:.3g} of the per-element limit")
-        if dtype == torch.bfloat16:
-            errs[kernel] = max(errs.get(kernel, 0.0), err)
-        log(f"  {kernel:24s} {what:34s} {str(dtype):15s} max_abs_err {err:.3g} "
-            f"({worst:.3g} of the limit)")
+        compare(errs, kernel, dtype, got, want, what)
 
     # -- flash attention [B, H, N, D]
     attn_cases = [("flash_attention_d32", (48, 8, 1024, 32)),
@@ -253,6 +289,149 @@ def phase_kernels():
     return res
 
 
+# ------------------------------------------------------------------ phase 2b
+def phase_ops():
+    """The op library entry point at full width. Returns the bias_act row
+    of the JSON line, with `launches` from the op-path run: one
+    filtered_lrelu call (two bias_act launches) and one
+    EqualizedDense(lrelu) call (one)."""
+    import torch
+
+    from ealdm_torch import kernels, ops
+    from ealdm_torch.models.stdiff import EqualizedDense
+    from ealdm_torch.ops.bias_act import bias_act_kernel, bias_act_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {}
+    f32, bf, fp16 = torch.float32, torch.bfloat16, torch.float16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def check(dtype, got, want, what):
+        compare(errs, "bias_act", dtype, got, want, what)
+
+    # -- the kernel against bias_act_plain
+    nhwc, nchw = (48, 32, 32, 256), (48, 256, 32, 32)
+    b256 = randn(256)
+    for dtype in (f32, bf):
+        x = (2 * randn(*nhwc)).to(dtype)
+        for act in ops.activation_funcs:
+            check(dtype, bias_act_kernel(x, b256, act=act), bias_act_plain(x, b256, act=act),
+                  f"{act} {list(nhwc)} bias")
+        x = (2 * randn(*nchw)).to(dtype)
+        check(dtype, bias_act_kernel(x, b256, dim=1, act="lrelu"),
+              bias_act_plain(x, b256, dim=1, act="lrelu"), f"lrelu {list(nchw)} dim=1")
+        kw = dict(act="swish", gain=0.7, clamp=1.5)
+        check(dtype, bias_act_kernel(x, b256, dim=1, **kw), bias_act_plain(x, b256, dim=1, **kw),
+              "swish gain 0.7 clamp 1.5 dim=1")
+        x, b13 = randn(7, 13, 129, dtype=dtype), randn(13)
+        for act in ("lrelu", "softplus", "selu"):
+            check(dtype, bias_act_kernel(x, b13, dim=1, act=act, clamp=2.0),
+                  bias_act_plain(x, b13, dim=1, act=act, clamp=2.0),
+                  f"{act} ragged [7,13,129] dim=1 clamp 2")
+    x = randn(*nhwc, dtype=fp16)
+    check(fp16, bias_act_kernel(x, b256, act="lrelu"), bias_act_plain(x, b256, act="lrelu"),
+          f"lrelu {list(nhwc)} bias")
+
+    # -- first- and second-order gradients: the autograd path (kernel
+    #    forward, plain backward) against the plain version
+    grads = {}
+    x0, b0 = randn(4, 8, 8, 32), randn(32)
+    for name, fn in (("kernel", ops.bias_act), ("plain", bias_act_plain)):
+        x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
+        y = fn(x, b, act="swish", clamp=3.0)
+        (g,) = torch.autograd.grad((y ** 2).sum(), x, create_graph=True)
+        grads[name] = (g, *torch.autograd.grad((g ** 2).sum(), (x, b)))
+    for what, got, want in zip(("dx", "d2x", "d2b"), grads["kernel"], grads["plain"]):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        log(f"  bias_act autograd {what}: max diff / max|plain| {rel:.3g} (tolerance 1e-5)")
+        if not rel <= 1e-5:
+            raise RuntimeError(f"bias_act {what} disagrees with the plain version: {rel:.3g}")
+
+    # -- the op path: filtered_lrelu and EqualizedDense, launches counted
+    fir = ops.setup_filter([1, 3, 3, 1])
+    fl_kw = dict(up=2, down=2, padding=3)
+    x_fl = randn(*nhwc, dtype=bf)
+    dense = EqualizedDense(512, 512, activation="lrelu", lr_multiplier=0.01).cuda()
+    with torch.no_grad():
+        dense.weight.copy_(randn(512, 512) * 100)
+        dense.bias.copy_(randn(512))
+    w = randn(48, 512)
+
+    def flrelu_plain(x, b):
+        y = ops.upfirdn2d(bias_act_plain(x, b), fir, up=2, padding=3, gain=4)
+        return ops.upfirdn2d(bias_act_plain(y, None, act="lrelu", gain=math.sqrt(2)),
+                             fir, down=2).to(x.dtype)
+
+    kernels.reset_launch_counts()
+    y_fl = ops.filtered_lrelu(x_fl, fir, fir, b256, **fl_kw)
+    torch.cuda.synchronize()
+    fl_launches = kernels.launches["bias_act"]
+    with torch.no_grad():
+        y_d = dense(w)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    log(f"[ops] launches {counts}: filtered_lrelu {fl_launches}, EqualizedDense(lrelu) "
+        f"{counts['bias_act'] - fl_launches}")
+    if fl_launches != 2 or counts["bias_act"] != 3:
+        raise RuntimeError("expected 2 bias_act launches per filtered_lrelu call and 1 per "
+                           f"EqualizedDense(lrelu) call, got {counts}")
+    if any(n for k, n in counts.items() if k != "bias_act"):
+        raise RuntimeError(f"the op path launched other kernels: {counts}")
+    if tuple(y_fl.shape) != nhwc or y_fl.dtype != bf:
+        raise RuntimeError(f"filtered_lrelu gave {tuple(y_fl.shape)} {y_fl.dtype}")
+    check(bf, y_fl, flrelu_plain(x_fl, b256), f"filtered_lrelu {list(nhwc)}")
+    with torch.no_grad():
+        h = w @ (dense.weight.T * (0.01 / math.sqrt(512)))
+        check(f32, y_d, bias_act_plain(h, dense.bias * 0.01, act="lrelu"),
+              "EqualizedDense(lrelu) [48,512]")
+
+    # -- float32 on the card (kernels) against the CPU (plain versions)
+    xs, bs = randn(2, 16, 16, 32), randn(32)
+    got = ops.filtered_lrelu(xs, fir, fir, bs, clamp=1.0, **fl_kw).cpu()
+    want = ops.filtered_lrelu(xs.cpu(), fir, fir, bs.cpu(), clamp=1.0, **fl_kw)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[ops] filtered_lrelu float32 card vs CPU: max diff / max|y| {rel:.3g} "
+        f"(tolerance 1e-5)")
+    if not rel <= 1e-5:
+        raise RuntimeError("filtered_lrelu on the card disagrees with the CPU")
+
+    # -- timings, bfloat16: (a) linear + bias, (b) lrelu + bias + gain +
+    #    clamp, (c) filtered_lrelu's middle stage
+    x_a = randn(*nhwc, dtype=bf)
+    b_bf = b256.to(bf)
+    x_c = randn(48, 67, 67, 256, dtype=bf)
+    cases = {
+        "a": (x_a, b256, dict(act="linear"), 1, lambda: torch.add(x_a, b_bf)),
+        "b": (x_a, b256, dict(act="lrelu", gain=math.sqrt(2), clamp=256.0), 6, None),
+        "c": (x_c, None, dict(act="lrelu", gain=math.sqrt(2)), 3, None),
+    }
+    timed = {}
+    for key, (x, b, kw, ops_per_elem, lib) in cases.items():
+        nbytes = 2 * x.numel() * x.element_size() + (0 if b is None else b.numel() * 4)
+        bms, by = bound(ops_per_elem * x.numel(), nbytes, PEAK_FP32)
+        timed[key] = dict(
+            shape=list(x.shape), dtype="bfloat16", **kw, bias=b is not None,
+            ms=device_ms(lambda: bias_act_kernel(x, b, **kw)),
+            plain_ms=device_ms(lambda: bias_act_plain(x, b, **kw)),
+            library_ms=None if lib is None else device_ms(lib),
+            event_ms=cuda_ms(lambda: bias_act_kernel(x, b, **kw), iters=50),
+            bound_ms=bms, bound_by=by)
+        t = timed[key]
+        lib_txt = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        log(f"[time] bias_act ({key}) {t['shape']} {kw} bias={t['bias']}: kernel_ms "
+            f"{t['ms']:.4f} (event_ms {t['event_ms']:.4f}) plain_ms {t['plain_ms']:.4f} "
+            f"library_ms {lib_txt} bound_ms {t['bound_ms']:.4f} ({t['bound_by']})")
+    a = timed["a"]
+    return dict(
+        name="bias_act", route="cuda", source="ealdm_torch/kernels/csrc/bias_act.cu",
+        replaces="ealdm_tpu/ops/bias_act.py:100", launches=counts["bias_act"],
+        max_abs_err=errs["bias_act"], ms=a["ms"], plain_ms=a["plain_ms"],
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=a["library_ms"],
+        shape=a["shape"], dtype="bfloat16", cases=timed)
+
+
 # ------------------------------------------------------------------ phase 3+
 def random_init_(model, seed):
     """Seeded random weights: matrices and conv kernels ~ N(0, 1/fan_in),
@@ -367,6 +546,8 @@ def phase_main_path(cfg_module, steps, batch):
     log(f"[main] launches {counts}; expected from the module tree {want}")
     if got != want:
         raise RuntimeError(f"launch counts {got} differ from the module tree's {want}")
+    if counts["bias_act"] != 0:
+        raise RuntimeError(f"the sampling path launched bias_act {counts['bias_act']} times")
     for name in ("flash_attention_d32", "flash_attention_d512", "group_norm",
                  "group_norm_two_pass"):
         if counts[name] == 0:
@@ -520,6 +701,7 @@ def main(argv):
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels()
+    rows["bias_act"] = phase_ops()
     if "--kernels" not in argv:
         steps, batch = 50, 24
         model, mixed, counts, e2e = phase_main_path(cfg_module, steps, batch)

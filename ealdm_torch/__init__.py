@@ -4,10 +4,12 @@ Diffusion framework, for one NVIDIA H100.
 The JAX package `ealdm_tpu` is the reference; this package keeps its module
 layout and names so each counterpart is found under the same path:
 
-  ops/       schedules, embeddings, norms, attention (plain torch + the
-             wrappers of the hand-written CUDA kernels)
+  ops/       schedules, embeddings, norms, attention, bias_act, upfirdn2d,
+             filtered_lrelu, conv2d_resample, grid_sample (plain torch +
+             the wrappers of the hand-written CUDA kernels)
   kernels/   CUDA C++ sources for sm_90a and the nvcc/ctypes loader
-  models/    UNet, VQ autoencoder, STDiff conditioning tower, LatentDiffusion
+  models/    UNet, VQ autoencoder, STDiff conditioning tower, LatentDiffusion,
+             FrozenBatchNorm
   samplers/  DDIM
   utils/     the flax-parameter bridge and the device rule
 

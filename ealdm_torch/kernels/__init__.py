@@ -3,7 +3,7 @@ by `build.py`).
 
 `launches` counts, per kernel, the launches its wrapper made (one per
 wrapper call that reached the kernel). The wrappers live beside their plain
-PyTorch versions in `ops/attention.py` and `ops/norms.py`.
+PyTorch versions in `ops/attention.py`, `ops/norms.py` and `ops/bias_act.py`.
 """
 
 KERNELS = (
@@ -12,6 +12,7 @@ KERNELS = (
     "flash_attention_packed",
     "group_norm",
     "group_norm_two_pass",
+    "bias_act",
 )
 
 launches = dict.fromkeys(KERNELS, 0)

@@ -103,6 +103,9 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
         [P, P, P, P, P, P, I, I, I, I, I] + [L] * 8 + [F, I, I, I, P]
     )
     gn.ealdm_group_norm_two_pass.restype = I
+    ba = libs["bias_act"].ealdm_bias_act
+    ba.argtypes = [P, P, P, I, L, L, L, I, F, F, F, P]
+    ba.restype = I
 
 
 def check(err: int, what: str) -> None:

@@ -2,10 +2,9 @@
 `ealdm_tpu/models/stdiff.py`).
 
 Public tensors are NHWC as in the JAX package. Ported: ConditioningTransform
-(no conditioning noise: it is a training-time augmentation), CondScale's
-`c`-only branch (the one UnetCond uses), EnvLSTM, AdaIN and UnetCond with
-norm="group". CondScale's `w` branch needs EqualizedDense and so the bias_act
-kernel, which is not ported yet.
+(no conditioning noise: it is a training-time augmentation), EqualizedDense,
+CondScale (its `w` and `c` branches), EnvLSTM, AdaIN and UnetCond with
+norm="group" or "frozen_bn".
 """
 from __future__ import annotations
 
@@ -17,8 +16,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bias_act import bias_act
 from ..ops.norms import instance_norm_2d
 from .layers import Conv2D, Dense
+from .resnet import FrozenBatchNorm
 
 
 class ConditioningTransform:
@@ -56,26 +57,52 @@ class ConditioningTransform:
         return c
 
 
+class EqualizedDense(nn.Module):
+    """StyleGAN-style FC: weight [out, in] scaled at run time by
+    lr_multiplier / sqrt(in); the bias scaled by lr_multiplier. "linear"
+    computes y + b, as the JAX module does; any other activation goes
+    through `bias_act`. The JAX module's `use_bias=False` is not ported: no
+    caller sets it."""
+
+    def __init__(self, in_features: int, features: int, activation: str = "linear",
+                 lr_multiplier: float = 1.0, bias_init_value: float = 0.0):
+        super().__init__()
+        self.activation, self.lr_multiplier = activation, lr_multiplier
+        self.weight = nn.Parameter(torch.zeros(features, in_features))
+        self.bias = nn.Parameter(torch.full((features,), float(bias_init_value)))
+
+    def forward(self, x):
+        weight_gain = self.lr_multiplier / math.sqrt(self.weight.shape[1])
+        y = x @ (self.weight.to(x.dtype).T * weight_gain)
+        b = self.bias if self.lr_multiplier == 1 else self.bias * self.lr_multiplier
+        if self.activation == "linear":
+            return y + b.to(y.dtype)
+        return bias_act(y, b, act=self.activation)
+
+
 class CondScale(nn.Module):
-    """Fourier features -> per-channel style scales (the `c` branch)."""
+    """Per-channel style scales: `w_affine(w)` (an EqualizedDense with bias
+    1) times the Fourier-feature scales of `c`, or either alone."""
 
     def __init__(self, channels: int, cond_args: Dict[str, Any], c_dim: int,
                  w_dim: Optional[int] = None):
         super().__init__()
         self.cond_args = dict(cond_args)
         self.w_dim = w_dim
-        self.c_to_scales_weight = nn.Parameter(torch.zeros(channels, c_dim))
+        if w_dim is not None:
+            self.w_affine = EqualizedDense(w_dim, channels, bias_init_value=1.0)
+        if self.cond_args.get("type") == "fourier":
+            self.c_to_scales_weight = nn.Parameter(torch.zeros(channels, c_dim))
 
     def forward(self, w=None, c=None):
+        styles = None
         if self.w_dim is not None and w is not None:
-            raise NotImplementedError(
-                "CondScale's w branch needs EqualizedDense -> bias_act, "
-                "which is not ported yet"
-            )
-        if self.cond_args.get("type") != "fourier":
-            return None
-        gain = float(self.cond_args.get("lr", 1)) / math.sqrt(c.shape[-1])
-        return c @ (self.c_to_scales_weight.to(c.dtype).T * gain)
+            styles = self.w_affine(w)
+        if self.cond_args.get("type") == "fourier":
+            gain = float(self.cond_args.get("lr", 1)) / math.sqrt(c.shape[-1])
+            scales = c @ (self.c_to_scales_weight.to(c.dtype).T * gain)
+            styles = styles * scales if styles is not None else scales
+        return styles
 
 
 class EnvLSTM(nn.Module):
@@ -157,8 +184,8 @@ class UnetCond(nn.Module):
         """feat_hw: the side of the (square) image-feature map, which sets
         the out head's width (flax infers it from the first input)."""
         super().__init__()
-        if norm != "group":
-            raise NotImplementedError(f"UnetCond norm={norm!r} is not ported yet")
+        if norm not in ("group", "frozen_bn"):
+            raise ValueError(f"unknown UnetCond norm {norm!r}")
         self.mid_dim, self.num_ws, self.dtype = mid_dim, num_ws, dtype
         self.cond_args = cond_args or {
             "type": "fourier", "dims": t_dim, "f_manual": [],
@@ -173,7 +200,8 @@ class UnetCond(nn.Module):
         self.fadain = AdaIN(mid_dim, emb_dim, dtype)
         self.tadain = AdaIN(mid_dim, emb_dim, dtype)
         self.conv_cat_0 = Conv2D(4 * mid_dim, mid_dim, 3, dtype=dtype)
-        self.conv_cat_norm = FlaxGroupNorm(mid_dim, _norm_groups(mid_dim))
+        self.conv_cat_norm = (FrozenBatchNorm(mid_dim) if norm == "frozen_bn"
+                              else FlaxGroupNorm(mid_dim, _norm_groups(mid_dim)))
         self.conv_cat_3 = Conv2D(mid_dim, mid_dim, 3, dtype=dtype)
         hw = feat_hw * feat_hw
         self.out_0 = Dense(hw, mid_dim * hw, dtype=dtype)

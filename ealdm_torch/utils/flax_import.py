@@ -10,6 +10,8 @@ flax module names, so a flax path `a/b/c/<leaf>` becomes the port name
   Dense kernel [in, out]                 -> weight [out, in]
   norm scale                             -> weight
   bias, embedding, c_to_scales_weight    -> the same name, unchanged
+  EqualizedDense weight (already [out, in]),
+  FrozenBatchNorm mean and var           -> the same name, unchanged
   OptimizedLSTMCell lstm_<l>/{i,h}{i,f,g,o}
       -> torch.nn.LSTM lstm_<l>.{weight_ih,weight_hh,bias_hh}_l0, gates
          stacked in torch's i, f, g, o order. flax has one bias per gate, on
@@ -46,15 +48,16 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 def _leaf(name: str, v: np.ndarray):
     """(port name, array) of one non-LSTM flax leaf."""
     head, _, last = name.rpartition(".")
+    weight = f"{head}.weight" if head else "weight"
     if last == "kernel":
         if v.ndim == 4:
-            return f"{head}.weight", np.transpose(v, (3, 2, 0, 1))
+            return weight, np.transpose(v, (3, 2, 0, 1))
         if v.ndim == 2:
-            return f"{head}.weight", np.transpose(v, (1, 0))
+            return weight, np.transpose(v, (1, 0))
         raise ValueError(f"{name}: no rule for a {v.ndim}-d kernel")
     if last == "scale":
-        return f"{head}.weight", v
-    if last in ("bias", "embedding", "c_to_scales_weight"):
+        return weight, v
+    if last in ("bias", "embedding", "c_to_scales_weight", "weight", "mean", "var"):
         return name, v
     raise ValueError(f"{name}: no rule for flax leaf {last!r}")
 

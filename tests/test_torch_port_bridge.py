@@ -106,7 +106,7 @@ def test_source_scan():
 
 def test_no_fallback_in_kernel_wrappers():
     """A wrapper given a CUDA tensor launches or raises: no try/except."""
-    for rel in ("ops/attention.py", "ops/norms.py", "kernels/build.py"):
+    for rel in ("ops/attention.py", "ops/norms.py", "ops/bias_act.py", "kernels/build.py"):
         assert not re.search(r"^\s*(try|except)\b",
                              (REPO / "ealdm_torch" / rel).read_text(), re.M), rel
 

@@ -15,6 +15,7 @@ from ealdm_torch.ops.attention import (
     flash_attention_packed,
     flash_attention_plain,
 )
+from ealdm_torch.ops.bias_act import activation_funcs, bias_act, bias_act_plain
 from ealdm_torch.ops.norms import group_norm, group_norm_plain, silu
 
 pytestmark = pytest.mark.cuda
@@ -27,6 +28,7 @@ def _within_limit(dtype, got, want):
     diff = (got.float() - want.float()).abs()
     if dtype == torch.float32:
         return diff.max().item() <= 1e-4
+    # float16's ulp (2^-10 of the value) is finer than bfloat16's
     return bool((diff <= 2 * 2**-7 * want.float().abs() + 1e-4).all())
 
 
@@ -91,3 +93,79 @@ def test_group_norm(dev, dtype, shape, channels_last):
     assert kernels.launches[name] == before + 1
     want = group_norm_plain(x, scale, bias, 32, 1e-6, silu, "NCHW", pre)
     assert _within_limit(dtype, got, want)
+
+
+def _bias_act_x(layout, dtype, dev):
+    """(x, dim) for a bias_act layout: a ragged [7, 13, 129] with the bias
+    on dim 1; NHWC with it on the last dim; an NHWC view of NCHW memory;
+    and a tensor that starts 2 bytes past a 16-byte boundary."""
+    if layout == "ragged_dim1":
+        return 2 * _randn(7, 13, 129, dtype=dtype, dev=dev), 1
+    if layout == "nhwc":
+        return 2 * _randn(2, 5, 7, 64, dtype=dtype, dev=dev), -1
+    if layout == "nchw_memory":
+        return 2 * _randn(2, 64, 5, 7, dtype=dtype, dev=dev).permute(0, 2, 3, 1), -1
+    flat = 2 * _randn(1 + 3 * 9 * 40, dtype=dtype, dev=dev)
+    return flat[1:].view(3, 9, 40), 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("act", list(activation_funcs))
+def test_bias_act_activations(dev, dtype, act):
+    x, dim = _bias_act_x("ragged_dim1", dtype, dev)
+    b = _randn(13, dtype=torch.float32, dev=dev, seed=7)
+    before = kernels.launches["bias_act"]
+    got = bias_act(x, b, dim=dim, act=act, gain=0.9, clamp=2.5)
+    torch.cuda.synchronize()
+    assert kernels.launches["bias_act"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _within_limit(dtype, got, bias_act_plain(x, b, dim=dim, act=act, gain=0.9, clamp=2.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", ["nhwc", "nchw_memory", "unaligned"])
+def test_bias_act_layouts(dev, dtype, layout):
+    x, dim = _bias_act_x(layout, dtype, dev)
+    b = _randn(x.shape[dim], dtype=torch.float32, dev=dev, seed=8)
+    before = kernels.launches["bias_act"]
+    got = bias_act(x, b, dim=dim, act="lrelu")
+    assert kernels.launches["bias_act"] == before + 1
+    assert got.stride() == x.stride()
+    assert _within_limit(dtype, got, bias_act_plain(x, b, dim=dim, act="lrelu"))
+    no_bias = bias_act(x, None, act="swish")
+    assert _within_limit(dtype, no_bias, bias_act_plain(x, None, act="swish"))
+
+
+def test_bias_act_second_order_grad(dev):
+    """Kernel forward with the plain backward against the plain version
+    throughout: gradients of first and second order."""
+    x0 = _randn(3, 16, 5, dtype=torch.float32, dev=dev, seed=9)
+    b0 = _randn(16, dtype=torch.float32, dev=dev, seed=10)
+    out = {}
+    for name, fn in (("kernel", bias_act), ("plain", bias_act_plain)):
+        x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
+        (g,) = torch.autograd.grad((fn(x, b, dim=1, act="elu") ** 2).sum(), x,
+                                   create_graph=True)
+        out[name] = (g, *torch.autograd.grad((g ** 2).sum(), (x, b)))
+    for got, want in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_bias_act_rejects_unsupported(dev):
+    x = _randn(4, 8, dtype=torch.float32, dev=dev)
+    with pytest.raises(TypeError):
+        bias_act(x.double(), None)
+    with pytest.raises(ValueError, match="not dense"):
+        bias_act(_randn(4, 16, dtype=torch.float32, dev=dev)[:, :8], None)
+
+
+def test_bias_act_64bit_indices(dev):
+    """2^31 + 4 elements take the kernel's 64-bit index path; the bias lies
+    on dim 0, 2^29 + 1 elements apart."""
+    x = torch.ones(4, 2**29 + 1, dtype=torch.bfloat16, device=dev)
+    x[:, -3:] = -2.0
+    b = torch.arange(4, dtype=torch.float32, device=dev)
+    got = bias_act(x, b, dim=0, act="lrelu")
+    for cols in (slice(0, 5), slice(-5, None)):
+        want = bias_act_plain(x[:, cols], b, dim=0, act="lrelu")
+        assert torch.equal(got[:, cols], want)

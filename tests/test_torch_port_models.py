@@ -1,7 +1,10 @@
 """The port's models against the JAX package at the tiny flagship config
 (`bench.build_model(tiny=True)`): UNetModel (plain and with the hoisted
 K/V and embedding tables), VQModel encode/decode and UnetCond with env
-fusion on and off, all in float32 on the CPU with the same weights.
+fusion on and off, all in float32 on the CPU with the same weights. Then
+the STDiff branches no config of the sampling path reaches, each built on
+its own at a tiny width: EqualizedDense, CondScale with `w`,
+FrozenBatchNorm and UnetCond(norm="frozen_bn").
 
 Weights are seeded random values of the JAX parameter tree's shapes, loaded
 into the port through the bridge. A fresh flax init would zero the output
@@ -20,6 +23,10 @@ from ealdm_torch.models.unet import (
     precompute_emb_tables as t_precompute_emb,
 )
 from ealdm_torch.utils.flax_import import load_flax_params
+from ealdm_torch.models import resnet as t_resnet
+from ealdm_torch.models import stdiff as t_stdiff
+from ealdm_tpu.models import resnet as j_resnet
+from ealdm_tpu.models import stdiff as j_stdiff
 from ealdm_tpu.models.ddpm import LatentDiffusion as JaxLDM
 from ealdm_tpu.models.unet import (
     precompute_context_kv as j_precompute_kv,
@@ -49,6 +56,8 @@ def random_tree(shapes, seed):
             v = rng.randn(*shape)
         elif name == "c_to_scales_weight":
             v = rng.randn(*shape) / np.sqrt(shape[-1])
+        elif name == "var":
+            v = 0.5 + rng.rand(*shape)
         else:
             v = 0.1 * rng.randn(*shape)
         return v.astype(np.float32)
@@ -184,3 +193,69 @@ def test_conditioning_pair_matches(pair):
             {k: _t(v) for k, v in mixed.items()})
     _close(neg_t, neg_j)
     _close(pos_t, pos_j)
+
+
+# ------------------------------------------------------------------ STDiff
+def _init_pair(jmod, tmod, *args, seed=3):
+    """Seeded random weights of jmod's tree, loaded into tmod; returns the
+    JAX variables."""
+    shapes = jax.eval_shape(lambda r: jmod.init(r, *args), jax.random.PRNGKey(0))
+    variables = random_tree(shapes, seed)
+    load_flax_params(tmod, variables, device="cpu")
+    return variables
+
+
+@pytest.mark.parametrize("activation,lr", [("linear", 1.0), ("lrelu", 1.0),
+                                           ("lrelu", 0.01), ("swish", 0.5)])
+def test_equalized_dense_matches(activation, lr):
+    x = np.random.RandomState(0).randn(3, 12).astype(np.float32)
+    jm = j_stdiff.EqualizedDense(8, activation=activation, lr_multiplier=lr)
+    tm = t_stdiff.EqualizedDense(12, 8, activation=activation, lr_multiplier=lr)
+    variables = _init_pair(jm, tm, x)
+    with torch.no_grad():
+        _close(tm(_t(x)), jm.apply(variables, x))
+
+
+COND_ARGS = {"type": "fourier", "dims": 6, "f_manual": [1.0, 365.25],
+             "include_lin": True, "lin_lr": 0.01, "lr": 1}
+
+
+@pytest.mark.parametrize("branches", ["w_and_c", "w_only"])
+def test_cond_scale_matches(branches):
+    """`w_affine(w)` (bias 1) times the Fourier scales of c, or alone."""
+    rng = np.random.RandomState(1)
+    cond_args = COND_ARGS if branches == "w_and_c" else {"type": "none"}
+    xform = j_stdiff.ConditioningTransform(COND_ARGS)
+    c = np.asarray(xform(jnp.asarray(rng.rand(2, 1).astype(np.float32)), broadcast=False))
+    w = rng.randn(2, 6).astype(np.float32)
+    jm = j_stdiff.CondScale(16, cond_args, w_dim=6)
+    tm = t_stdiff.CondScale(16, cond_args, c.shape[-1], w_dim=6)
+    variables = _init_pair(jm, tm, w, c)
+    with torch.no_grad():
+        got = tm(_t(w), _t(c))
+    assert got.shape == (2, 16)
+    _close(got, jm.apply(variables, w, c))
+
+
+def test_frozen_batch_norm_matches():
+    x = (2 * np.random.RandomState(2).randn(2, 3, 4, 6) + 1).astype(np.float32)
+    jm, tm = j_resnet.FrozenBatchNorm(6), t_resnet.FrozenBatchNorm(6)
+    variables = _init_pair(jm, tm, x)
+    with torch.no_grad():
+        _close(tm(_t(x)), jm.apply(variables, x))
+
+
+@pytest.mark.parametrize("fuse_env", [True, False])
+def test_unet_cond_frozen_bn_matches(fuse_env):
+    rng = np.random.RandomState(4)
+    kw = dict(mid_dim=4, emb_dim=16, out_dim=32, w_dim=16, f_dim=1, hidden_dim=16,
+              norm="frozen_bn")
+    args = (rng.randn(2, 4, 4, 4).astype(np.float32), rng.randn(2, 1, 1).astype(np.float32),
+            rng.randn(2, 1, 16).astype(np.float32), rng.rand(2, 1).astype(np.float32))
+    jm = j_stdiff.UnetCond(**kw)
+    tm = t_stdiff.UnetCond(**kw, feat_hw=4).eval()
+    variables = _init_pair(jm, tm, *args)
+    with torch.no_grad():
+        got = tm(*(_t(a) for a in args), fuse_env=fuse_env)
+    assert got.shape == (2, 4, 32)
+    _close(got, jm.apply(variables, *args, fuse_env))
