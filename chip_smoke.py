@@ -5,10 +5,13 @@
     python3 chip_smoke.py --kernels  # phases 1-2b only: a new kernel's first call
 
 Phases, each of which raises (non-zero exit) on failure:
-  1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc;
+  1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc, and
+     take a census of the bfloat16 flash kernels' machine code (tensor-core,
+     async-copy, ldmatrix and exp instructions; ptxas spills);
   2. hold each kernel against its plain PyTorch version at the main path's
-     shapes, in bfloat16 and float32, and time kernel / plain / one PyTorch
-     library call (a yardstick only; the port never calls it);
+     shapes and layouts, in bfloat16 and float32, show that two planted
+     faults break the bfloat16 attention limits, and time kernel / plain /
+     one PyTorch library call (a yardstick only; the port never calls it);
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -17,7 +20,8 @@ Phases, each of which raises (non-zero exit) on failure:
   3. the main path at the flagship width: LatentDiffusion in bfloat16 with
      seeded random weights, `sample_images` at batch 24, DDIM-50, eta 1,
      CFG 2, hoisted invariants, with the launch counts checked against what
-     the module tree implies; then one more run under torch.profiler for
+     the module tree implies, three timed runs (img/s from the median),
+     then one more run under torch.profiler for
      the device time by kernel and the device's idle share;
   4. the same program under the packed attention layout for a few steps,
      held against the "flash" layout at the same seed;
@@ -29,6 +33,7 @@ line with every kernel's numbers, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -44,6 +49,14 @@ OUT_DIR = os.path.join(HERE, "build")  # gitignored, beside the kernel builds
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# exp2 on the SFU: 16 results a clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput table, compute capability 9.0); see
+# `peak_exp` for the clock.
+SFU_EXP_PER_CLOCK = 16
+
+# the redesigned bfloat16 flash kernels, as named in flash_attention.cu
+MMA_KERNELS = ("flash_mma_d32_kernel", "flash_mma_d512_kernel")
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM", "MUFU.EX2")
 
 
 def tolerance(dtype, want):
@@ -52,7 +65,8 @@ def tolerance(dtype, want):
     once to the output dtype. float32: 1e-4. bfloat16: the two roundings
     leave the results at most one bf16 ulp apart, and an ulp is at most
     2^-7 of the value; the limit is two ulps of each reference element plus
-    the float32 limit."""
+    the float32 limit. bfloat16 attention has limits of its own, which also
+    cover the kernel's rounding of P (`bf16_attention_shares`)."""
     if str(dtype) == "torch.float32":
         return 1e-4
     return 2 * 2**-7 * want.float().abs() + 1e-4
@@ -62,11 +76,23 @@ def log(*a):
     print(*a, flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(query="name,power.limit", fmt="csv,noheader") -> str:
+    """The first card's line of `nvidia-smi --query-gpu=<query>`."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def peak_exp():
+    """exp2 results a second on the SFUs: 16 a clock per SM x the card's SMs
+    x its maximum SM clock, as nvidia-smi reads it."""
+    import torch
+
+    mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_EXP_PER_CLOCK * sms * mhz * 1e6
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -84,9 +110,13 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes, peak_flops):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound(flops, nbytes, peak_flops, exps=0):
+    """Least time in ms, and what sets it: the operations at `peak_flops`,
+    the bytes at the memory rate, or the exponentials at the SFU's rate."""
+    times = {"operations": flops / peak_flops, "bytes": nbytes / PEAK_BYTES,
+             "exp": exps / peak_exp() if exps else 0.0}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def device_ms(fn, iters=20, warmup=2):
@@ -112,21 +142,41 @@ def device_ms(fn, iters=20, warmup=2):
     return us / iters / 1e3
 
 
-def compare(errs, kernel, dtype, got, want, what):
-    """Raise unless `got` is within `tolerance` of `want` element by
-    element; keep the largest bfloat16 error per kernel in `errs`."""
+def compare(errs, kernel, dtype, got, want, what, attn=None):
+    """Raise unless `got` is within its limits of `want`: `tolerance`
+    element by element or, for bfloat16 attention (`attn` = (q, k, v,
+    heads)), both limits of `bf16_attention_shares`. Keeps the largest
+    bfloat16 error per kernel in `errs`."""
     import torch
 
-    diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
-    worst = (diff / tolerance(dtype, want)).max().item()
-    if not math.isfinite(worst) or worst > 1:
-        raise RuntimeError(f"{kernel} {what} {dtype}: max abs err {err:.3g}, "
-                           f"{worst:.3g} of the per-element limit")
+    from ealdm_torch.ops.attention import bf16_attention_shares
+
+    err = (got.float() - want.float()).abs().max().item()
+    if attn is not None and dtype == torch.bfloat16:
+        q, k, v, heads = attn
+        shares = bf16_attention_shares(got, q, k, v, want, heads)
+    else:
+        shares = ((got.float() - want.float()).abs() / tolerance(dtype, want)).max().item(),
+    text = " and ".join(f"{x:.3g} of the {kind} limit"
+                        for x, kind in zip(shares, ("per-element", "RMS")))
+    if not all(math.isfinite(x) and x <= 1 for x in shares):
+        raise RuntimeError(f"{kernel} {what} {dtype}: max abs err {err:.3g}, {text}")
     if dtype == torch.bfloat16:
         errs[kernel] = max(errs.get(kernel, 0.0), err)
-    log(f"  {kernel:24s} {what:34s} {str(dtype):15s} max_abs_err {err:.3g} "
-        f"({worst:.3g} of the limit)")
+    log(f"  {kernel:24s} {what:34s} {str(dtype):15s} max_abs_err {err:.3g} ({text})")
+
+
+def coarse_p_attention(q, k, v, bits):
+    """A planted fault: flash_attention_plain with P rounded to nearest with
+    a `bits`-bit significand before P*V (bfloat16 has 8), the row sums
+    unrounded."""
+    import torch
+
+    s = torch.matmul(q.float() / math.sqrt(q.shape[-1]), k.float().transpose(-1, -2))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m, e = torch.frexp(p)
+    p_coarse = torch.ldexp(torch.round(m * 2**bits) / 2**bits, e)
+    return (torch.matmul(p_coarse, v.float()) / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
 # ------------------------------------------------------------------ phase 1
@@ -134,18 +184,71 @@ def phase_build():
     from ealdm_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build_all()
+    names = list(build.build_all())
     secs = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
-        for name, text in build.build_log.items():
-            f.write(f"--- {name}\n{text}\n")
-    for name, text in build.build_log.items():
-        for line in text.splitlines():
+        for name in names:
+            f.write(f"--- {name}\n{build.build_report(name)}\n")
+    for name in names:
+        for line in build.build_report(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    log(f"[build] {len(build.build_log)} sources built in {secs:.1f} s")
+    log(f"[build] {len(names)} sources built or found built in {secs:.1f} s")
     return secs
+
+
+def phase_sass():
+    """Census of the bfloat16 flash kernels' machine code: tensor-core
+    (HMMA/HGMMA), async-copy (LDGSTS/UTMALDG), ldmatrix (LDSM) and exp
+    (MUFU.EX2) instructions from `cuobjdump -sass`, and ptxas's registers
+    and spills (from the library's nvcc report). Raises if a kernel has no
+    tensor-core instruction or no async copy, spills, or is missing from the
+    machine code or the report."""
+    import re
+
+    from ealdm_torch.kernels import build
+
+    lib = build.library_path("flash_attention")
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    op_re = re.compile(r"\b(HMMA|HGMMA|LDGSTS|UTMALDG|LDSM|MUFU\.EX2)\b")
+    census, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in MMA_KERNELS if k in line), None)
+            if current:
+                census[current] = dict.fromkeys(SASS_OPS, 0)
+        elif current:
+            for op in op_re.findall(line):
+                census[current][op] += 1
+    # ptxas -v: "Compiling entry function '<name>'", then "... N bytes spill
+    # stores, M bytes spill loads" and "Used R registers"
+    ptxas, current = {}, None
+    for line in build.build_report("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            current = next((k for k in MMA_KERNELS if k in line), None)
+        elif current and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            ptxas.setdefault(current, {})["spill_bytes"] = int(st) + int(ld)
+        elif current and "Used" in line:
+            ptxas.setdefault(current, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    for name in MMA_KERNELS:
+        c = census.get(name)
+        log(f"[sass] {name}: {c}; ptxas {ptxas.get(name)}")
+        if c is None:
+            raise RuntimeError(f"{name} is not in {lib}")
+        if "spill_bytes" not in ptxas.get(name, {}):
+            raise RuntimeError(f"{name} has no spill line in the nvcc report")
+        if c["HMMA"] + c["HGMMA"] == 0:
+            raise RuntimeError(f"{name} has no tensor-core instruction")
+        if c["LDGSTS"] + c["UTMALDG"] == 0:
+            raise RuntimeError(f"{name} has no asynchronous copy")
+        if ptxas[name]["spill_bytes"]:
+            raise RuntimeError(f"{name} spills: {ptxas[name]}")
+    return census
 
 
 # ------------------------------------------------------------------ phase 2
@@ -156,7 +259,8 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from ealdm_torch.ops.attention import (
-        flash_attention, flash_attention_packed, flash_attention_plain)
+        _split_heads, bf16_attention_shares, flash_attention, flash_attention_packed,
+        flash_attention_plain)
     from ealdm_torch.ops.norms import group_norm_kernel, group_norm_plain, silu
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -169,7 +273,16 @@ def phase_kernels():
     def check(kernel, dtype, got, want, what):
         compare(errs, kernel, dtype, got, want, what)
 
-    # -- flash attention [B, H, N, D]
+    def check_attn(name, q, k, v, what, heads=None):
+        if heads is None:
+            got, want = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+        else:
+            got = flash_attention_packed(q, k, v, heads)
+            want = flash_attention_plain(*(_split_heads(t, heads) for t in (q, k, v)))
+            want = want.transpose(1, 2).reshape(q.shape)
+        compare(errs, name, q.dtype, got, want, what, attn=(q, k, v, heads))
+
+    # -- flash attention [B, H, N, D], contiguous
     attn_cases = [("flash_attention_d32", (48, 8, 1024, 32)),
                   ("flash_attention_d32", (48, 16, 256, 32)),
                   ("flash_attention_d512", (24, 1, 1024, 512)),
@@ -177,24 +290,41 @@ def phase_kernels():
     for name, shape in attn_cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
-            check(name, dtype, flash_attention(q, k, v),
-                  flash_attention_plain(q, k, v), f"[B,H,N,D]={list(shape)}")
+            check_attn(name, q, k, v, f"[B,H,N,D]={list(shape)}")
+    # -- the head-strided view of a [B, N, H*D] projection (the main path)
+    for heads, shape in ((8, (48, 1024, 256)), (16, (48, 256, 512))):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (_split_heads(randn(*shape, dtype=dtype), heads) for _ in range(3))
+            check_attn("flash_attention_d32", q, k, v,
+                       f"split view of {list(shape)} H={heads}")
     # a ragged key/query count is masked inside the kernel
     for d in (32, 512):
-        q = randn(2, 2, 200, d, dtype=torch.float32)
-        k, v = randn(2, 2, 77, d, dtype=torch.float32), randn(2, 2, 77, d, dtype=torch.float32)
-        check(f"flash_attention_d{d}", torch.float32, flash_attention(q, k, v),
-              flash_attention_plain(q, k, v), "ragged Nq=200 Nk=77")
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(2, 2, 200, d, dtype=dtype)
+            k, v = randn(2, 2, 77, d, dtype=dtype), randn(2, 2, 77, d, dtype=dtype)
+            check_attn(f"flash_attention_d{d}", q, k, v, "ragged Nq=200 Nk=77")
     # -- packed [B, N, H*D]
     for heads, shape in ((8, (48, 1024, 256)), (16, (48, 256, 512))):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
-            b, n, hd = shape
-            split = [t.reshape(b, n, heads, hd // heads).transpose(1, 2) for t in (q, k, v)]
-            want = flash_attention_plain(*split).transpose(1, 2).reshape(shape)
-            check("flash_attention_packed", dtype,
-                  flash_attention_packed(q, k, v, heads), want,
-                  f"[B,N,HD]={list(shape)} H={heads}")
+            check_attn("flash_attention_packed", q, k, v,
+                       f"[B,N,HD]={list(shape)} H={heads}", heads)
+    # -- the limits' teeth at the main path's largest d=32 shape: two planted
+    #    faults, each of which one of the two limits must catch
+    q, k, v = (randn(48, 8, 1024, 32, dtype=torch.bfloat16) for _ in range(3))
+    want = flash_attention_plain(q, k, v)
+    readings = {
+        "sound kernel": flash_attention(q, k, v),
+        # the kernel run without the last 64-key tile: a kernel that skipped it
+        "kernel, last key tile dropped": flash_attention(q, k[:, :, :-64], v[:, :, :-64]),
+        "P rounded to 4 bits (fp8 significand)": coarse_p_attention(q, k, v, bits=4),
+    }
+    for what, got in readings.items():
+        elem, rms = bf16_attention_shares(got, q, k, v, want)
+        log(f"[limit] [48,8,1024,32] {what}: {elem:.3g} of the per-element limit, "
+            f"{rms:.3g} of the RMS limit")
+        if (max(elem, rms) <= 1) != (what == "sound kernel"):
+            raise RuntimeError(f"the bfloat16 attention limits misjudge: {what}")
     # -- GroupNorm [N, C, H, W], fp32 scale/bias
     gn_cases = [("group_norm", (48, 256, 32, 32), 1e-5),
                 ("group_norm", (48, 512, 16, 16), 1e-5),
@@ -226,35 +356,54 @@ def phase_kernels():
     bf = torch.bfloat16
     res = {}
 
-    def attn_row(name, shape, kernel_fn, plain_fn, lib_fn, replaces, qkv):
+    def attn_row(row, kernel, shape, layout, kernel_fn, plain_fn, lib_fn, replaces, qkv,
+                 counter=None):
+        """`row` names the JSON row, `kernel` the error record it reports and
+        the launch counter it reads, or `counter` = (kernel, query rows) its
+        launches at one shape."""
         b, h, n, d = shape
         flops = 4 * b * h * n * n * d
         nbytes = 4 * b * h * n * d * 2
-        bms, by = bound(flops, nbytes, PEAK_BF16)
-        res[name] = dict(
-            name=name, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention.cu",
-            replaces=replaces, launches=None, max_abs_err=errs[name],
-            ms=cuda_ms(lambda: kernel_fn(*qkv)), plain_ms=cuda_ms(lambda: plain_fn(*qkv)),
-            bound_ms=bms, bound_by=by, library_ms=cuda_ms(lambda: lib_fn(*qkv)),
-            shape=list(shape), dtype="bfloat16")
+        bms, by = bound(flops, nbytes, PEAK_BF16, exps=b * h * n * n)
+        # The exponentials are operations too (on the SFU, at their own
+        # rate); `bound_kind` says which limit it is. Times are device time
+        # (torch.profiler), which leaves out the wrapper's host time; the
+        # CUDA-event time per call (`event_ms`) is kept beside the kernel's.
+        res[row] = dict(
+            name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention.cu",
+            replaces=replaces, launches=None, max_abs_err=errs[kernel],
+            ms=device_ms(lambda: kernel_fn(*qkv)), plain_ms=device_ms(lambda: plain_fn(*qkv)),
+            bound_ms=bms, bound_by="bytes" if by == "bytes" else "operations",
+            bound_kind=by, library_ms=device_ms(lambda: lib_fn(*qkv)),
+            event_ms=cuda_ms(lambda: kernel_fn(*qkv)),
+            shape=list(shape), layout=layout, dtype="bfloat16", counter=counter or kernel)
 
-    for name, shape in (("flash_attention_d32", (48, 8, 1024, 32)),
-                        ("flash_attention_d512", (24, 1, 1024, 512))):
+    def packed(fn, heads):  # [B,H,N,D] attention on packed [B,N,H*D] q/k/v
+        return lambda q, k, v: fn(*(_split_heads(t, heads) for t in (q, k, v))) \
+            .transpose(1, 2).reshape(q.shape)
+
+    sdpa_lib = F.scaled_dot_product_attention
+    flash_replaces = "ealdm_tpu/ops/attention.py:77"
+    for row, shape in (("flash_attention_d32", (48, 8, 1024, 32)),
+                       ("flash_attention_d512", (24, 1, 1024, 512))):
         qkv = [randn(*shape, dtype=bf) for _ in range(3)]
-        attn_row(name, shape, flash_attention, flash_attention_plain,
-                 F.scaled_dot_product_attention, "ealdm_tpu/ops/attention.py:77", qkv)
-    b, n, heads, d = 48, 1024, 8, 32
-    qkv = [randn(b, n, heads * d, dtype=bf) for _ in range(3)]
-
-    def split(t):
-        return t.reshape(b, n, heads, d).transpose(1, 2)
-
-    attn_row("flash_attention_packed", (b, heads, n, d),
+        attn_row(row, row, shape, "contiguous [B,H,N,D]", flash_attention,
+                 flash_attention_plain, sdpa_lib, flash_replaces, qkv)
+    # the d=32 kernel on the main path's layout: the head-strided view of the
+    # [B, N, H*D] projection, at both UNet levels that take it
+    for row, (b, n, heads) in (("flash_attention_d32_split_n1024", (48, 1024, 8)),
+                               ("flash_attention_d32_split_n256", (48, 256, 16))):
+        qkv = [_split_heads(randn(b, n, heads * 32, dtype=bf), heads) for _ in range(3)]
+        attn_row(row, "flash_attention_d32", (b, heads, n, 32),
+                 f"head-strided view of [{b},{n},{heads * 32}]", flash_attention,
+                 flash_attention_plain, sdpa_lib, flash_replaces, qkv,
+                 counter=("flash_attention_d32", n))
+    b, n, heads = 48, 1024, 8
+    qkv = [randn(b, n, heads * 32, dtype=bf) for _ in range(3)]
+    attn_row("flash_attention_packed", "flash_attention_packed", (b, heads, n, 32),
+             f"packed [{b},{n},{heads * 32}]",
              lambda q, k, v: flash_attention_packed(q, k, v, heads),
-             lambda q, k, v: flash_attention_plain(split(q), split(k), split(v))
-             .transpose(1, 2).reshape(q.shape),
-             lambda q, k, v: F.scaled_dot_product_attention(split(q), split(k), split(v))
-             .transpose(1, 2).reshape(q.shape),
+             packed(flash_attention_plain, heads), packed(sdpa_lib, heads),
              "ealdm_tpu/ops/attention.py:272", qkv)
 
     for name, shape, eps, pre, replaces in (
@@ -283,9 +432,10 @@ def phase_kernels():
             bound_ms=bms, bound_by=by, library_ms=cuda_ms(lib),
             shape=list(shape), dtype="bfloat16")
     for r in res.values():
-        log(f"[time] {r['name']:24s} {r['shape']} kernel_ms {r['ms']:.4f} "
+        event = f" (event_ms {r['event_ms']:.4f})" if "event_ms" in r else ""
+        log(f"[time] {r['name']:32s} {r['shape']} kernel_ms {r['ms']:.4f}{event} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"bound_ms {r['bound_ms']:.4f} ({r.get('bound_kind', r['bound_by'])})")
     return res
 
 
@@ -481,12 +631,15 @@ def expected_launches(model, steps):
     def count(mod, kind):
         return sum(isinstance(m, kind) for m in mod.modules())
 
-    unet_flash = sum(st.depth for st in unet.modules()
-                     if isinstance(st, SpatialTransformer) and flash_eligible(st.tokens, st.tokens))
+    unet_flash = {}  # token count -> flash sites per UNet call
+    for st in unet.modules():
+        if isinstance(st, SpatialTransformer) and flash_eligible(st.tokens, st.tokens):
+            unet_flash[st.tokens] = unet_flash.get(st.tokens, 0) + st.depth
     vae_flash = sum(1 for part in (fs.encoder, fs.decoder) for m in part.modules()
                     if isinstance(m, VaeAttnBlock) and flash_eligible(m.tokens, m.tokens))
     return {
-        "unet_flash_sites": unet_flash * steps,
+        "unet_flash_sites": sum(unet_flash.values()) * steps,
+        "unet_flash_sites_by_tokens": {n: c * steps for n, c in sorted(unet_flash.items())},
         "vae_flash_sites": vae_flash,
         "group_norm": count(unet, GroupNorm32) * steps
         + count(fs.encoder, GroupNorm32) + count(fs.decoder, GroupNorm32),
@@ -527,9 +680,17 @@ def phase_main_path(cfg_module, steps, batch):
     t0 = time.perf_counter()
     img, z = run(steps, 2)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = dict(kernels.launches)
+    walls = [time.perf_counter() - t0]
+    counts, by_rows = dict(kernels.launches), dict(kernels.launches_by_rows)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # two more timed runs: the host's time per run varies from run to run,
+    # and img/s is the median run's
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run(steps, 2)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    dt = sorted(walls)[1]
     if tuple(img.shape) != (batch, cfg["res"], cfg["res"], 3):
         raise RuntimeError(f"output shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()) or not bool(torch.isfinite(z).all()):
@@ -538,12 +699,16 @@ def phase_main_path(cfg_module, steps, batch):
         raise RuntimeError("constant output")
     want = expected_launches(model, steps)
     got = {"unet_flash_sites": counts["flash_attention_d32"],
+           "unet_flash_sites_by_tokens": {n: c for (name, n), c in sorted(by_rows.items())
+                                          if name == "flash_attention_d32"},
            "vae_flash_sites": counts["flash_attention_d512"],
            "group_norm": counts["group_norm"] + counts["group_norm_two_pass"]}
     log(f"[main] batch {batch}, DDIM-{steps}, eta 1, CFG 2: {dt:.3f} s "
-        f"= {batch / dt:.4f} img/s (warm-up {warm_s:.1f} s), peak memory "
+        f"= {batch / dt:.4f} img/s, the median of {[round(w, 4) for w in walls]} s "
+        f"(warm-up {warm_s:.1f} s), peak memory "
         f"{peak_gb:.2f} GiB, output {list(img.shape)} std {float(img.float().std()):.4f}")
-    log(f"[main] launches {counts}; expected from the module tree {want}")
+    log(f"[main] launches {counts}, the d=32 ones by query rows "
+        f"{got['unet_flash_sites_by_tokens']}; expected from the module tree {want}")
     if got != want:
         raise RuntimeError(f"launch counts {got} differ from the module tree's {want}")
     if counts["bias_act"] != 0:
@@ -552,8 +717,9 @@ def phase_main_path(cfg_module, steps, batch):
                  "group_norm_two_pass"):
         if counts[name] == 0:
             raise RuntimeError(f"{name} was not launched on the main path")
-    return model, mixed, counts, dict(img_per_s=batch / dt, seconds=dt,
-                                      peak_gib=peak_gb, warmup_s=warm_s)
+    return model, mixed, by_rows, dict(
+        img_per_s=batch / dt, seconds=dt, walls_s=walls, peak_gib=peak_gb, warmup_s=warm_s,
+        launches=counts, d32_launches_by_rows=got["unet_flash_sites_by_tokens"])
 
 
 def phase_profile(model, mixed, batch, steps, unprofiled_s):
@@ -582,7 +748,7 @@ def phase_profile(model, mixed, batch, steps, unprofiled_s):
         f"{1 - busy / wall_s:.3f} of the profiled wall {wall_s:.3f} s, "
         f"{1 - busy / unprofiled_s:.3f} of the unprofiled {unprofiled_s:.3f} s")
     # each kernel counts in the first group whose name it contains
-    groups = {"flash attention": ("flash_row_kernel", "flash_wide_kernel"),
+    groups = {"flash attention": (*MMA_KERNELS, "flash_row_kernel", "flash_wide_kernel"),
               "group_norm": ("gn_single_kernel", "gn_partial_kernel", "gn_apply_kernel"),
               "convolution": ("fprop", "conv", "nchw", "nhwc"),
               "matmul": ("gemm", "nvjet", "cutlass"),
@@ -596,6 +762,9 @@ def phase_profile(model, mixed, batch, steps, unprofiled_s):
         log(f"[profile] {tag:16s} {t:.3f} s = {t / busy:.3f} of device time")
     for key, t, n in rows[:20]:
         log(f"[profile] {t * 1e3:9.2f} ms {t / busy:6.3f} x{n:<6d} {key[:110]}")
+    return dict(device_busy_s=busy, idle_share=1 - busy / unprofiled_s,
+                profiled_wall_s=wall_s, flash_s=totals["flash attention"],
+                flash_share=totals["flash attention"] / busy)
 
 
 def phase_packed(model, mixed, batch, steps):
@@ -695,20 +864,27 @@ def main(argv):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi_line()
+    smi = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.perf_counter()
     phase_build()
+    phase_sass()
     rows = phase_kernels()
     rows["bias_act"] = phase_ops()
     if "--kernels" not in argv:
         steps, batch = 50, 24
-        model, mixed, counts, e2e = phase_main_path(cfg_module, steps, batch)
-        for name in ("flash_attention_d32", "flash_attention_d512", "group_norm",
-                     "group_norm_two_pass"):
-            rows[name]["launches"] = counts[name]
-        phase_profile(model, mixed, batch, steps, e2e["seconds"])
+        model, mixed, by_rows, e2e = phase_main_path(cfg_module, steps, batch)
+        counts = e2e["launches"]
+        for row in rows.values():
+            # a kernel's row takes its count, a shape's row its count at that shape
+            name = row.get("counter", row["name"])
+            if isinstance(name, tuple):
+                row["launches"] = by_rows.get(name, 0)
+            elif name in ("flash_attention_d32", "flash_attention_d512", "group_norm",
+                          "group_norm_two_pass"):
+                row["launches"] = counts[name]
+        e2e.update(phase_profile(model, mixed, batch, steps, e2e["seconds"]))
         packed = phase_packed(model, mixed, batch, steps=2)
         rows["flash_attention_packed"]["launches"] = packed["flash_attention_packed"]
         phase_reference(cfg_module, model)

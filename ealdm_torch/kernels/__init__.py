@@ -2,8 +2,10 @@
 by `build.py`).
 
 `launches` counts, per kernel, the launches its wrapper made (one per
-wrapper call that reached the kernel). The wrappers live beside their plain
-PyTorch versions in `ops/attention.py`, `ops/norms.py` and `ops/bias_act.py`.
+wrapper call that reached the kernel). `launches_by_rows` splits the flash
+kernels' counts by the query-row count of each launch: {(name, rows): n}.
+The wrappers live beside their plain PyTorch versions in `ops/attention.py`,
+`ops/norms.py` and `ops/bias_act.py`.
 """
 
 KERNELS = (
@@ -16,8 +18,16 @@ KERNELS = (
 )
 
 launches = dict.fromkeys(KERNELS, 0)
+launches_by_rows = {}
+
+
+def count_launch(name: str, rows: int) -> None:
+    """One launch of kernel `name` over `rows` query rows."""
+    launches[name] += 1
+    launches_by_rows[(name, rows)] = launches_by_rows.get((name, rows), 0) + 1
 
 
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+    launches_by_rows.clear()

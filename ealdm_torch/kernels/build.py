@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` becomes `build/kernels/<hash>/lib<name>.so` at the root
 of the checkout (listed in .gitignore), where <hash> covers every source and
 the compiler flags, so an edited source is rebuilt and an unchanged one is
-reused. All sources compile at once, one nvcc process each. Nothing is built
-or imported when this module is imported: the first kernel launch (or
-`build_all`) does it.
+reused. nvcc's output (ptxas's registers, shared memory and spills) is kept
+beside it as `lib<name>.log`. All sources compile at once, one nvcc process
+each. Nothing is built or imported when this module is imported: the first
+kernel launch (or `build_all`) does it.
 """
 from __future__ import annotations
 
@@ -25,7 +26,6 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-build_log = {}  # name -> nvcc output (ptxas register/shared-memory report)
 
 
 def _nvcc() -> str:
@@ -70,10 +70,10 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     failed = []
     for name, (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
-        build_log[name] = out
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{out}")
         else:
+            lib.with_suffix(".log").write_text(out)
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -81,6 +81,26 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         _LIBS[src.stem] = ctypes.CDLL(str(out_dir / f"lib{src.stem}.so"))
     _declare(_LIBS)
     return _LIBS
+
+
+def library_path(name: str) -> Path:
+    """The shared library built from `csrc/<name>.cu`."""
+    return _build_dir() / f"lib{name}.so"
+
+
+def build_report(name: str) -> str:
+    """nvcc's output for the library built from `csrc/<name>.cu`, from this
+    build or the one that made the cached library. Raises if there is none."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        raise RuntimeError(f"no nvcc report for {name}: build it again "
+                           f"(delete {log.parent})")
+    return log.read_text()
+
+
+def cuda_tool(name: str) -> str:
+    """A program of the CUDA toolkit beside nvcc (`cuobjdump`, ...)."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -2,58 +2,77 @@
 //
 // Replaces: ealdm_tpu/ops/attention.py `_flash_kernel` (via `_flash_forward`,
 // public `flash_attention`) and `_flash_packed_kernel` (via
-// `_flash_packed_forward`, public `flash_attention_packed`). One strided
-// kernel serves both layouts: q/k/v/o are addressed by (batch, head, row)
-// strides with a contiguous head dimension, so [B,H,N,D] and the packed
-// [B,N,H*D] view ((h stride D, row stride H*D) are read without a copy.
+// `_flash_packed_forward`, public `flash_attention_packed`). Every kernel here
+// addresses q/k/v/o by (batch, head, row) strides with a contiguous head
+// dimension, so [B,H,N,D], the head-strided view of a [B,N,H*D] projection
+// (row stride H*D, head stride D) and the packed layout are all read without
+// a copy.
 //
-// Math (as the Pallas kernel): q is pre-scaled by `scale` (= D^-1/2) in fp32,
-// scores, running max/sum and the output accumulator are fp32, the output is
-// stored in the input type. A ragged key count is masked inside the kernel
-// (scores of keys >= Nk are -inf); query rows >= Nq are not stored.
+// Math (as the Pallas kernel): scores, running max and sum, and the output
+// accumulator are fp32; the output is stored in the input type. A ragged key
+// count is masked inside the kernel (scores of keys >= Nk are -inf); query
+// rows >= Nq are not stored. Every key tile holds at least one valid key, so
+// the running max is finite after the first tile.
 //
-// Bound on this card: 4*B*H*Nq*Nk*D operations. The UNet's d=32 calls are
-// far above the bytes/ops ridge (about 51.5 GFLOP against 6 MB in and 3 MB out
-// for [48,8,1024,32] bf16), so the tensor-core rate is the bound. This first
-// version uses fp32 FMA (no tensor cores) and keeps scores out of device
-// memory, which is what the TPU kernel did too; wgmma/TMA come later.
+// bfloat16, the main path (`flash_mma_d32_kernel`, `flash_mma_d512_kernel`):
+// both products on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
+// accumulate). The scale is applied to the fp32 scores, folded with log2(e)
+// into one FMA before ex2.approx; P is rounded to bf16 for P*V (as the TPU's
+// MXU rounds it), the row sums use the fp32 P. K/V tiles are staged in shared
+// memory as bf16 by 16-byte cp.async copies (keys >= Nk zero-filled), double
+// buffered so the next tile's copy overlaps this tile's math. Shared-memory
+// rows are padded by 16 bytes, so the 8 rows an ldmatrix phase reads fall in
+// 8 distinct 16-byte bank groups.
 //
-// Design:
-//  * D = 32 (`flash_row_kernel`): one thread owns one query row: q and the
-//    output accumulator sit in registers, K/V tiles of 64 keys are staged in
-//    shared memory as fp32 and read by all threads at the same address
-//    (broadcast, no bank conflicts). 128 rows per block.
-//  * D = 512 (`flash_wide_kernel`, the VAE's single head): a row's 512-wide
-//    accumulator does not fit one thread, so D is split across threads for
-//    P*V (each of 256 threads owns 2 columns of all 32 rows of the block) and
-//    the scores are computed per warp (4 rows x 32 keys, one key per lane,
-//    K rows padded by one word so lanes hit distinct banks). K/V tiles of
-//    32 keys x 512 live in dynamic shared memory (~200 KB with Q).
+//  * D = 32, the UNet's heads. Bound on this card: the softmax's exponentials,
+//    not the tensor cores. A score costs 4*D = 128 tensor-core operations but
+//    one ex2 on the SFU, which issues 16 a clock per SM: 4.18e12/s at the
+//    H100 SXM's 1980 MHz maximum SM clock against 989e12 op/s, so exp time
+//    is nearly twice the operation time ([48,8,1024,32]: 0.096 ms against
+//    0.052; at [48,16,256,32] the bytes bind, 0.0150 ms).
+//    Design: a block of 4 warps owns 64 query rows, 16 per warp; Q's
+//    A-fragments are loaded once from global memory into registers (16x32
+//    bf16, 2 k-steps). Per 64-key tile a warp runs S = Q*K^T (8 n-tiles x 2
+//    k-steps, K from ldmatrix) into 32 fp32 registers, the online softmax
+//    over its quad (shfl_xor 1, 2), packs P to bf16 A-fragments in registers
+//    (the m16n8 C layout is the m16n8k16 A layout) and runs O += P*V (V from
+//    ldmatrix.trans) into 16 fp32 registers. 20 KiB of shared memory a
+//    block; at 78 registers a thread 6 blocks share an SM.
+//  * D = 512, the VAE's single head. Bound: operations (its exps take an
+//    eighth of the operation time). Design: 64 query rows per block, 8 warps;
+//    Q (64x512) stays in shared memory, K/V tiles of 32 keys x 512 are
+//    double buffered (215,552 bytes in all, one block an SM). Each warp
+//    computes a 16x16 piece of S over the full depth (Q and K by ldmatrix),
+//    the pieces meet in shared memory, 4 threads a row run the online
+//    softmax and write P (bf16) and the per-row rescale, and each warp keeps
+//    a 64-row x 64-column strip of O in 128 fp32 registers, reading P as
+//    A-fragments and V by ldmatrix.trans.
+//
+// float32 keeps the first port's FMA kernels (`flash_row_kernel`,
+// `flash_wide_kernel`): one thread per query row for D = 32, D split over
+// 256 threads for D = 512, fp32 tiles in shared memory. They are the card's
+// float32 reference; the main path runs bfloat16.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using bf16 = __nv_bfloat16;
 
 struct Strides {
   long long b, h, n;
 };
 
+// ================================================================ float32
 // ---------------------------------------------------------------- D = 32
-template <typename T, int D, int BQ, int BK>
+template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(BQ)
-flash_row_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Nq,
-                 int Nk, Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale) {
+flash_row_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+                 Strides os, float scale) {
   __shared__ float4 Ks[BK * D / 4];
   __shared__ float4 Vs[BK * D / 4];
   float* Kf = reinterpret_cast<float*>(Ks);
@@ -63,14 +82,14 @@ flash_row_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int row = blockIdx.x * BQ + threadIdx.x;
   const bool active = row < Nq;
-  const T* kp = k + b * ks.b + h * ks.h;
-  const T* vp = v + b * vs.b + h * vs.h;
+  const float* kp = k + b * ks.b + h * ks.h;
+  const float* vp = v + b * vs.b + h * vs.h;
 
   float qr[D];
   if (active) {
-    const T* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n;
+    const float* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f32(qp[d]) * scale;
+    for (int d = 0; d < D; ++d) qr[d] = qp[d] * scale;
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) qr[d] = 0.f;
@@ -87,8 +106,8 @@ flash_row_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (key < Nk) {
-        kv = to_f32(kp[(long long)key * ks.n + d]);
-        vv = to_f32(vp[(long long)key * vs.n + d]);
+        kv = kp[(long long)key * ks.n + d];
+        vv = vp[(long long)key * vs.n + d];
       }
       Kf[idx] = kv;
       Vf[idx] = vv;
@@ -134,9 +153,9 @@ flash_row_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (active) {
     const float inv = 1.f / l;
-    T* op = o + b * os.b + h * os.h + (long long)row * os.n;
+    float* op = o + b * os.b + h * os.h + (long long)row * os.n;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * inv);
+    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
   }
 }
 
@@ -148,12 +167,12 @@ constexpr size_t wide_smem_bytes() {
                           (size_t)BK * D + (size_t)BK * BQ + 2 * BQ);
 }
 
-template <typename T, int D, int BQ, int BK, int NT>
+template <int D, int BQ, int BK, int NT>
 __global__ void __launch_bounds__(NT)
-flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int H, int Nq,
-                  int Nk, Strides qs, Strides ks, Strides vs, Strides os,
-                  float scale) {
+flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int H,
+                  int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+                  Strides os, float scale) {
   static_assert(BK == 32, "one key per lane");
   static_assert(BQ == 4 * (NT / 32), "4 rows per warp");
   static_assert(D % NT == 0 && D % 4 == 0, "columns split evenly");
@@ -172,15 +191,14 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int row0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* kp = k + b * ks.b + h * ks.h;
-  const T* vp = v + b * vs.b + h * vs.h;
+  const float* kp = k + b * ks.b + h * ks.h;
+  const float* vp = v + b * vs.b + h * vs.h;
 
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int i = idx / D, d = idx % D;
     const int row = row0 + i;
-    Qs[idx] = row < Nq
-        ? to_f32(q[b * qs.b + h * qs.h + (long long)row * qs.n + d]) * scale
-        : 0.f;
+    Qs[idx] = row < Nq ? q[b * qs.b + h * qs.h + (long long)row * qs.n + d] * scale
+                       : 0.f;
   }
   float acc[BQ][COLS];
 #pragma unroll
@@ -199,8 +217,8 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (key < Nk) {
-        kv = to_f32(kp[(long long)key * ks.n + d]);
-        vv = to_f32(vp[(long long)key * vs.n + d]);
+        kv = kp[(long long)key * ks.n + d];
+        vv = vp[(long long)key * vs.n + d];
       }
       Ks[j * KP + d] = kv;
       Vs[j * D + d] = vv;
@@ -280,35 +298,479 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = row0 + i;
     if (row >= Nq) break;
     const float inv = 1.f / l_s[i];
-    T* op = o + b * os.b + h * os.h + (long long)row * os.n;
+    float* op = o + b * os.b + h * os.h + (long long)row * os.n;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) op[tid + c * NT] = from_f32<T>(acc[i][c] * inv);
+    for (int c = 0; c < COLS; ++c) op[tid + c * NT] = acc[i][c] * inv;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int H, int Nq, int Nk, int D, Strides qs, Strides ks,
-                   Strides vs, Strides os, float scale, cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  T* o_ = static_cast<T*>(o);
+// =============================================================== bfloat16
+// ---------------------------------------------------------------- helpers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; `valid` false zero-fills the 16 bytes and
+// reads nothing (src-size 0), so `src` only has to be a mapped address.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d += a * b on a 16x8x16 tile: bf16 A (row) and B (col), fp32 C/D.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats -> one register of two bf16, `lo` in the low half (the lower
+// column of an mma fragment)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------- D = 32
+constexpr int kD32Rows = 64;     // query rows a block: 4 warps x 16
+constexpr int kD32Keys = 64;     // keys a tile
+constexpr int kD32Ld = 32 + 8;   // smem row: 80 bytes
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4*g + t. A (16x16):
+// a0 (row g, cols 2t..2t+1), a1 (row g+8), a2 (row g, cols 2t+8..), a3
+// (row g+8, cols 2t+8..). B (16x8): b0 (rows 2t..2t+1, col g), b1 (rows
+// 2t+8..). C (16x8): c0,c1 (row g, cols 2t..2t+1), c2,c3 (row g+8).
+__global__ void __launch_bounds__(128)
+flash_mma_d32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                     int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+                     Strides os, float scale_log2) {
+  __shared__ __align__(16) bf16 Ks[2][kD32Keys * kD32Ld];
+  __shared__ __align__(16) bf16 Vs[2][kD32Keys * kD32Ld];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const bf16* kp = k + b * ks.b + h * ks.h;
+  const bf16* vp = v + b * vs.b + h * vs.h;
+
+  // a tile is 64 keys x 4 chunks of 16 bytes, for K and for V
+  auto load_tile = [&](int tile, int buf) {
+    const int k0 = tile * kD32Keys;
+#pragma unroll
+    for (int c = tid; c < kD32Keys * 4; c += 128) {
+      const int j = c >> 2, ch = c & 3;
+      const bool ok = k0 + j < Nk;
+      const long long key = ok ? k0 + j : 0;
+      cp_async16(smem_u32(&Ks[buf][j * kD32Ld + ch * 8]), kp + key * ks.n + ch * 8, ok);
+      cp_async16(smem_u32(&Vs[buf][j * kD32Ld + ch * 8]), vp + key * vs.n + ch * 8, ok);
+    }
+    cp_async_commit();
+  };
+  const int ntiles = (Nk + kD32Keys - 1) / kD32Keys;
+  load_tile(0, 0);
+
+  // Q's A-fragments for the two k-steps (d 0..15, 16..31), straight from
+  // global memory; rows >= Nq are zeros
+  const int r0 = blockIdx.x * kD32Rows + warp * 16 + g, r1 = r0 + 8;
+  const bf16* qp = q + b * qs.b + h * qs.h;
+  uint32_t qa[2][4];
+#pragma unroll
+  for (int ks_ = 0; ks_ < 2; ++ks_) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = 16 * ks_ + 8 * half + 2 * t;
+      qa[ks_][2 * half] = r0 < Nq
+          ? *reinterpret_cast<const uint32_t*>(qp + r0 * qs.n + col) : 0u;
+      qa[ks_][2 * half + 1] = r1 < Nq
+          ? *reinterpret_cast<const uint32_t*>(qp + r1 * qs.n + col) : 0u;
+    }
+  }
+
+  float acc[4][4];  // O: 16 rows x 4 n-tiles of 8 columns
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g+8 (raw scores)
+  float l0 = 0.f, l1 = 0.f;              // this thread's part of the row sums
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    cp_async_wait_all();  // this tile has landed
+    __syncthreads();      // ... for every thread; the other buffer is free
+    if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
+    const bf16* Kt = Ks[buf];
+    const bf16* Vt = Vs[buf];
+
+    // S = Q K^T: 16 rows x 64 keys in 8 n-tiles. One ldmatrix.x4 gives a
+    // key octet's B-fragments for both k-steps (d chunks 0, 8, 16, 24).
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      uint32_t kb[4];
+      ldsm_x4(kb, smem_u32(Kt + (nt * 8 + (lane & 7)) * kD32Ld + (lane >> 3) * 8));
+      mma_bf16(s[nt], qa[0], kb[0], kb[1]);
+      mma_bf16(s[nt], qa[1], kb[2], kb[3]);
+    }
+    const int k0 = tile * kD32Keys;
+    if (k0 + kD32Keys > Nk) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + nt * 8 + 2 * t + (e & 1) >= Nk) s[nt][e] = -INFINITY;
+    }
+
+    // online softmax in base 2: p = 2^(s*c - m*c), c = scale * log2(e)
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float alpha0 = ex2((m0 - mx0) * scale_log2);
+    const float alpha1 = ex2((m1 - mx1) * scale_log2);
+    m0 = mx0;
+    m1 = mx1;
+    const float mc0 = mx0 * scale_log2, mc1 = mx1 * scale_log2;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) {
+      acc[dt][0] *= alpha0;
+      acc[dt][1] *= alpha0;
+      acc[dt][2] *= alpha1;
+      acc[dt][3] *= alpha1;
+    }
+    // P as A-fragments of the 4 k-steps of P*V: n-tiles 2kk and 2kk+1 of S
+    // are the column halves of k-step kk
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float p0 = ex2(fmaf(s[nt][0], scale_log2, -mc0));
+      const float p1 = ex2(fmaf(s[nt][1], scale_log2, -mc0));
+      const float p2 = ex2(fmaf(s[nt][2], scale_log2, -mc1));
+      const float p3 = ex2(fmaf(s[nt][3], scale_log2, -mc1));
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
+      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // O += P V: one ldmatrix.x4.trans gives the B-fragments of two n-tiles
+    // (keys 16kk..16kk+15, d 16dp..16dp+15)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < 2; ++dp) {
+        uint32_t vb[4];
+        const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = 16 * dp + (lane >> 4) * 8;
+        ldsm_x4_trans(vb, smem_u32(Vt + key * kD32Ld + col));
+        mma_bf16(acc[2 * dp], pa[kk], vb[0], vb[1]);
+        mma_bf16(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
+      }
+    }
+  }
+
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  bf16* op = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (r0 < Nq)
+      *reinterpret_cast<uint32_t*>(op + r0 * os.n + col) =
+          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    if (r1 < Nq)
+      *reinterpret_cast<uint32_t*>(op + r1 * os.n + col) =
+          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+  }
+}
+
+// ---------------------------------------------------------------- D = 512
+constexpr int kWD = 512;
+constexpr int kWRows = 64;        // query rows a block
+constexpr int kWKeys = 32;        // keys a tile
+constexpr int kWThreads = 256;    // 8 warps
+constexpr int kWLd = kWD + 8;     // Q/K/V smem row: 1040 bytes
+constexpr int kWSLd = kWKeys + 8; // fp32 score row
+constexpr int kWPLd = kWKeys + 8; // bf16 P row: 80 bytes
+constexpr size_t kWSmem =
+    sizeof(bf16) * ((size_t)kWRows * kWLd + 4 * (size_t)kWKeys * kWLd +
+                    (size_t)kWRows * kWPLd) +
+    sizeof(float) * ((size_t)kWRows * kWSLd + 2 * kWRows);
+
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_mma_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                      int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+                      Strides os, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][kWLd]
+  bf16* Ks = Qs + kWRows * kWLd;                 // [2][32][kWLd]
+  bf16* Vs = Ks + 2 * kWKeys * kWLd;             // [2][32][kWLd]
+  bf16* Ps = Vs + 2 * kWKeys * kWLd;             // [64][kWPLd]
+  float* Ss = reinterpret_cast<float*>(Ps + kWRows * kWPLd);  // [64][kWSLd]
+  float* alpha_s = Ss + kWRows * kWSLd;          // [64]
+  float* l_s = alpha_s + kWRows;                 // [64]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int row0 = blockIdx.x * kWRows;
+  const bf16* kp = k + b * ks.b + h * ks.h;
+  const bf16* vp = v + b * vs.b + h * vs.h;
+  constexpr int kChunks = kWD / 8;  // 16-byte chunks a row
+
+  {  // Q, rows >= Nq zero-filled; joins the first tile's copy group
+    const bf16* qp = q + b * qs.b + h * qs.h;
+    for (int c = tid; c < kWRows * kChunks; c += kWThreads) {
+      const int i = c / kChunks, ch = c % kChunks;
+      const bool ok = row0 + i < Nq;
+      const long long row = ok ? row0 + i : 0;
+      cp_async16(smem_u32(Qs + i * kWLd + ch * 8), qp + row * qs.n + ch * 8, ok);
+    }
+  }
+  auto load_tile = [&](int tile, int buf) {
+    const int k0 = tile * kWKeys;
+    bf16* Kb = Ks + buf * kWKeys * kWLd;
+    bf16* Vb = Vs + buf * kWKeys * kWLd;
+#pragma unroll 4
+    for (int c = tid; c < kWKeys * kChunks; c += kWThreads) {
+      const int j = c / kChunks, ch = c % kChunks;
+      const bool ok = k0 + j < Nk;
+      const long long key = ok ? k0 + j : 0;
+      cp_async16(smem_u32(Kb + j * kWLd + ch * 8), kp + key * ks.n + ch * 8, ok);
+      cp_async16(smem_u32(Vb + j * kWLd + ch * 8), vp + key * vs.n + ch * 8, ok);
+    }
+    cp_async_commit();
+  };
+  const int ntiles = (Nk + kWKeys - 1) / kWKeys;
+  load_tile(0, 0);
+
+  float acc[4][8][4];  // O: 64 rows (4 m-tiles) x this warp's 64 columns
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  // softmax: 4 threads a row, 8 keys each
+  const int sr = tid >> 2, sq = tid & 3;
+  float m_run = -INFINITY, l_run = 0.f;
+  // S piece of this warp: rows 16*smt.., keys 16*skh..
+  const int smt = warp & 3, skh = warp >> 2;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile landed for all; P, alpha and the old buffers are free
+    if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
+    const bf16* Kt = Ks + buf * kWKeys * kWLd;
+    const bf16* Vt = Vs + buf * kWKeys * kWLd;
+
+    // S piece = Q[16 rows] K[16 keys]^T over the full depth, 32 k-steps
+    float s[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    const uint32_t qa_addr =
+        smem_u32(Qs + (16 * smt + (lane & 15)) * kWLd + (lane >> 4) * 8);
+    const uint32_t kb_addr = smem_u32(
+        Kt + (16 * skh + (lane & 7) + (lane >> 4) * 8) * kWLd + ((lane >> 3) & 1) * 8);
+#pragma unroll 8
+    for (int kstep = 0; kstep < kWD / 16; ++kstep) {
+      uint32_t a[4], kb[4];
+      ldsm_x4(a, qa_addr + kstep * 32);
+      ldsm_x4(kb, kb_addr + kstep * 32);
+      mma_bf16(s[0], a, kb[0], kb[1]);
+      mma_bf16(s[1], a, kb[2], kb[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = 16 * skh + 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(Ss + (16 * smt + g) * kWSLd + col) =
+          make_float2(s[nt][0], s[nt][1]);
+      *reinterpret_cast<float2*>(Ss + (16 * smt + g + 8) * kWSLd + col) =
+          make_float2(s[nt][2], s[nt][3]);
+    }
+    __syncthreads();
+
+    {  // online softmax of row sr, keys 8*sq .. 8*sq+7
+      const float4 lo = *reinterpret_cast<const float4*>(Ss + sr * kWSLd + 8 * sq);
+      const float4 hi = *reinterpret_cast<const float4*>(Ss + sr * kWSLd + 8 * sq + 4);
+      float sv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      const int key0 = tile * kWKeys + 8 * sq;
+      float mx = m_run;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (key0 + i >= Nk) sv[i] = -INFINITY;
+        mx = fmaxf(mx, sv[i]);
+      }
+      mx = quad_max(mx);  // the 4 threads of a row are one quad
+      const float alpha = ex2((m_run - mx) * scale_log2);
+      m_run = mx;
+      const float mc = mx * scale_log2;
+      l_run *= alpha;
+      uint32_t packed[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p0 = ex2(fmaf(sv[2 * i], scale_log2, -mc));
+        const float p1 = ex2(fmaf(sv[2 * i + 1], scale_log2, -mc));
+        l_run += p0 + p1;
+        packed[i] = pack_bf16(p0, p1);
+      }
+      *reinterpret_cast<uint4*>(Ps + sr * kWPLd + 8 * sq) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      if (sq == 0) alpha_s[sr] = alpha;
+    }
+    __syncthreads();
+
+    // O = O * alpha + P V on this warp's 64 columns
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const float a_lo = alpha_s[16 * mt + g], a_hi = alpha_s[16 * mt + g + 8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[mt][nt][0] *= a_lo;
+        acc[mt][nt][1] *= a_lo;
+        acc[mt][nt][2] *= a_hi;
+        acc[mt][nt][3] *= a_hi;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kWKeys / 16; ++kk) {
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_x4(pa[mt], smem_u32(Ps + (16 * mt + (lane & 15)) * kWPLd + 16 * kk +
+                                 (lane >> 4) * 8));
+      const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, smem_u32(Vt + key * kWLd + 64 * warp + 16 * np +
+                                   (lane >> 4) * 8));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma_bf16(acc[mt][2 * np], pa[mt], vb[0], vb[1]);
+          mma_bf16(acc[mt][2 * np + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  l_run = quad_sum(l_run);
+  if (sq == 0) l_s[sr] = l_run;
+  __syncthreads();
+  bf16* op = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    const int ra = 16 * mt + g, rb = ra + 8;
+    const float inv_a = 1.f / l_s[ra], inv_b = 1.f / l_s[rb];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 64 * warp + 8 * nt + 2 * t;
+      if (row0 + ra < Nq)
+        *reinterpret_cast<uint32_t*>(op + (long long)(row0 + ra) * os.n + col) =
+            pack_bf16(acc[mt][nt][0] * inv_a, acc[mt][nt][1] * inv_a);
+      if (row0 + rb < Nq)
+        *reinterpret_cast<uint32_t*>(op + (long long)(row0 + rb) * os.n + col) =
+            pack_bf16(acc[mt][nt][2] * inv_b, acc[mt][nt][3] * inv_b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
+                       int B, int H, int Nq, int Nk, int D, Strides qs,
+                       Strides ks, Strides vs, Strides os, float scale,
+                       cudaStream_t stream) {
   if (D == 32) {
     constexpr int BQ = 128, BK = 64;
     dim3 grid((Nq + BQ - 1) / BQ, B * H);
-    flash_row_kernel<T, 32, BQ, BK><<<grid, BQ, 0, stream>>>(
-        q_, k_, v_, o_, H, Nq, Nk, qs, ks, vs, os, scale);
+    flash_row_kernel<32, BQ, BK><<<grid, BQ, 0, stream>>>(
+        q, k, v, o, H, Nq, Nk, qs, ks, vs, os, scale);
   } else if (D == 512) {
     constexpr int BQ = 32, BK = 32, NT = 256;
     constexpr size_t smem = wide_smem_bytes<512, BQ, BK>();
-    auto kern = flash_wide_kernel<T, 512, BQ, BK, NT>;
+    auto kern = flash_wide_kernel<512, BQ, BK, NT>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     dim3 grid((Nq + BQ - 1) / BQ, B * H);
-    kern<<<grid, NT, smem, stream>>>(q_, k_, v_, o_, H, Nq, Nk, qs, ks, vs, os,
+    kern<<<grid, NT, smem, stream>>>(q, k, v, o, H, Nq, Nk, qs, ks, vs, os,
                                      scale);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// The caller guarantees 16-byte aligned bases and strides that are
+// multiples of 8 elements (the cp.async and 4-byte fragment accesses).
+cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                        int B, int H, int Nq, int Nk, int D, Strides qs,
+                        Strides ks, Strides vs, Strides os, float scale,
+                        cudaStream_t stream) {
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (D == 32) {
+    dim3 grid((Nq + kD32Rows - 1) / kD32Rows, B * H);
+    flash_mma_d32_kernel<<<grid, 128, 0, stream>>>(q, k, v, o, H, Nq, Nk, qs, ks,
+                                                   vs, os, scale_log2);
+  } else if (D == kWD) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_mma_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kWSmem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((Nq + kWRows - 1) / kWRows, B * H);
+    flash_mma_d512_kernel<<<grid, kWThreads, kWSmem, stream>>>(
+        q, k, v, o, H, Nq, Nk, qs, ks, vs, os, scale_log2);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -331,11 +793,13 @@ extern "C" int ealdm_flash_attention(
       os{o_sb, o_sh, o_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os,
-                              scale, s);
+    return (int)launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<float*>(o), B,
+                           H, Nq, Nk, D, qs, ks, vs, os, scale, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs,
-                                      os, scale, s);
+    return (int)launch_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                            static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H,
+                            Nq, Nk, D, qs, ks, vs, os, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

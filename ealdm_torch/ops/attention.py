@@ -3,8 +3,13 @@
 `flash_attention` ([B, H, N, D]) and `flash_attention_packed` ([B, N, H*D])
 launch the hand-written kernel (`kernels/csrc/flash_attention.cu`) on CUDA
 tensors and run `flash_attention_plain`, the same math in torch, on CPU
-tensors. `sdpa` (the dense default) and `tiny_ctx_attention_packed` are
-plain torch, as they are plain jnp in the JAX package.
+tensors. bfloat16 runs on the tensor cores and rounds P to bfloat16 before
+P*V (as the TPU's MXU does); it needs 16-byte aligned tensors with strides
+in multiples of 8 elements and raises otherwise. float32 runs on FMA.
+`bf16_attention_shares` states the limits a bfloat16 kernel is held to
+against the plain version. `sdpa` (the dense default) and
+`tiny_ctx_attention_packed` are plain torch, as they are plain jnp in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -16,8 +21,8 @@ from .. import kernels
 from ..kernels import build
 
 __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
-           "flash_attention_plain", "tiny_ctx_attention_packed",
-           "set_attention_impl", "attention_impl"]
+           "flash_attention_plain", "bf16_attention_shares",
+           "tiny_ctx_attention_packed", "set_attention_impl", "attention_impl"]
 
 # "dense" (default), "flash" (the kernel at eligible self-attention sites) or
 # "flash_packed" (the kernel on the projection-native [B, N, H*D] layout, plus
@@ -61,8 +66,52 @@ def flash_attention_plain(q, k, v, scale=None):
 
 
 def _split_heads(t, heads):
+    """The [B, H, N, D] view of a packed [B, N, H*D] tensor."""
     b, n, hd = t.shape
     return t.reshape(b, n, heads, hd // heads).transpose(1, 2)
+
+
+# bfloat16's unit roundoff: rounding to nearest with an 8-bit significand errs
+# by at most 2^-8 of the value.
+BF16_ROUNDOFF = 2**-8
+
+
+def bf16_attention_shares(got, q, k, v, want, heads=None, scale=None,
+                          p_rounding=BF16_ROUNDOFF):
+    """How much of its two limits a bfloat16 kernel's output `got` uses
+    against `want` = flash_attention_plain(q, k, v), on [B, H, N, D] tensors
+    or, given `heads`, packed [B, N, H*D] ones: (the largest share of the
+    per-element limit, the share of the RMS limit). Both must be <= 1.
+
+    The kernel and the plain version compute in float32 and round once to
+    bfloat16, which leaves them at most one ulp apart, and an ulp is at most
+    2^-7 of the value: two ulps of each reference element plus 1e-4. The
+    kernel also rounds P to bfloat16 before P*V, as the TPU's MXU does; the
+    plain version keeps P in float32. Each p*v term errs by at most 2^-8 of
+    itself, so |do_i| <= 2^-8 * sum_j p_ij |v_j| / l_i <= 2^-8 * max_j |v_j|
+    (l_i sums the unrounded p): the per-element limit adds
+    `p_rounding` * max|v| over the keys of each (batch, head).
+
+    That worst case needs every error of a row to point one way, so a kernel
+    with a much coarser P could pass it. The RMS limit holds the typical
+    error: with each relative rounding error uniform on [-u, u] (variance
+    u^2 / 3), P's rounding gives o_id a variance of
+    u^2 / 3 * sum_j p_ij^2 v_jd^2 / l_i^2, and the two roundings of the output
+    add at most 2 * u^2 / 3 * o_id^2. The RMS of got - want may be at most
+    twice the root of their mean."""
+    if heads is not None:
+        got, q, k, v, want = (_split_heads(t, heads) for t in (got, q, k, v, want))
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    want = want.float()
+    diff = (got.float() - want).abs()
+    vmax = v.float().abs().amax(dim=(2, 3), keepdim=True)
+    elem = 2 * 2**-7 * want.abs() + 1e-4 + p_rounding * vmax
+    p = torch.softmax(torch.matmul(q.float() * scale, k.float().transpose(-1, -2)), dim=-1)
+    var = (p_rounding**2 * torch.matmul(p.square(), v.float().square())
+           + 2 * BF16_ROUNDOFF**2 * want.square()) / 3
+    rms_share = (diff.square().mean() / (4 * var.mean())).sqrt()
+    return (diff / elem).max().item(), rms_share.item()
 
 
 def flash_attention(q, k, v, scale=None):
@@ -77,7 +126,7 @@ def flash_attention(q, k, v, scale=None):
     d = q.shape[3]
     _launch(q, k, v, o, q.shape[0], q.shape[1], q.shape[2], k.shape[2], d,
             [t.stride()[:3] for t in (q, k, v, o)], scale)
-    kernels.launches[f"flash_attention_d{d}"] += 1
+    kernels.count_launch(f"flash_attention_d{d}", q.shape[2])
     return o
 
 
@@ -98,7 +147,7 @@ def flash_attention_packed(q, k, v, heads, scale=None):
     # (batch, head, row) strides of the packed view: heads are d-column strips
     strides = [(t.stride(0), d * t.stride(2), t.stride(1)) for t in (q, k, v, o)]
     _launch(q, k, v, o, b, heads, nq, k.shape[1], d, strides, scale)
-    kernels.launches["flash_attention_packed"] += 1
+    kernels.count_launch("flash_attention_packed", nq)
     return o
 
 
@@ -112,6 +161,8 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
         raise ValueError("q, k, v must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):
         raise ValueError("the head dimension must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_bf16_alignment((q, k, v, o), strides, (b, h, nq), (b, h, nk))
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     flat = [s for triple in strides for s in triple]
@@ -122,6 +173,20 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention")
+
+
+def _check_bf16_alignment(tensors, strides, q_sizes, kv_sizes):
+    """The bfloat16 kernels copy rows in 16-byte pieces: every base must be
+    16-byte aligned and every (batch, head, row) stride of a dimension
+    longer than 1 a multiple of 8 elements."""
+    for name, t, triple, sizes in zip("qkvo", tensors, strides,
+                                      (q_sizes, kv_sizes, kv_sizes, q_sizes)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"bfloat16 flash attention needs 16-byte aligned "
+                             f"tensors; {name} starts at {t.data_ptr() % 16} past")
+        if any(s % 8 for s, n in zip(triple, sizes) if n > 1):
+            raise ValueError(f"bfloat16 flash attention needs strides that are "
+                             f"multiples of 8 elements; {name} has {tuple(triple)}")
 
 
 def tiny_ctx_attention_packed(q, k, v, heads, scale=None):

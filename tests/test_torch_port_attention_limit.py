@@ -1,0 +1,160 @@
+"""The bfloat16 flash-attention limits, checked where there is no card.
+
+The bfloat16 kernels (`ealdm_torch/kernels/csrc/flash_attention.cu`) run the
+online softmax over key tiles (64 keys at d=32, 32 at d=512) in float32, in
+base 2 (p = 2^(s*c - m*c), c = scale * log2(e)), round P to bfloat16 before
+P*V and accumulate in float32; the row sums use the unrounded P. `emulate`
+repeats that arithmetic in torch. The card checks hold the kernels to the
+two limits of `bf16_attention_shares` against `flash_attention_plain`, which
+keeps P in float32: per element, two bf16 ulps of each reference element +
+1e-4 + 2^-8 * max|v| (the worst case of P's rounding), and the RMS of the
+error against that of P's rounding (see its docstring for the derivation).
+
+Here the emulation is held to both limits, shown to agree with the JAX
+Pallas kernel (interpret mode) when the rounding is off, and shown to break
+them when the online softmax is wrong or P is rounded more coarsely, so that
+the limits would catch a kernel with those faults.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ealdm_tpu.ops.attention import _flash_packed_forward
+from ealdm_torch.ops.attention import bf16_attention_shares, flash_attention_plain
+
+LOG2E = 1.4426950408889634
+BLOCK_K = {32: 64, 512: 32}  # keys a tile in the bfloat16 kernels
+
+
+def round_significand(x, bits):
+    """x rounded to nearest (ties to even) with a `bits`-bit significand:
+    8 is bfloat16, 4 an fp8 (e4m3) significand."""
+    m, e = torch.frexp(x)  # m in [0.5, 1)
+    return torch.ldexp(torch.round(m * 2**bits) / 2**bits, e)
+
+
+def emulate(q, k, v, block_k, scale=None, p_bits=8, rescale=True, last_tile=True):
+    """The kernels' arithmetic on [B, H, Nq, D] q and [B, H, Nk, D] k/v;
+    returns the float32 output before its rounding to q's dtype. P is
+    rounded to `p_bits` significant bits (None: not rounded). The switches
+    break it: `rescale=False` drops the alpha rescale of the running sum and
+    output, `last_tile=False` skips the last key tile, and `p_bits` below 8
+    rounds P more coarsely than bfloat16."""
+    nk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:3] + (1,), -math.inf)
+    l = torch.zeros(q.shape[:3] + (1,))
+    acc = torch.zeros(qf.shape)
+    ntiles = -(-nk // block_k)
+    for t in range(ntiles if last_tile else ntiles - 1):
+        kt, vt = kf[:, :, t * block_k:(t + 1) * block_k], vf[:, :, t * block_k:(t + 1) * block_k]
+        s = qf @ kt.transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - m_new * c)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = (p if p_bits is None else round_significand(p, p_bits)) @ vt
+        acc = (acc * alpha if rescale else acc) + pv
+        m = m_new
+    return acc / l
+
+
+def shares(got, q, k, v, **kw):
+    """(per-element, RMS) shares of the limits that `got` uses against
+    flash_attention_plain."""
+    return bf16_attention_shares(got.to(torch.bfloat16), q, k, v,
+                                 flash_attention_plain(q, k, v, kw.get("scale")), **kw)
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+
+
+# (B, H, Nq, Nk): equal counts on whole tiles, and ragged counts whose last
+# key tile is partly filled
+SHAPES = {32: [(2, 2, 128, 128), (2, 3, 100, 104), (1, 2, 65, 1)],
+          512: [(1, 1, 64, 64), (2, 1, 70, 45), (1, 1, 1, 33)]}
+
+
+@pytest.mark.parametrize("d,shape", [(d, s) for d in SHAPES for s in SHAPES[d]])
+def test_emulation_within_limit(d, shape):
+    b, h, nq, nk = shape
+    rng = np.random.default_rng(nq * 1000 + nk + d)
+    q, k, v = _bf16(rng, b, h, nq, d), _bf16(rng, b, h, nk, d), _bf16(rng, b, h, nk, d)
+    assert max(shares(emulate(q, k, v, BLOCK_K[d]), q, k, v)) <= 1
+
+
+@pytest.mark.parametrize("heads,d", [(2, 32), (1, 512)])
+def test_emulation_matches_pallas_without_rounding(heads, d):
+    """float32, P unrounded: the emulation is the Pallas kernel's online
+    softmax (base 2 instead of e, the scale on the scores instead of q), on
+    the packed [B, N, H*D] layout with the same key tile."""
+    b, n = 2, 128
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal((b, n, heads * d)).astype(np.float32) for _ in range(3))
+    want = _flash_packed_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads,
+                                 block_k=BLOCK_K[d], interpret=True)
+
+    def split(x):
+        return torch.from_numpy(x).reshape(b, n, heads, d).transpose(1, 2)
+
+    got = emulate(split(q), split(k), split(v), BLOCK_K[d], p_bits=None)
+    got = got.transpose(1, 2).reshape(b, n, heads * d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [32, 512])
+@pytest.mark.parametrize("fault", ["no_alpha_rescale", "skip_last_ragged_tile"])
+def test_broken_emulation_breaks_limit(d, fault):
+    """Two faults an online-softmax kernel can have, each far outside the
+    limit: the limit would catch them on the card."""
+    bk = BLOCK_K[d]
+    b, h, nq, nk = 1, 2, 64, 2 * bk + bk // 2 + 3  # two full tiles and a ragged one
+    rng = np.random.default_rng(11)
+    q, k, v = _bf16(rng, b, h, nq, d), _bf16(rng, b, h, nk, d), _bf16(rng, b, h, nk, d)
+    q = q * 2  # spread the scores so the running max moves between tiles
+    kw = {"rescale": False} if fault == "no_alpha_rescale" else {"last_tile": False}
+    assert max(shares(emulate(q, k, v, bk), q, k, v)) <= 1
+    assert shares(emulate(q, k, v, bk, **kw), q, k, v)[0] > 2
+
+
+@pytest.mark.parametrize("d,shape", [(32, (2, 4, 1024, 1024)), (512, (1, 1, 1024, 1024))])
+def test_coarse_p_breaks_rms_limit(d, shape):
+    """P rounded to 4 significant bits (an fp8 significand) instead of 8, at
+    the main path's token count: the per-element limit, a worst case,
+    still passes it, and the RMS limit catches it."""
+    b, h, nq, nk = shape
+    rng = np.random.default_rng(d)
+    q, k, v = _bf16(rng, b, h, nq, d), _bf16(rng, b, h, nk, d), _bf16(rng, b, h, nk, d)
+    sound = shares(emulate(q, k, v, BLOCK_K[d]), q, k, v)
+    coarse = shares(emulate(q, k, v, BLOCK_K[d], p_bits=4), q, k, v)
+    assert max(sound) <= 1
+    assert coarse[0] <= 1 < 2 < coarse[1]
+
+
+def test_p_rounding_needs_the_2_to_minus_8_term():
+    """Scores set so that every p but the row max's lies just off a bf16
+    rounding midpoint, 0.5 + 2^-9: 63 keys just below it (rounded down,
+    v = +1) and 63 just above (rounded up, v = -1). The rounding errors add
+    while the output cancels to about 0, so the rounded-P error reaches
+    0.97 of 2^-8 * max|v|: above the limit with a 2^-9 term, within it with
+    2^-8."""
+    n, d = 63, 32
+    x = [1.0] + [0.5 + 2**-9 - 2**-16] * n + [0.5 + 2**-9 + 2**-16] * n
+    q = torch.zeros(1, 1, 1, d)
+    q[..., 0] = 1.0
+    k = torch.zeros(1, 1, 1 + 2 * n, d)
+    k[0, 0, :, 0] = torch.log(torch.tensor(x, dtype=torch.float64)).float()
+    v = torch.zeros(1, 1, 1 + 2 * n, d)
+    v[0, 0, 1:n + 1] = 1.0
+    v[0, 0, n + 1:] = -1.0
+    want = flash_attention_plain(q, k, v, scale=1.0)
+    got = emulate(q, k, v, BLOCK_K[d], scale=1.0).to(torch.bfloat16)
+    assert 0.9 < bf16_attention_shares(got, q, k, v, want, scale=1.0)[0] <= 1
+    assert bf16_attention_shares(got, q, k, v, want, scale=1.0, p_rounding=2**-9)[0] > 1.5

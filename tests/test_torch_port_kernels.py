@@ -11,6 +11,8 @@ import torch
 
 from ealdm_torch import kernels
 from ealdm_torch.ops.attention import (
+    _split_heads,
+    bf16_attention_shares,
     flash_attention,
     flash_attention_packed,
     flash_attention_plain,
@@ -32,6 +34,15 @@ def _within_limit(dtype, got, want):
     return bool((diff <= 2 * 2**-7 * want.float().abs() + 1e-4).all())
 
 
+def _attention_ok(got, q, k, v, want, heads=None):
+    """float32 attention to 1e-4; bfloat16 within both limits of
+    `bf16_attention_shares` (the kernel rounds P to bfloat16, the plain
+    version does not)."""
+    if q.dtype == torch.float32:
+        return (got - want).abs().max().item() <= 1e-4
+    return max(bf16_attention_shares(got, q, k, v, want, heads)) <= 1
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -47,7 +58,8 @@ def _randn(*shape, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape_q,shape_kv", [((2, 3, 256, 32), (2, 3, 256, 32)),
                                               ((2, 2, 130, 32), (2, 2, 70, 32)),
-                                              ((1, 1, 100, 512), (1, 1, 45, 512))])
+                                              ((1, 1, 100, 512), (1, 1, 45, 512)),
+                                              ((48, 1, 256, 512), (48, 1, 256, 512))])
 def test_flash_attention(dev, dtype, shape_q, shape_kv):
     q = _randn(*shape_q, dtype=dtype, dev=dev, seed=1)
     k = _randn(*shape_kv, dtype=dtype, dev=dev, seed=2)
@@ -57,16 +69,69 @@ def test_flash_attention(dev, dtype, shape_q, shape_kv):
     torch.cuda.synchronize()
     d = shape_q[-1]
     assert kernels.launches[f"flash_attention_d{d}"] == before[f"flash_attention_d{d}"] + 1
-    assert _within_limit(dtype, got, flash_attention_plain(q, k, v))
+    assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_packed(dev, dtype):
-    b, n, heads, d = 2, 192, 4, 32
+@pytest.mark.parametrize("n,heads", [(192, 4), (256, 16)])
+def test_flash_attention_packed(dev, dtype, n, heads):
+    b, d = 2, 32
     q, k, v = (_randn(b, n, heads * d, dtype=dtype, dev=dev, seed=s) for s in (1, 2, 3))
-    split = [t.reshape(b, n, heads, d).transpose(1, 2) for t in (q, k, v)]
-    want = flash_attention_plain(*split).transpose(1, 2).reshape(q.shape)
-    assert _within_limit(dtype, flash_attention_packed(q, k, v, heads), want)
+    want = flash_attention_plain(*(_split_heads(t, heads) for t in (q, k, v)))
+    want = want.transpose(1, 2).reshape(q.shape)
+    before = kernels.launches["flash_attention_packed"]
+    got = flash_attention_packed(q, k, v, heads)
+    assert kernels.launches["flash_attention_packed"] == before + 1
+    assert _attention_ok(got, q, k, v, want, heads)
+
+
+@pytest.mark.parametrize("d", [32, 512])
+@pytest.mark.parametrize("nq", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("nk", [1, 63, 64, 65, 200])
+def test_flash_attention_bf16_tile_edges(dev, d, nq, nk):
+    """Query and key counts on either side of the bfloat16 kernels' tiles
+    (64 query rows; 64 keys at d=32, 32 at d=512)."""
+    bf = torch.bfloat16
+    q = _randn(2, 2, nq, d, dtype=bf, dev=dev, seed=1)
+    k = _randn(2, 2, nk, d, dtype=bf, dev=dev, seed=2)
+    v = _randn(2, 2, nk, d, dtype=bf, dev=dev, seed=3)
+    name = f"flash_attention_d{d}"
+    before = kernels.launches[name]
+    before_rows = kernels.launches_by_rows.get((name, nq), 0)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    assert kernels.launches_by_rows[(name, nq)] == before_rows + 1
+    assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,heads", [(1024, 8), (256, 16)])
+def test_flash_attention_head_strided_view(dev, dtype, n, heads):
+    """The layout `_attend` passes: the [B, H, N, D] view of a [B, N, H*D]
+    projection (row stride H*D, head stride D); the output keeps it."""
+    b, d = 2, 32
+    q, k, v = (_randn(b, n, heads * d, dtype=dtype, dev=dev, seed=s)
+               .reshape(b, n, heads, d).transpose(1, 2) for s in (1, 2, 3))
+    got = flash_attention(q, k, v)
+    assert got.stride() == q.stride()
+    assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("d", [32, 512])
+def test_flash_attention_bf16_rejects_misalignment(dev, d):
+    """The bfloat16 kernels copy 16-byte pieces: a base one element past a
+    16-byte boundary, or a row stride that is not a multiple of 8 elements,
+    raises instead of launching."""
+    bf = torch.bfloat16
+    flat = _randn(1 + 2 * 64 * d, dtype=bf, dev=dev)
+    q = flat[1:].view(1, 2, 64, d)
+    k = _randn(1, 2, 64, d, dtype=bf, dev=dev, seed=2)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, k, k)
+    wide = _randn(1, 2, 64, d + 4, dtype=bf, dev=dev, seed=3)[..., :d]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(wide, k, k)
 
 
 def test_flash_attention_rejects_unsupported_head_dim(dev):
