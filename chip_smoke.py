@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`ealdm_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --kernels  # phases 1-2b only: a new kernel's first call
+    python3 chip_smoke.py              # every phase; needs one CUDA card
+    python3 chip_smoke.py --kernels    # phases 1-2b only: a new kernel's first call
+    python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc, and
-     take a census of the bfloat16 flash kernels' machine code (tensor-core,
-     async-copy, ldmatrix and exp instructions; ptxas spills);
+     take a census of the bfloat16 flash kernels' and the GroupNorm kernels'
+     machine code (tensor-core, async-copy, ldmatrix and exp instructions;
+     ptxas spills);
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes and layouts, in bfloat16 and float32, show that two planted
      faults break the bfloat16 attention limits, and time kernel / plain /
      one PyTorch library call (a yardstick only; the port never calls it);
+     GroupNorm in both layouts it takes, timed at the main path's
+     (channels_last) on inputs that do not fit the L2;
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -20,7 +24,8 @@ Phases, each of which raises (non-zero exit) on failure:
   3. the main path at the flagship width: LatentDiffusion in bfloat16 with
      seeded random weights, `sample_images` at batch 24, DDIM-50, eta 1,
      CFG 2, hoisted invariants, with the launch counts checked against what
-     the module tree implies, three timed runs (img/s from the median),
+     the module tree implies (GroupNorm by path, layout and shape), three
+     timed runs (img/s from the median),
      then one more run under torch.profiler for
      the device time by kernel and the device's idle share;
   4. the same program under the packed attention layout for a few steps,
@@ -56,7 +61,15 @@ SFU_EXP_PER_CLOCK = 16
 
 # the redesigned bfloat16 flash kernels, as named in flash_attention.cu
 MMA_KERNELS = ("flash_mma_d32_kernel", "flash_mma_d512_kernel")
-SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM", "MUFU.EX2")
+# the channels_last GroupNorm kernels (group_norm.cu): the two that stage
+# rows in shared memory by asynchronous copies, and the streaming one; and
+# the NCHW kernels kept from PR 1
+GN_STAGING_KERNELS = ("gn_cluster_kernel", "gn_tile_stats_kernel")
+GN_KERNELS = (*GN_STAGING_KERNELS, "gn_tile_apply_kernel", "gn_single_kernel",
+              "gn_partial_kernel", "gn_apply_kernel")
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "UBLKCP", "LDSM", "MUFU.EX2")
+ASYNC_COPY_OPS = ("LDGSTS", "UTMALDG", "UBLKCP")
+L2_BYTES = 50e6  # H100 L2; timed inputs rotate over more than twice this
 
 
 def tolerance(dtype, want):
@@ -119,11 +132,14 @@ def bound(flops, nbytes, peak_flops, exps=0):
     return times[by] * 1e3, by
 
 
-def device_ms(fn, iters=20, warmup=2):
-    """Device time per call: the sum of every CUDA kernel's time under
-    torch.profiler over `iters` calls. Unlike `cuda_ms` it leaves out the
-    gaps where the device waits for the host, which dominate a call of a
-    few microseconds."""
+def device_ms_by_kernel(fn, iters=20, warmup=2):
+    """{kernel: device time per call in ms} of the CUDA kernels `fn` runs,
+    under torch.profiler over `iters` calls; a kernel is named by its
+    function (the profiler's key up to the template arguments). A kernel's
+    time per call is its mean time a launch times its launches a call, so a
+    launch the profiler misses does not pull the mean down."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -135,11 +151,26 @@ def device_ms(fn, iters=20, warmup=2):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
+            name = m.group(1) if m else e.key
+            per_call = max(1, round(e.count / iters))
+            out[name] = (out.get(name, 0.0)
+                         + e.self_device_time_total / e.count * per_call / 1e3)
+    return out
+
+
+def device_ms(fn, iters=20, warmup=2):
+    """Device time per call: the sum of every CUDA kernel's time under
+    torch.profiler over `iters` calls. Unlike `cuda_ms` it leaves out the
+    gaps where the device waits for the host, which dominate a call of a
+    few microseconds."""
+    ms = sum(device_ms_by_kernel(fn, iters, warmup).values())
+    if ms <= 0:
         raise RuntimeError("the profiler saw no device time")
-    return us / iters / 1e3
+    return ms
 
 
 def compare(errs, kernel, dtype, got, want, what, attn=None):
@@ -198,57 +229,71 @@ def phase_build():
     return secs
 
 
-def phase_sass():
-    """Census of the bfloat16 flash kernels' machine code: tensor-core
-    (HMMA/HGMMA), async-copy (LDGSTS/UTMALDG), ldmatrix (LDSM) and exp
-    (MUFU.EX2) instructions from `cuobjdump -sass`, and ptxas's registers
-    and spills (from the library's nvcc report). Raises if a kernel has no
-    tensor-core instruction or no async copy, spills, or is missing from the
-    machine code or the report."""
+def sass_census(source, names):
+    """{kernel: counts of SASS_OPS} from `cuobjdump -sass` of the library
+    built from `csrc/<source>.cu`, and {kernel: registers and spill bytes}
+    from its nvcc report, each summed (counts) or maximised (registers,
+    spills) over a kernel's template instances."""
     import re
 
     from ealdm_torch.kernels import build
 
-    lib = build.library_path("flash_attention")
+    lib = build.library_path(source)
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    op_re = re.compile(r"\b(HMMA|HGMMA|LDGSTS|UTMALDG|LDSM|MUFU\.EX2)\b")
+    op_re = re.compile(r"\b(" + "|".join(re.escape(op) for op in SASS_OPS) + r")\b")
     census, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in MMA_KERNELS if k in line), None)
+            current = next((k for k in names if k in line), None)
             if current:
-                census[current] = dict.fromkeys(SASS_OPS, 0)
+                census.setdefault(current, dict.fromkeys(SASS_OPS, 0))
         elif current:
             for op in op_re.findall(line):
                 census[current][op] += 1
     # ptxas -v: "Compiling entry function '<name>'", then "... N bytes spill
     # stores, M bytes spill loads" and "Used R registers"
     ptxas, current = {}, None
-    for line in build.build_report("flash_attention").splitlines():
+    for line in build.build_report(source).splitlines():
         if "Compiling entry function" in line:
-            current = next((k for k in MMA_KERNELS if k in line), None)
+            current = next((k for k in names if k in line), None)
         elif current and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            ptxas.setdefault(current, {})["spill_bytes"] = int(st) + int(ld)
+            d = ptxas.setdefault(current, {})
+            d["spill_bytes"] = max(d.get("spill_bytes", 0), int(st) + int(ld))
         elif current and "Used" in line:
-            ptxas.setdefault(current, {})["registers"] = int(
-                re.search(r"Used (\d+) registers", line).group(1))
-    for name in MMA_KERNELS:
-        c = census.get(name)
-        log(f"[sass] {name}: {c}; ptxas {ptxas.get(name)}")
-        if c is None:
+            d = ptxas.setdefault(current, {})
+            d["registers"] = max(d.get("registers", 0),
+                                 int(re.search(r"Used (\d+) registers", line).group(1)))
+    for name in names:
+        log(f"[sass] {name}: {census.get(name)}; ptxas {ptxas.get(name)}")
+        if name not in census:
             raise RuntimeError(f"{name} is not in {lib}")
         if "spill_bytes" not in ptxas.get(name, {}):
             raise RuntimeError(f"{name} has no spill line in the nvcc report")
-        if c["HMMA"] + c["HGMMA"] == 0:
-            raise RuntimeError(f"{name} has no tensor-core instruction")
-        if c["LDGSTS"] + c["UTMALDG"] == 0:
-            raise RuntimeError(f"{name} has no asynchronous copy")
         if ptxas[name]["spill_bytes"]:
             raise RuntimeError(f"{name} spills: {ptxas[name]}")
     return census
+
+
+def phase_sass():
+    """Machine-code census: the bfloat16 flash kernels need tensor-core
+    (HMMA/HGMMA) and asynchronous-copy instructions, the GroupNorm kernels
+    that stage rows in shared memory asynchronous copies (LDGSTS, UTMALDG or
+    the bulk copy UBLKCP); no kernel of either may spill. Raises otherwise,
+    or if a kernel is missing from the machine code or the nvcc report."""
+    flash = sass_census("flash_attention", MMA_KERNELS)
+    for name, c in flash.items():
+        if c["HMMA"] + c["HGMMA"] == 0:
+            raise RuntimeError(f"{name} has no tensor-core instruction")
+        if not any(c[op] for op in ASYNC_COPY_OPS):
+            raise RuntimeError(f"{name} has no asynchronous copy")
+    gn = sass_census("group_norm", GN_KERNELS)
+    for name in GN_STAGING_KERNELS:
+        if not any(gn[name][op] for op in ASYNC_COPY_OPS):
+            raise RuntimeError(f"{name} has no asynchronous copy")
+    return flash, gn
 
 
 # ------------------------------------------------------------------ phase 2
@@ -261,7 +306,6 @@ def phase_kernels():
     from ealdm_torch.ops.attention import (
         _split_heads, bf16_attention_shares, flash_attention, flash_attention_packed,
         flash_attention_plain)
-    from ealdm_torch.ops.norms import group_norm_kernel, group_norm_plain, silu
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -269,9 +313,6 @@ def phase_kernels():
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
-
-    def check(kernel, dtype, got, want, what):
-        compare(errs, kernel, dtype, got, want, what)
 
     def check_attn(name, q, k, v, what, heads=None):
         if heads is None:
@@ -325,31 +366,6 @@ def phase_kernels():
             f"{rms:.3g} of the RMS limit")
         if (max(elem, rms) <= 1) != (what == "sound kernel"):
             raise RuntimeError(f"the bfloat16 attention limits misjudge: {what}")
-    # -- GroupNorm [N, C, H, W], fp32 scale/bias
-    gn_cases = [("group_norm", (48, 256, 32, 32), 1e-5),
-                ("group_norm", (48, 512, 16, 16), 1e-5),
-                ("group_norm", (48, 1024, 8, 8), 1e-5),
-                ("group_norm", (48, 768, 32, 32), 1e-5),
-                ("group_norm_two_pass", (24, 128, 256, 256), 1e-6),
-                ("group_norm_two_pass", (48, 256, 128, 128), 1e-6)]
-    for name, shape, eps in gn_cases:
-        c = shape[1]
-        scale = 1 + 0.1 * randn(c, dtype=torch.float32)
-        bias = 0.1 * randn(c, dtype=torch.float32)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (3 * randn(*shape, dtype=torch.float32) + 1).to(dtype)
-            pre = randn(shape[0], c, dtype=dtype)
-            for fuse, p in ((False, None), (True, pre)):
-                got = group_norm_kernel(x, scale, bias, 32, eps, fuse, p)
-                want = group_norm_plain(x, scale, bias, 32, eps, silu if fuse else None,
-                                        "NCHW", p)
-                check(name, dtype, got, want,
-                      f"{list(shape)} {'pre_bias+SiLU' if fuse else 'plain'}")
-        # channels_last strides
-        x = randn(*shape, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        check(name, torch.bfloat16, group_norm_kernel(x, scale, bias, 32, eps, True),
-              group_norm_plain(x, scale, bias, 32, eps, silu, "NCHW"),
-              f"{list(shape)} channels_last SiLU")
     torch.cuda.synchronize()
 
     # -- timing at the main path's largest shape of each kernel, bfloat16
@@ -405,37 +421,128 @@ def phase_kernels():
              lambda q, k, v: flash_attention_packed(q, k, v, heads),
              packed(flash_attention_plain, heads), packed(sdpa_lib, heads),
              "ealdm_tpu/ops/attention.py:272", qkv)
+    log_rows(res)
+    return res
 
-    for name, shape, eps, pre, replaces in (
-            ("group_norm", (48, 256, 32, 32), 1e-5, True,
-             "ealdm_tpu/ops/group_norm_pallas.py:103"),
-            ("group_norm_two_pass", (24, 128, 256, 256), 1e-6, False,
-             "ealdm_tpu/ops/group_norm_pallas.py:123")):
+
+def log_rows(rows):
+    for r in rows.values():
+        event = f" (event_ms {r['event_ms']:.4f})" if "event_ms" in r else ""
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        split = "".join(f" {k} {v:.4f}" for k, v in r.get("kernel_ms", {}).items())
+        log(f"[time] {r['name']:32s} {r['shape']} kernel_ms {r['ms']:.4f}{event} "
+            f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
+            f"bound_ms {r['bound_ms']:.4f} ({r.get('bound_kind', r['bound_by'])})"
+            + (f"; by kernel:{split}" if len(r.get("kernel_ms", {})) > 1 else ""))
+
+
+def phase_group_norm():
+    """The GroupNorm kernels against `group_norm_plain` at the main path's
+    shapes, in both layouts the kernels take (channels_last, what the main
+    path hands them, and NCHW-contiguous), both dtypes, plain and pre-bias +
+    SiLU; then bfloat16 timings. Each row names the counter its launches
+    moved: "group_norm" (one read of x) or "group_norm_two_pass" (two),
+    suffixed "_nchw" for the NCHW kernels. Returns the JSON line's rows."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from ealdm_torch import kernels
+    from ealdm_torch.ops.norms import group_norm_kernel, group_norm_plain, silu
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    f32, bf = torch.float32, torch.bfloat16
+    errs = {}
+
+    def randn(*shape, dtype=f32, layout="channels_last"):
+        x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        if len(shape) == 4 and layout == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+        return x
+
+    def run(x, *args):
+        """The kernel's output and the row its launch counted under."""
+        before = dict(kernels.launches)
+        y = group_norm_kernel(x, *args)
+        name = next(k for k in ("group_norm", "group_norm_two_pass")
+                    if kernels.launches[k] != before[k])
+        return y, name if x.is_contiguous(memory_format=torch.channels_last) else name + "_nchw"
+
+    cases = [((48, 256, 32, 32), 1e-5), ((48, 512, 16, 16), 1e-5), ((48, 1024, 8, 8), 1e-5),
+             ((48, 768, 32, 32), 1e-5), ((24, 128, 256, 256), 1e-6),
+             ((48, 256, 128, 128), 1e-6)]
+    for shape, eps in cases:
+        c = shape[1]
+        scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        for layout, dtype in itertools.product(("channels_last", "nchw"), (f32, bf)):
+            x = (3 * randn(*shape, layout=layout) + 1).to(dtype)
+            pre = randn(shape[0], c, dtype=dtype)
+            for fuse, p in ((False, None), (True, pre)):
+                got, row = run(x, scale, bias, 32, eps, fuse, p)
+                want = group_norm_plain(x, scale, bias, 32, eps, silu if fuse else None,
+                                        "NCHW", p)
+                compare(errs, row, dtype, got, want,
+                        f"{list(shape)} {layout} {'pre_bias+SiLU' if fuse else 'plain'}")
+    torch.cuda.synchronize()
+
+    # -- bfloat16 timings. Inputs rotate over enough tensors to pass twice the
+    #    L2, so each call reads them from device memory, as the main path's
+    #    fresh activations are. Device time (torch.profiler) leaves out the
+    #    wrapper's host time; the CUDA-event time per call is kept beside it.
+    res = {}
+    single = "ealdm_tpu/ops/group_norm_pallas.py:103"
+    chunked = "ealdm_tpu/ops/group_norm_pallas.py:123"
+    timed = [  # row, shape, eps, pre-bias, layout, the TPU kernel
+        ("group_norm", (48, 256, 32, 32), 1e-5, True, "channels_last", single),
+        ("group_norm_c768", (48, 768, 32, 32), 1e-5, False, "channels_last", single),
+        ("group_norm_8x8", (48, 1024, 8, 8), 1e-5, True, "channels_last", single),
+        ("group_norm_two_pass", (24, 128, 256, 256), 1e-6, False, "channels_last", chunked),
+        ("group_norm_two_pass_b48", (48, 128, 256, 256), 1e-6, False, "channels_last",
+         chunked),
+        ("group_norm_nchw", (48, 256, 32, 32), 1e-5, True, "nchw", single),
+        ("group_norm_two_pass_nchw", (24, 128, 256, 256), 1e-6, False, "nchw", chunked),
+    ]
+    for row, shape, eps, has_pre, layout, replaces in timed:
         n_, c = shape[:2]
-        x = randn(*shape, dtype=bf)
-        scale, bias = torch.ones(c, device=dev), torch.zeros(c, device=dev)
-        p = randn(n_, c, dtype=bf) if pre else None
-        numel = x.numel()
-        nbytes = 2 * numel * 2 + (n_ * c * 2 if pre else 0) + 2 * c * 4
+        scale, bias = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+        numel = math.prod(shape)
+        copies = max(1, math.ceil(2 * L2_BYTES / (2 * numel)))
+        inputs = [(randn(*shape, dtype=bf, layout=layout),
+                   randn(n_, c, dtype=bf) if has_pre else None) for _ in range(copies)]
+        _, path_row = run(inputs[0][0], scale, bias, 32, eps, True, inputs[0][1])
+        nbytes = 2 * numel * 2 + (n_ * c * 2 if has_pre else 0) + 2 * c * 4
         bms, by = bound(10 * numel, nbytes, PEAK_FP32)
 
-        def lib(x=x, p=p, c=c, scale=scale, bias=bias, eps=eps):
+        def rotate(fn):
+            it = itertools.cycle(inputs)
+            return lambda: fn(*next(it))
+
+        def kernel(x, p):
+            return group_norm_kernel(x, scale, bias, 32, eps, True, p)
+
+        def plain(x, p):
+            return group_norm_plain(x, scale, bias, 32, eps, silu, "NCHW", p)
+
+        def lib(x, p):
             xin = x if p is None else x + p[:, :, None, None]
             return F.silu(F.group_norm(xin, 32, scale.to(x.dtype), bias.to(x.dtype), eps))
 
-        res[name] = dict(
-            name=name, route="cuda", source="ealdm_torch/kernels/csrc/group_norm.cu",
-            replaces=replaces, launches=None, max_abs_err=errs[name],
-            ms=cuda_ms(lambda: group_norm_kernel(x, scale, bias, 32, eps, True, p)),
-            plain_ms=cuda_ms(lambda: group_norm_plain(x, scale, bias, 32, eps, silu,
-                                                      "NCHW", p)),
-            bound_ms=bms, bound_by=by, library_ms=cuda_ms(lib),
-            shape=list(shape), dtype="bfloat16")
-    for r in res.values():
-        event = f" (event_ms {r['event_ms']:.4f})" if "event_ms" in r else ""
-        log(f"[time] {r['name']:32s} {r['shape']} kernel_ms {r['ms']:.4f}{event} "
-            f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"bound_ms {r['bound_ms']:.4f} ({r.get('bound_kind', r['bound_by'])})")
+        iters = 20 if numel < 2e8 else 10
+        split = device_ms_by_kernel(rotate(kernel), iters)
+        res[row] = dict(
+            name=row, route="cuda", source="ealdm_torch/kernels/csrc/group_norm.cu",
+            replaces=replaces, launches=None, max_abs_err=errs[path_row],
+            ms=sum(split.values()), kernel_ms=split, plain_ms=device_ms(rotate(plain), iters),
+            bound_ms=bms, bound_by=by, library_ms=device_ms(rotate(lib), iters),
+            event_ms=cuda_ms(rotate(kernel), iters), shape=list(shape), layout=layout,
+            dtype="bfloat16", pre_bias=has_pre, silu=True, rotated_inputs=copies,
+            counter=(path_row.removesuffix("_nchw"), (layout, shape, "bfloat16")))
+        del inputs
+    # the main rows count every launch of their kernel path
+    for row in ("group_norm", "group_norm_two_pass"):
+        res[row]["counter"] = row
+    log_rows(res)
     return res
 
 
@@ -617,32 +724,64 @@ def mixed_batch(b, res, seed, device):
     }
 
 
-def expected_launches(model, steps):
+def group_norm_sites(module, side):
+    """(C, side, groups) of every GroupNorm32 one forward of `module` runs on
+    a [N, C, side, side] input, from the module tree: children run in the
+    order they were registered, each GroupNorm32 inside a child once, and a
+    resampling child halves or doubles the side for the children after it."""
+    from ealdm_torch.models.layers import Downsample, GroupNorm32, Upsample
+    from ealdm_torch.models.vae import VaeDownsample, VaeUpsample
+
+    sites = []
+    for child in module.children():
+        if isinstance(child, (Downsample, VaeDownsample)):
+            side //= 2
+        elif isinstance(child, (Upsample, VaeUpsample)):
+            side *= 2
+        else:
+            sites += [(m.weight.numel(), side, m.num_groups) for m in child.modules()
+                      if isinstance(m, GroupNorm32)]
+    return sites
+
+
+def expected_launches(model, steps, batch, cfg):
     """Launch counts of one sample_images run, from the module tree: every
     GroupNorm32 and every eligible self-attention site runs once per
-    forward; the UNet runs once per step (CFG is one 2N call), the encoder
-    once (the 2N conditioning pair), the decoder once."""
-    from ealdm_torch.models.layers import GroupNorm32, SpatialTransformer, flash_eligible
+    forward; the UNet runs once per step on the 2N CFG batch, the encoder
+    once (the 2N conditioning pair), the decoder once. Each GroupNorm site
+    takes the kernel path `group_norm_path` gives its shape, channels_last."""
+    import collections
+
+    import torch
+
+    from ealdm_torch.models.layers import SpatialTransformer, flash_eligible
     from ealdm_torch.models.vae import VaeAttnBlock
+    from ealdm_torch.ops.norms import group_norm_path, resolve_num_groups
 
     unet = model.model.diffusion_model
     fs = model.first_stage_model
-
-    def count(mod, kind):
-        return sum(isinstance(m, kind) for m in mod.modules())
-
     unet_flash = {}  # token count -> flash sites per UNet call
     for st in unet.modules():
         if isinstance(st, SpatialTransformer) and flash_eligible(st.tokens, st.tokens):
             unet_flash[st.tokens] = unet_flash.get(st.tokens, 0) + st.depth
     vae_flash = sum(1 for part in (fs.encoder, fs.decoder) for m in part.modules()
                     if isinstance(m, VaeAttnBlock) and flash_eligible(m.tokens, m.tokens))
+    census = collections.Counter()
+    for module, n, side, runs in ((unet, 2 * batch, cfg["zres"], steps),
+                                  (fs.encoder, 2 * batch, cfg["res"], 1),
+                                  (fs.decoder, batch, cfg["zres"], 1)):
+        for c, s, groups in group_norm_sites(module, side):
+            shape = (n, c, s, s)
+            path = group_norm_path(shape, torch.bfloat16, resolve_num_groups(c, groups))
+            census[(path, ("channels_last", shape, "bfloat16"))] += runs
     return {
         "unet_flash_sites": sum(unet_flash.values()) * steps,
         "unet_flash_sites_by_tokens": {n: c * steps for n, c in sorted(unet_flash.items())},
         "vae_flash_sites": vae_flash,
-        "group_norm": count(unet, GroupNorm32) * steps
-        + count(fs.encoder, GroupNorm32) + count(fs.decoder, GroupNorm32),
+        "group_norm": sum(v for (name, _), v in census.items() if name == "group_norm"),
+        "group_norm_two_pass": sum(v for (name, _), v in census.items()
+                                   if name == "group_norm_two_pass"),
+        "group_norm_census": dict(census),
     }
 
 
@@ -681,7 +820,7 @@ def phase_main_path(cfg_module, steps, batch):
     img, z = run(steps, 2)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    counts, by_rows = dict(kernels.launches), dict(kernels.launches_by_rows)
+    counts, details = dict(kernels.launches), dict(kernels.launch_details)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     # two more timed runs: the host's time per run varies from run to run,
     # and img/s is the median run's
@@ -697,18 +836,27 @@ def phase_main_path(cfg_module, steps, batch):
         raise RuntimeError("non-finite output")
     if float(img.float().std()) == 0.0:
         raise RuntimeError("constant output")
-    want = expected_launches(model, steps)
+    want = expected_launches(model, steps, batch, cfg)
     got = {"unet_flash_sites": counts["flash_attention_d32"],
-           "unet_flash_sites_by_tokens": {n: c for (name, n), c in sorted(by_rows.items())
+           "unet_flash_sites_by_tokens": {n: c for (name, n), c in sorted(details.items())
                                           if name == "flash_attention_d32"},
            "vae_flash_sites": counts["flash_attention_d512"],
-           "group_norm": counts["group_norm"] + counts["group_norm_two_pass"]}
+           "group_norm": counts["group_norm"],
+           "group_norm_two_pass": counts["group_norm_two_pass"],
+           "group_norm_census": {k: c for k, c in details.items()
+                                 if k[0].startswith("group_norm")}}
     log(f"[main] batch {batch}, DDIM-{steps}, eta 1, CFG 2: {dt:.3f} s "
         f"= {batch / dt:.4f} img/s, the median of {[round(w, 4) for w in walls]} s "
         f"(warm-up {warm_s:.1f} s), peak memory "
         f"{peak_gb:.2f} GiB, output {list(img.shape)} std {float(img.float().std()):.4f}")
     log(f"[main] launches {counts}, the d=32 ones by query rows "
-        f"{got['unet_flash_sites_by_tokens']}; expected from the module tree {want}")
+        f"{got['unet_flash_sites_by_tokens']}")
+    log("[main] GroupNorm launches by path, layout, [N, C, H, W] and dtype, counted at "
+        "the launch (expected from the module tree):")
+    for key in sorted(set(got["group_norm_census"]) | set(want["group_norm_census"])):
+        log(f"  {key[0]:20s} {key[1][0]:14s} {str(list(key[1][1])):22s} {key[1][2]}: "
+            f"{got['group_norm_census'].get(key, 0)} "
+            f"({want['group_norm_census'].get(key, 0)})")
     if got != want:
         raise RuntimeError(f"launch counts {got} differ from the module tree's {want}")
     if counts["bias_act"] != 0:
@@ -717,7 +865,7 @@ def phase_main_path(cfg_module, steps, batch):
                  "group_norm_two_pass"):
         if counts[name] == 0:
             raise RuntimeError(f"{name} was not launched on the main path")
-    return model, mixed, by_rows, dict(
+    return model, mixed, details, dict(
         img_per_s=batch / dt, seconds=dt, walls_s=walls, peak_gib=peak_gb, warmup_s=warm_s,
         launches=counts, d32_launches_by_rows=got["unet_flash_sites_by_tokens"])
 
@@ -749,7 +897,7 @@ def phase_profile(model, mixed, batch, steps, unprofiled_s):
         f"{1 - busy / unprofiled_s:.3f} of the unprofiled {unprofiled_s:.3f} s")
     # each kernel counts in the first group whose name it contains
     groups = {"flash attention": (*MMA_KERNELS, "flash_row_kernel", "flash_wide_kernel"),
-              "group_norm": ("gn_single_kernel", "gn_partial_kernel", "gn_apply_kernel"),
+              "group_norm": GN_KERNELS,
               "convolution": ("fprop", "conv", "nchw", "nhwc"),
               "matmul": ("gemm", "nvjet", "cutlass"),
               "copies": ("copy_kernel",)}
@@ -764,7 +912,8 @@ def phase_profile(model, mixed, batch, steps, unprofiled_s):
         log(f"[profile] {t * 1e3:9.2f} ms {t / busy:6.3f} x{n:<6d} {key[:110]}")
     return dict(device_busy_s=busy, idle_share=1 - busy / unprofiled_s,
                 profiled_wall_s=wall_s, flash_s=totals["flash attention"],
-                flash_share=totals["flash attention"] / busy)
+                flash_share=totals["flash attention"] / busy,
+                group_norm_s=totals["group_norm"], group_norm_share=totals["group_norm"] / busy)
 
 
 def phase_packed(model, mixed, batch, steps):
@@ -869,18 +1018,22 @@ def main(argv):
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.perf_counter()
     phase_build()
-    phase_sass()
-    rows = phase_kernels()
-    rows["bias_act"] = phase_ops()
-    if "--kernels" not in argv:
+    if "--groupnorm" in argv:
+        rows = phase_group_norm()
+    else:
+        phase_sass()
+        rows = phase_kernels()
+        rows.update(phase_group_norm())
+        rows["bias_act"] = phase_ops()
+    if not {"--kernels", "--groupnorm"} & set(argv):
         steps, batch = 50, 24
-        model, mixed, by_rows, e2e = phase_main_path(cfg_module, steps, batch)
+        model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
         counts = e2e["launches"]
         for row in rows.values():
             # a kernel's row takes its count, a shape's row its count at that shape
             name = row.get("counter", row["name"])
             if isinstance(name, tuple):
-                row["launches"] = by_rows.get(name, 0)
+                row["launches"] = details.get(name, 0)
             elif name in ("flash_attention_d32", "flash_attention_d512", "group_norm",
                           "group_norm_two_pass"):
                 row["launches"] = counts[name]

@@ -2,10 +2,11 @@
 by `build.py`).
 
 `launches` counts, per kernel, the launches its wrapper made (one per
-wrapper call that reached the kernel). `launches_by_rows` splits the flash
-kernels' counts by the query-row count of each launch: {(name, rows): n}.
-The wrappers live beside their plain PyTorch versions in `ops/attention.py`,
-`ops/norms.py` and `ops/bias_act.py`.
+wrapper call that reached the kernel). `launch_details` splits those counts
+by what each launch was given: {(name, detail): n}, the detail being the
+query-row count for flash attention and (layout, shape, dtype) for
+GroupNorm. The wrappers live beside their plain PyTorch versions in
+`ops/attention.py`, `ops/norms.py` and `ops/bias_act.py`.
 """
 
 KERNELS = (
@@ -18,16 +19,16 @@ KERNELS = (
 )
 
 launches = dict.fromkeys(KERNELS, 0)
-launches_by_rows = {}
+launch_details = {}
 
 
-def count_launch(name: str, rows: int) -> None:
-    """One launch of kernel `name` over `rows` query rows."""
+def count_launch(name: str, detail) -> None:
+    """One launch of kernel `name`, given inputs described by `detail`."""
     launches[name] += 1
-    launches_by_rows[(name, rows)] = launches_by_rows.get((name, rows), 0) + 1
+    launch_details[(name, detail)] = launch_details.get((name, detail), 0) + 1
 
 
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
-    launches_by_rows.clear()
+    launch_details.clear()

@@ -115,14 +115,15 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fa.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [F, P]
     fa.restype = I
     gn = libs["group_norm"]
-    gn.ealdm_group_norm.argtypes = (
-        [P, P, P, P, P, I, I, I, I, I] + [L] * 8 + [F, I, P]
-    )
-    gn.ealdm_group_norm.restype = I
-    gn.ealdm_group_norm_two_pass.argtypes = (
-        [P, P, P, P, P, P, I, I, I, I, I] + [L] * 8 + [F, I, I, I, P]
-    )
-    gn.ealdm_group_norm_two_pass.restype = I
+    ptrs = [P] * 5  # x, y, scale, bias, pre
+    args = [I] * 5 + [L, L, F, I]  # dtype, N, C, HW, G, psn, psc, eps, silu
+    gn.ealdm_group_norm.argtypes = ptrs + args + [P]
+    gn.ealdm_group_norm_cl.argtypes = ptrs + args + [P]
+    gn.ealdm_group_norm_two_pass.argtypes = ptrs + [P] + args + [I, I, P]
+    gn.ealdm_group_norm_cl_two_read.argtypes = ptrs + [P] + args + [I, P]
+    for fn in (gn.ealdm_group_norm, gn.ealdm_group_norm_cl, gn.ealdm_group_norm_two_pass,
+               gn.ealdm_group_norm_cl_two_read):
+        fn.restype = I
     ba = libs["bias_act"].ealdm_bias_act
     ba.argtypes = [P, P, P, I, L, L, L, I, F, F, F, P]
     ba.restype = I

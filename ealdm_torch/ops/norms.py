@@ -1,8 +1,10 @@
 """Normalization primitives (counterpart of `ealdm_tpu/ops/norms.py`).
 
-`group_norm` on a CUDA tensor launches the fused GroupNorm kernel
-(`kernels/csrc/group_norm.cu`, fp32 statistics); on a CPU tensor it runs
-`group_norm_plain`, the jnp formulation written in torch. The JAX package's
+`group_norm` on a CUDA tensor launches the fused GroupNorm kernels
+(`kernels/csrc/group_norm.cu`, fp32 statistics) for the two layouts they
+take: dense channels_last, which is what the model's convolutions hand every
+norm, and NCHW-contiguous; on a CPU tensor it runs `group_norm_plain`, the
+jnp formulation written in torch. The JAX package's
 `set_norm_impl("xla"|"pallas")` switch has no counterpart: it trades XLA
 scheduling, which eager PyTorch does not have.
 """
@@ -16,15 +18,23 @@ from .. import kernels
 from ..kernels import build
 
 __all__ = [
-    "group_norm", "group_norm_plain", "instance_norm_2d", "layer_norm",
-    "resolve_num_groups", "set_norm_stats_precision", "silu",
+    "group_norm", "group_norm_path", "group_norm_plain", "instance_norm_2d",
+    "layer_norm", "resolve_num_groups", "set_norm_stats_precision", "silu",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# groups up to this many elements run the one-block kernel (kept in shared
-# memory as fp32); larger ones the two-kernel path in chunks of _CHUNK
+# NCHW-contiguous: groups up to this many elements run the one-block kernel
+# (kept in shared memory as fp32); larger ones the two-kernel path in chunks
+# of _CHUNK.
 _SINGLE_MAX_ELEMS = 32768
 _CHUNK = 8192
+# channels_last (the constants of `kernels/csrc/group_norm.cu`): a cluster of
+# _CLUSTER CTAs takes a sample whose ceil(H*W / _CLUSTER) rows fit
+# _SLICE_BYTES; larger samples take the two-read path in tiles of at most
+# _TILE_BYTES.
+_CLUSTER = 8
+_SLICE_BYTES = 192 * 1024
+_TILE_BYTES = 64 * 1024
 
 
 def silu(x):
@@ -58,9 +68,10 @@ def resolve_num_groups(c: int, num_groups: int) -> int:
 
 def group_norm(x, scale, bias, num_groups=32, eps=1e-5, act=None,
                data_format: str = "NHWC", pre_bias=None):
-    """GroupNorm of an NHWC (public, as ealdm_tpu) or NCHW (the port's
-    internal layout) tensor; optional fused act and a per-(sample, channel)
-    `pre_bias` [N or 1, C] added to x before the statistics."""
+    """GroupNorm of an NHWC (public, as ealdm_tpu) or NCHW-indexed (the
+    port's internal indexing, channels_last in memory) tensor; optional fused
+    act and a per-(sample, channel) `pre_bias` [N or 1, C] added to x before
+    the statistics."""
     if data_format not in ("NHWC", "NCHW"):
         raise ValueError(f"unknown data_format {data_format!r}")
     c = x.shape[-1] if data_format == "NHWC" else x.shape[1]
@@ -112,11 +123,38 @@ def group_norm_plain(x, scale, bias, num_groups, eps, act=None,
     return xf.to(in_dtype)
 
 
+def group_norm_layout(x) -> str:
+    """"channels_last" or "nchw": the layouts of a [N, C, H, W] tensor the
+    GroupNorm kernels take (dense channels_last, as every tensor of the
+    model's convolutions; NCHW-contiguous). Raises ValueError for any other
+    strides."""
+    if x.dim() == 4 and x.is_contiguous():
+        return "nchw"
+    if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return "channels_last"
+    raise ValueError(f"the GroupNorm kernels take dense NCHW or channels_last "
+                     f"[N, C, H, W], not strides {x.stride()} of {tuple(x.shape)}")
+
+
+def group_norm_path(shape, dtype, num_groups, layout="channels_last") -> str:
+    """The kernel path, and launch counter, a [N, C, H, W] GroupNorm takes:
+    "group_norm" (one read of x) or "group_norm_two_pass" (two reads).
+    channels_last splits by the sample's bytes, NCHW by the group's
+    elements."""
+    _, c, h, w = shape
+    if layout == "channels_last":
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        fits = math.ceil(h * w / _CLUSTER) * c * itemsize <= _SLICE_BYTES
+    else:
+        fits = c // num_groups * h * w <= _SINGLE_MAX_ELEMS
+    return "group_norm" if fits else "group_norm_two_pass"
+
+
 def group_norm_kernel(x, scale, bias, num_groups, eps, fuse_silu, pre_bias=None):
-    """Launch the GroupNorm kernel on a CUDA tensor indexed [N, C, H, W]
-    (NCHW or channels_last strides). scale/bias: fp32 [C]; pre_bias:
-    [N or 1, C], cast to x's dtype. Raises on anything the kernel does not
-    take."""
+    """Launch the GroupNorm kernels on a CUDA tensor indexed [N, C, H, W],
+    dense channels_last or NCHW-contiguous (`group_norm_layout`); y keeps
+    x's layout. scale/bias: fp32 [C]; pre_bias: [N or 1, C], cast to x's
+    dtype. Raises on anything the kernels do not take."""
     if not x.is_cuda:
         raise ValueError("group_norm_kernel needs a CUDA tensor")
     if x.dtype not in _DTYPE_CODE:
@@ -130,8 +168,11 @@ def group_norm_kernel(x, scale, bias, num_groups, eps, fuse_silu, pre_bias=None)
         if (t.dtype != torch.float32 or t.shape != (c,) or not t.is_contiguous()
                 or t.device != x.device):
             raise ValueError(f"{name} must be a contiguous float32 [C] on {x.device}")
+    layout = group_norm_layout(x)
+    if layout == "channels_last" and (x.data_ptr() % 16 or c * x.element_size() % 16):
+        raise ValueError("the channels_last GroupNorm kernels take 16-byte aligned "
+                         "tensors whose rows of C channels are multiples of 16 bytes")
     y = torch.empty_like(x)
-    (xsn, xsc, xsp), (ysn, ysc, ysp) = _nc_p_strides(x), _nc_p_strides(y)
     pre_ptr, psn, psc = None, 0, 0
     if pre_bias is not None:
         pre_bias = pre_bias.to(x.dtype)
@@ -143,33 +184,28 @@ def group_norm_kernel(x, scale, bias, num_groups, eps, fuse_silu, pre_bias=None)
         psc = pre_bias.stride(1)
     lib = build.library("group_norm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    cnt = (c // num_groups) * h * w
-    common = (_DTYPE_CODE[x.dtype], n, c, h * w, num_groups,
-              xsn, xsc, xsp, ysn, ysc, ysp, psn, psc, float(eps), int(fuse_silu))
+    path = group_norm_path(x.shape, x.dtype, num_groups, layout)
+    common = (_DTYPE_CODE[x.dtype], n, c, h * w, num_groups, psn, psc, float(eps),
+              int(fuse_silu))
     ptrs = (x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), pre_ptr)
-    if cnt <= _SINGLE_MAX_ELEMS:
-        build.check(lib.ealdm_group_norm(*ptrs, *common, stream), "group_norm")
-        kernels.launches["group_norm"] += 1
+    if path == "group_norm":
+        launch = lib.ealdm_group_norm_cl if layout == "channels_last" else lib.ealdm_group_norm
+        err = launch(*ptrs, *common, stream)
+    elif layout == "channels_last":
+        tile_rows = _TILE_BYTES // (c * x.element_size())
+        scratch = torch.empty(n * math.ceil(h * w / tile_rows) * 2 * num_groups,
+                              dtype=torch.float32, device=x.device)
+        err = lib.ealdm_group_norm_cl_two_read(*ptrs, scratch.data_ptr(), *common,
+                                               tile_rows, stream)
     else:
-        chunks = math.ceil(cnt / _CHUNK)
+        chunks = math.ceil(c // num_groups * h * w / _CHUNK)
         scratch = torch.empty(2 * n * num_groups * chunks, dtype=torch.float32,
                               device=x.device)
-        build.check(
-            lib.ealdm_group_norm_two_pass(*ptrs, scratch.data_ptr(), *common,
-                                          _CHUNK, chunks, stream),
-            "group_norm_two_pass",
-        )
-        kernels.launches["group_norm_two_pass"] += 1
+        err = lib.ealdm_group_norm_two_pass(*ptrs, scratch.data_ptr(), *common,
+                                            _CHUNK, chunks, stream)
+    build.check(err, f"{path} ({layout})")
+    kernels.count_launch(path, (layout, tuple(x.shape), str(x.dtype).removeprefix("torch.")))
     return y
-
-
-def _nc_p_strides(t):
-    """(n, c, spatial) element strides of [N, C, H, W] whose H, W flatten."""
-    sn, sc, sh, sw = t.stride()
-    _, _, h, w = t.shape
-    if h > 1 and w > 1 and sh != w * sw:
-        raise ValueError(f"spatial dims of strides {t.stride()} do not flatten")
-    return sn, sc, (sw if w > 1 else sh)
 
 
 def instance_norm_2d(x, eps=1e-5):

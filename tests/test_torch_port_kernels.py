@@ -18,7 +18,14 @@ from ealdm_torch.ops.attention import (
     flash_attention_plain,
 )
 from ealdm_torch.ops.bias_act import activation_funcs, bias_act, bias_act_plain
-from ealdm_torch.ops.norms import group_norm, group_norm_plain, silu
+from ealdm_torch.ops.norms import (
+    group_norm,
+    group_norm_kernel,
+    group_norm_layout,
+    group_norm_path,
+    group_norm_plain,
+    silu,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -97,11 +104,11 @@ def test_flash_attention_bf16_tile_edges(dev, d, nq, nk):
     v = _randn(2, 2, nk, d, dtype=bf, dev=dev, seed=3)
     name = f"flash_attention_d{d}"
     before = kernels.launches[name]
-    before_rows = kernels.launches_by_rows.get((name, nq), 0)
+    before_rows = kernels.launch_details.get((name, nq), 0)
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert kernels.launches[name] == before + 1
-    assert kernels.launches_by_rows[(name, nq)] == before_rows + 1
+    assert kernels.launch_details[(name, nq)] == before_rows + 1
     assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
 
 
@@ -140,24 +147,84 @@ def test_flash_attention_rejects_unsupported_head_dim(dev):
         flash_attention(q, q, q)
 
 
+# id: ([N, C, H, W], rows of the pre-bias, offset of x). 32 groups. The
+# channels_last cases cover C/G = 4 (a bfloat16 vector spans two groups), 8,
+# 48 and 64, the largest UNet sample (1.5 MiB in bfloat16, the one-read
+# limit) and one row past it, a single sample, a broadcast pre-bias, and
+# data far from 0 (1000 + N(0, 1): an unshifted E[v^2] - mean^2 loses the
+# variance).
+_GN_CASES = {
+    "one_block": ((3, 64, 9, 7), "n", 0.0),
+    "two_pass": ((2, 64, 130, 130), "n", 0.0),
+    "cg4": ((2, 128, 12, 20), "n", 0.0),
+    "cg8": ((2, 256, 8, 8), "n", 0.0),
+    "cg48": ((2, 1536, 8, 8), "n", 0.0),
+    "cg64": ((2, 2048, 4, 4), "n", 0.0),
+    "unet_largest": ((2, 768, 32, 32), "n", 0.0),
+    "past_one_read": ((2, 768, 25, 41), "n", 0.0),
+    "n1": ((1, 128, 16, 16), "1", 0.0),
+    "pre_row_broadcast": ((3, 96, 10, 10), "1", 0.0),
+    "offset": ((2, 64, 32, 32), "n", 1000.0),
+    "offset_two_read": ((2, 64, 130, 130), "n", 1000.0),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 64, 9, 7), (2, 64, 130, 130)],
-                         ids=["one_block", "two_pass"])
+@pytest.mark.parametrize("case", list(_GN_CASES))
 @pytest.mark.parametrize("channels_last", [False, True])
-def test_group_norm(dev, dtype, shape, channels_last):
-    x = (3 * _randn(*shape, dtype=torch.float32, dev=dev) + 1).to(dtype)
+def test_group_norm(dev, dtype, case, channels_last):
+    """Against the plain version in float64, rounded once to the dtype; the
+    path's launch counter and its (layout, shape, dtype) count move by one."""
+    shape, pre_rows, offset = _GN_CASES[case]
+    x = _randn(*shape, dtype=torch.float32, dev=dev)
+    x = ((x + offset) if offset else (3 * x + 1)).to(dtype)
     if channels_last:
         x = x.contiguous(memory_format=torch.channels_last)
-    c = shape[1]
+    layout = group_norm_layout(x)
+    assert layout == ("channels_last" if channels_last else "nchw")
+    n, c = shape[:2]
     scale = 1 + 0.1 * _randn(c, dtype=torch.float32, dev=dev, seed=4)
     bias = 0.1 * _randn(c, dtype=torch.float32, dev=dev, seed=5)
-    pre = _randn(shape[0], c, dtype=dtype, dev=dev, seed=6)
-    name = "group_norm" if shape[2] * shape[3] * c // 32 <= 32768 else "group_norm_two_pass"
-    before = kernels.launches[name]
+    pre = _randn(n if pre_rows == "n" else 1, c, dtype=dtype, dev=dev, seed=6)
+    name = group_norm_path(shape, dtype, 32, layout)
+    detail = (name, (layout, shape, str(dtype).removeprefix("torch.")))
+    before, before_detail = dict(kernels.launches), kernels.launch_details.get(detail, 0)
     got = group_norm(x, scale, bias, 32, 1e-6, act=silu, data_format="NCHW", pre_bias=pre)
-    assert kernels.launches[name] == before + 1
-    want = group_norm_plain(x, scale, bias, 32, 1e-6, silu, "NCHW", pre)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]} == {name: 1}
+    assert kernels.launch_details[detail] == before_detail + 1
+    assert got.dtype == dtype and group_norm_layout(got) == layout
+    want = group_norm_plain(x, scale, bias, 32, 1e-6, silu, "NCHW", pre,
+                            stats_dtype=torch.float64)
     assert _within_limit(dtype, got, want)
+
+
+def test_group_norm_one_read_limit(dev):
+    """The largest UNet sample takes the one-read path in bfloat16, one row
+    more takes two reads; float32 halves the limit."""
+    bf = torch.bfloat16
+    assert group_norm_path((48, 768, 32, 32), bf, 32) == "group_norm"
+    assert group_norm_path((48, 768, 25, 41), bf, 32) == "group_norm_two_pass"
+    assert group_norm_path((48, 768, 32, 32), torch.float32, 32) == "group_norm_two_pass"
+
+
+@pytest.mark.parametrize("view", ["narrowed_width", "sliced_channels", "misaligned_base"])
+def test_group_norm_rejects_layouts(dev, view):
+    """Strides other than dense NCHW or channels_last, and a channels_last
+    tensor off a 16-byte boundary, raise instead of launching or copying."""
+    bf = torch.bfloat16
+    if view == "narrowed_width":
+        x = _randn(2, 64, 8, 9, dtype=bf, dev=dev).contiguous(
+            memory_format=torch.channels_last)[..., :8]
+    elif view == "sliced_channels":
+        x = _randn(2, 128, 8, 8, dtype=bf, dev=dev)[:, ::2]
+    else:
+        x = _randn(1 + 2 * 8 * 8 * 64, dtype=bf, dev=dev)[1:].view(2, 8, 8, 64).permute(0, 3, 1, 2)
+    ones, zeros = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        group_norm_kernel(x, ones, zeros, 32, 1e-6, True)
+    assert kernels.launches == before
 
 
 def _bias_act_x(layout, dtype, dev):

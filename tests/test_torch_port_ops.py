@@ -98,19 +98,27 @@ def _gn_inputs(n, h, w, c, seed=0):
     return x, scale, bias, pre
 
 
-@pytest.mark.parametrize("fmt", ["NHWC", "NCHW"])
+@pytest.mark.parametrize("fmt", ["NHWC", "NCHW", "NCHW_channels_last"])
 @pytest.mark.parametrize("eps,silu,use_pre", [(1e-5, True, True), (1e-6, True, False),
                                               (1e-6, False, False), (1e-5, False, True)])
 def test_group_norm_matches_jnp(fmt, eps, silu, use_pre):
+    """NHWC, NCHW-contiguous, and the channels_last NCHW view the model's
+    convolutions produce."""
     x, scale, bias, pre = _gn_inputs(2, 6, 5, 64)
     want = j_norms.group_norm(jnp.asarray(x), scale, bias, 32, eps,
                               act=j_norms.silu if silu else None,
                               pre_bias=jnp.asarray(pre) if use_pre else None)
-    xt = _t(x) if fmt == "NHWC" else _t(x).permute(0, 3, 1, 2)
+    xt = _t(x)
+    if fmt != "NHWC":
+        xt = xt.permute(0, 3, 1, 2)
+        assert xt.is_contiguous(memory_format=torch.channels_last)
+        if fmt == "NCHW":
+            xt = xt.contiguous()
     got = t_norms.group_norm(xt, _t(scale), _t(bias), 32, eps,
-                             act=t_norms.silu if silu else None, data_format=fmt,
+                             act=t_norms.silu if silu else None,
+                             data_format="NHWC" if fmt == "NHWC" else "NCHW",
                              pre_bias=_t(pre) if use_pre else None)
-    if fmt == "NCHW":
+    if fmt != "NHWC":
         got = got.permute(0, 2, 3, 1)
     _close(got, want)
 
