@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels    # phases 1-2b only: a new kernel's first call
     python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
+    python3 chip_smoke.py --train      # the build and phase 6 (training) only
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc, and
@@ -31,10 +32,23 @@ Phases, each of which raises (non-zero exit) on failure:
   4. the same program under the packed attention layout for a few steps,
      held against the "flash" layout at the same seed;
   5. a reference check: flagship width at batch 1, 2 steps, float32, the
-     card (kernels) against the CPU (plain versions) on the same inputs.
+     card (kernels) against the CPU (plain versions) on the same inputs;
+  6. training, `bench.py --train`'s step (`config.FLAGSHIP_TRAIN`): (a) the
+     GroupNorm and flash Functions' gradients against autograd through
+     their plain versions at the train step's shapes; (b) the flagship train
+     step at batch 24 in bfloat16 with remat "dots" (a warm-up and five
+     timed steps, launches per step checked against the module tree, one
+     profiled step: device time by group and the idle share; three steps
+     each under "none" and "full" for their time and peak); (c) gradient
+     completeness after the first step; (e) that step's numbers: the
+     gradient of one bf16 batch-24 step with the kernels against the same
+     step with each kernel launch replaced by its plain version, and a
+     planted GroupNorm fault that must fail the same limit; (d) one float32
+     train step at batch 1, the card against the CPU.
 
-The last three lines of output are the card's name and power limit, a JSON
-line with every kernel's numbers, and {"ok": true, "device": {...}}.
+The last lines of output are a `[train]` JSON line with phase 6's numbers,
+the card's name and power limit, a JSON line with every kernel's numbers
+(not with --train), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1001,6 +1015,508 @@ def phase_reference(cfg_module, bf16_model):
         raise RuntimeError("the card's float32 result disagrees with the CPU reference")
 
 
+# ------------------------------------------------------------------ phase 6
+def rel_err_to_max(got, want):
+    """max |got - want| / max |want|, in float32 (0 when both are 0)."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / scale if scale else (got - want).abs().max().item()
+
+
+def phase_train_grads():
+    """(a) The autograd Functions' gradients on the card against autograd
+    through the plain versions on the same inputs and cotangent. Both sides
+    recompute the same float32 formula (`group_norm_plain`, the dense
+    `sdpa`) on the same tensors, so they differ by the order of a sum at
+    most: 1e-5 of each gradient's largest element. A detached kernel output
+    has no grad_fn and fails before that."""
+    import torch
+
+    from ealdm_torch.ops.attention import _split_heads, flash_attention, sdpa
+    from ealdm_torch.ops.norms import group_norm, group_norm_plain, silu
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf = torch.float32, torch.bfloat16
+    tol = 1e-5
+    worst = {}
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def grads(fn, inputs, g):
+        inputs = [t.detach().requires_grad_() for t in inputs]
+        y = fn(*inputs)
+        return y, torch.autograd.grad(y, inputs, g)
+
+    def check(name, what, got, want, node):
+        y, gs = got
+        if y.grad_fn is None or type(y.grad_fn).__name__ != node:
+            raise RuntimeError(f"{name} {what}: output grad_fn {y.grad_fn}, not {node}")
+        errs = [rel_err_to_max(a, b) for a, b in zip(gs, want[1])]
+        worst[name] = max(worst.get(name, 0.0), *errs)
+        log(f"  {name:20s} {what:46s} grad errors / max {[f'{e:.2g}' for e in errs]} "
+            f"(tolerance {tol:g})")
+        if not all(math.isfinite(e) and e <= tol for e in errs):
+            raise RuntimeError(f"{name} {what}: gradients disagree with the plain version")
+
+    gn_cases = [((48, 256, 32, 32), True, "channels_last"),
+                ((48, 1024, 8, 8), False, "channels_last"),
+                ((24, 128, 256, 256), False, "channels_last"),
+                ((8, 256, 32, 32), True, "nchw")]
+    for shape, with_pre, layout in gn_cases:
+        n, c = shape[:2]
+        for dtype in (f32, bf):
+            x = (3 * randn(*shape) + 1).to(dtype)
+            if layout == "channels_last":
+                x = x.contiguous(memory_format=torch.channels_last)
+            g = randn(*shape, dtype=dtype)
+            scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
+            inputs = [x, scale, bias] + ([randn(n, c, dtype=dtype)] if with_pre else [])
+            for act in (None, silu):
+                def kernel(x, s, b, p=None):
+                    return group_norm(x, s, b, 32, 1e-5, act, "NCHW", p)
+
+                def plain(x, s, b, p=None):
+                    return group_norm_plain(x, s, b, 32, 1e-5, act, "NCHW", p)
+
+                what = (f"{list(shape)} {layout} {str(dtype)[6:]}"
+                        f"{' pre_bias' if with_pre else ''}{' SiLU' if act else ''}")
+                check("group_norm", what, grads(kernel, inputs, g), grads(plain, inputs, g),
+                      "GroupNormKernelBackward")
+            del x, g, inputs
+    # flash d=32 on the UNet's head-strided view, d=512 as the VQ encoder
+    # calls it; against the vjp of the dense sdpa
+    for dtype in (f32, bf):
+        for name, qkv in (
+                ("flash_attention_d32", [_split_heads(randn(48, 1024, 256, dtype=dtype), 8)
+                                         for _ in range(3)]),
+                ("flash_attention_d512", [randn(48, 1, 1024, 512, dtype=dtype)
+                                          for _ in range(3)])):
+            g = randn(*qkv[0].shape, dtype=dtype)
+            check(name, f"{list(qkv[0].shape)} {str(dtype)[6:]}",
+                  grads(flash_attention, qkv, g), grads(sdpa, qkv, g), "FlashAttentionBackward")
+            del qkv, g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_batch(b, res, seed, device):
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    img = torch.randn(b, res, res, 3, generator=g).to(device)
+    return {"img": img, "mixed": mixed_batch(b, res, seed + 1, device)}
+
+
+def expected_train_launches(model, batch, cfg, remat):
+    """Kernel launches of one train step, from the module tree: the VQ
+    encoder once on the N target frames and once on the 2N conditioning
+    pair; the UNet once on the 2N CFG batch, and under "dots" or "full" once
+    more when the backward recomputes each of its blocks and its out head
+    (the kernels' outputs are not saved). The cond tower has no kernel
+    site. {(counter, detail): n} in
+    the wrappers' terms, plus the totals by counter."""
+    import collections
+
+    import torch
+
+    from ealdm_torch.models.layers import SpatialTransformer, flash_eligible
+    from ealdm_torch.models.vae import VaeAttnBlock
+    from ealdm_torch.ops.norms import group_norm_path, resolve_num_groups
+
+    unet = model.model.diffusion_model
+    enc = model.first_stage_model.encoder
+    unet_runs = 1 if remat == "none" else 2
+    census = collections.Counter()
+    for module, n, side, runs in ((unet, 2 * batch, cfg["zres"], unet_runs),
+                                  (enc, batch, cfg["res"], 1), (enc, 2 * batch, cfg["res"], 1)):
+        for c, s, groups in group_norm_sites(module, side):
+            shape = (n, c, s, s)
+            path = group_norm_path(shape, torch.bfloat16, resolve_num_groups(c, groups))
+            census[(path, ("channels_last", shape, "bfloat16"))] += runs
+    for st in unet.modules():
+        if isinstance(st, SpatialTransformer) and flash_eligible(st.tokens, st.tokens):
+            census[("flash_attention_d32", st.tokens)] += st.depth * unet_runs
+    enc_attn = [m for m in enc.modules()
+                if isinstance(m, VaeAttnBlock) and flash_eligible(m.tokens, m.tokens)]
+    for m in enc_attn:
+        census[("flash_attention_d512", m.tokens)] += 2
+    totals = collections.Counter()
+    for (name, _), n in census.items():
+        totals[name] += n
+    return dict(census), dict(totals)
+
+
+def train_profile_groups(prof):
+    """Device seconds of one profiled train step by group. Kernels launched
+    inside the `ealdm::group_norm_vjp`, `ealdm::flash_attention_vjp`,
+    `ealdm::adamw` and `ealdm::ema` ranges (the plain backwards, the
+    optimizer, the EMA) count there, whatever they are; the others by
+    kernel name."""
+    from torch.autograd import DeviceType
+
+    ranges = {"ealdm::group_norm_vjp": "GroupNorm backward (plain)",
+              "ealdm::flash_attention_vjp": "attention backward (plain)",
+              "ealdm::adamw": "AdamW and EMA", "ealdm::ema": "AdamW and EMA"}
+    by_name = {"GroupNorm forward kernel": GN_KERNELS,
+               "flash forward kernel": (*MMA_KERNELS, "flash_row_kernel", "flash_wide_kernel"),
+               "convolutions": ("fprop", "dgrad", "wgrad", "conv", "nchw", "nhwc"),
+               "matmuls": ("gemm", "nvjet", "cutlass"),
+               "copies and casts": ("copy_kernel",),
+               "elementwise and reductions": ("elementwise", "reduce_kernel",
+                                              "multi_tensor_apply")}
+    totals = dict.fromkeys([*by_name, *dict.fromkeys(ranges.values()), "other"], 0.0)
+    in_range = {}
+
+    def subtree(e):
+        yield from e.kernels
+        for ch in e.cpu_children:
+            yield from subtree(ch)
+
+    events = prof.events()
+    for e in events:
+        if e.name in ranges and e.device_type == DeviceType.CPU:
+            for k in subtree(e):
+                totals[ranges[e.name]] += k.duration / 1e6
+                in_range[k.name] = in_range.get(k.name, 0.0) + k.duration / 1e6
+    busy, launches, rows = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        if e.key in ranges or getattr(e, "is_user_annotation", False):
+            continue  # a range's span on the device track, not a kernel
+        t = e.self_device_time_total / 1e6
+        busy += t
+        launches += e.count
+        rest = t - in_range.get(e.key, 0.0)
+        tag = next((g for g, names in by_name.items() if any(n in e.key for n in names)),
+                   "other")
+        totals[tag] += rest
+        rows.append((t, e.count, tag, e.key))
+    return busy, totals, launches, sorted(rows, reverse=True)
+
+
+def phase_train(cfg_module):
+    """(b) `bench.py --train`'s step on the flagship: one warm-up step and
+    five timed ones, launches per step against the module tree, one
+    profiled step; (c) gradient completeness after the first step."""
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch import kernels
+    from ealdm_torch.models.ddpm import LatentDiffusion
+    from ealdm_torch.models.layers import GroupNorm32
+    from ealdm_torch.training import init_train_state, make_train_step
+
+    cfg, tc = cfg_module.FLAGSHIP, cfg_module.FLAGSHIP_TRAIN
+    ealdm_torch.enable_inference_optimizations()
+    batch_size = tc["batch_size"]
+    t0 = time.perf_counter()
+    model = LatentDiffusion(**cfg_module.model_kwargs(cfg), dtype=getattr(torch, tc["dtype"]),
+                            device="cuda")
+    random_init_(model, seed=0)
+    state, opt = init_train_state(model, learning_rate=tc["learning_rate"],
+                                  ema_decay=tc["ema_decay"])
+    step = make_train_step(model, opt, remat=tc["remat"])
+    n_train = sum(p.numel() for k, p in state.params.items() if k in state.opt_state.mu)
+    log(f"[train] flagship {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"parameters, {n_train / 1e6:.1f} M trainable; batch {batch_size}, "
+        f"{tc['dtype']} compute, remat {tc['remat']!r}, lr {tc['learning_rate']}; "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    batch = train_batch(batch_size, cfg["res"], seed=21, device="cuda")
+    frozen = {k: p.detach().clone() for k, p in state.params.items()
+              if k.startswith("first_stage_model")}
+    want, want_totals = expected_train_launches(model, batch_size, cfg, tc["remat"])
+
+    def run_step(step_fn, seed):
+        """(wall s, loss, grad norm, launches by detail) of one step."""
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch, torch.Generator().manual_seed(seed))
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()  # waits for the step
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, loss, gnorm, dict(kernels.launch_details)
+
+    warm_s, loss0, gnorm0, details0 = run_step(step, 100)
+    # (c) gradient completeness after the first step
+    missing, bad, zero = [], [], []
+    for k, p in state.params.items():
+        if k in state.opt_state.mu:
+            if p.grad is None:
+                missing.append(k)
+            elif not bool(torch.isfinite(p.grad).all()):
+                bad.append(k)
+        elif p.grad is not None:
+            bad.append(k)
+    unet = model.model.diffusion_model
+    must_move = {"model.diffusion_model.conv_in.weight": unet.conv_in.weight}
+    for name, m in unet.named_modules():
+        if isinstance(m, GroupNorm32):
+            must_move[f"{name}.weight"], must_move[f"{name}.bias"] = m.weight, m.bias
+    zero = [k for k, p in must_move.items() if p.grad is None or not p.grad.abs().max() > 0]
+    moved = [k for k, p in frozen.items() if not torch.equal(state.params[k], p)]
+    log(f"[train] after the first step: {len(state.opt_state.mu)} trainable tensors, "
+        f"missing grads {missing[:4]}, non-finite or unexpected {bad[:4]}, zero among "
+        f"conv_in and {len(must_move) - 1} UNet GroupNorm scales/biases {zero[:4]}, "
+        f"first-stage tensors moved {moved[:4]} of {len(frozen)}")
+    if missing or bad or zero or moved:
+        raise RuntimeError("gradient completeness failed after the first step")
+    del frozen
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = [run_step(step, 200 + i) for i in range(5)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    walls = [s[0] for s in steps]
+    dt = sorted(walls)[2]
+    got_totals = {}
+    for (name, _), n in steps[0][3].items():
+        got_totals[name] = got_totals.get(name, 0) + n
+    log(f"[train] warm-up step {warm_s:.2f} s (loss {loss0:.6f}, grad norm {gnorm0:.6f}); "
+        f"timed steps {[round(w, 4) for w in walls]} s: median {dt * 1e3:.1f} ms = "
+        f"{batch_size / dt:.3f} img/s; peak {peak_gib:.2f} GiB")
+    log(f"[train] losses {[round(s[1], 6) for s in steps]}, grad norms "
+        f"{[round(s[2], 6) for s in steps]}")
+    log(f"[train] launches per step {got_totals} (module tree: {want_totals})")
+    for key in sorted(set(want) | set(steps[0][3]), key=str):
+        log(f"  {str(key):70s} {steps[0][3].get(key, 0)} ({want.get(key, 0)})")
+    for i, s in enumerate(steps):
+        if s[3] != want:
+            raise RuntimeError(f"timed step {i}: launches differ from the module tree's")
+        if not (math.isfinite(s[1]) and math.isfinite(s[2])):
+            raise RuntimeError(f"timed step {i}: non-finite loss or grad norm")
+    if details0 != want:
+        raise RuntimeError("warm-up step: launches differ from the module tree's")
+    for name in ("flash_attention_d32", "flash_attention_d512", "group_norm",
+                 "group_norm_two_pass"):
+        if not got_totals.get(name):
+            raise RuntimeError(f"{name} was not launched by the train step")
+    # one profiled step: device busy, idle share, device time by group
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, torch.Generator().manual_seed(300))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, groups, n_kernels, rows = train_profile_groups(prof)
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time in the train step")
+    log(f"[train-profile] device busy {busy * 1e3:.1f} ms in {n_kernels} kernel launches; "
+        f"idle share {1 - busy / dt:.3f} of the median unprofiled step ({dt * 1e3:.1f} ms), "
+        f"{1 - busy / prof_wall:.3f} of the profiled one ({prof_wall * 1e3:.1f} ms)")
+    for tag, t in groups.items():
+        log(f"[train-profile] {tag:28s} {t * 1e3:9.2f} ms = {t / busy:.3f} of device time")
+    for t, n, tag, key in rows[:20]:
+        log(f"[train-profile] {t * 1e3:8.2f} ms x{n:<5d} ({tag}, ranges included) {key[:90]}")
+    for tag in ("GroupNorm backward (plain)", "attention backward (plain)", "AdamW and EMA"):
+        if groups[tag] <= 0:
+            raise RuntimeError(f"the profile attributes no device time to {tag}")
+    # the other remat policies, three steps each: median time, peak, launches
+    policies = {}
+    for policy in ("none", "full"):
+        other = make_train_step(model, opt, remat=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [run_step(other, 400 + i) for i in range(3)]
+        expect, _ = expected_train_launches(model, batch_size, cfg, policy)
+        ok = all(r[3] == expect and math.isfinite(r[1]) for r in runs)
+        policies[policy] = dict(step_ms=sorted(r[0] for r in runs)[1] * 1e3,
+                                walls_s=[r[0] for r in runs],
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"[train] remat {policy!r}: steps {[round(r[0], 4) for r in runs]} s, median "
+            f"{policies[policy]['step_ms']:.1f} ms, peak {policies[policy]['peak_gib']:.2f} "
+            f"GiB, launches as the module tree gives and finite losses: {ok}")
+        if not ok:
+            raise RuntimeError(f"remat {policy!r}: launches {runs[0][3]} or losses "
+                               f"{[r[1] for r in runs]}")
+    out = dict(batch=batch_size, dtype=tc["dtype"], remat=tc["remat"],
+               step_ms=dt * 1e3, walls_s=walls, img_per_s=batch_size / dt,
+               warmup_s=warm_s, peak_gib=peak_gib, losses=[loss0] + [s[1] for s in steps],
+               grad_norms=[gnorm0] + [s[2] for s in steps], launches_per_step=got_totals,
+               device_busy_ms=busy * 1e3, idle_share=1 - busy / dt,
+               kernel_launches=n_kernels,
+               profiled_wall_ms=prof_wall * 1e3,
+               device_ms_by_group={k: v * 1e3 for k, v in groups.items()},
+               other_remat=policies)
+    return model, out
+
+
+def phase_train_reference(cfg_module, trained):
+    """(d) One training step's loss and gradients at full width, batch 1,
+    float32, dropout off, TF32 off: the card (kernels) against the CPU
+    (plain versions), same weights, batch, t and noise. The sums differ in
+    order (cuDNN and cuBLAS against oneDNN) and the attention differs in
+    form (the flash kernel against dense sdpa): loss to 1e-4 relative, the
+    grad norm to 1e-3 relative, and each listed gradient to 1e-3 of its
+    largest element."""
+    import torch
+
+    from ealdm_torch.models.ddpm import LatentDiffusion
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, tc = cfg_module.FLAGSHIP, cfg_module.FLAGSHIP_TRAIN
+    kw = cfg_module.model_kwargs(cfg)
+    sd = {k: v.float() for k, v in trained.state_dict().items()}
+    batch = train_batch(1, cfg["res"], seed=31, device="cpu")
+    g = torch.Generator().manual_seed(32)
+    t = torch.randint(0, 1000, (1,), generator=g)
+    noise = torch.randn(1, cfg["zres"], cfg["zres"], 4, generator=g)
+    listed = ("model.diffusion_model.conv_in.weight",
+              "model.diffusion_model.mid_res1.out_norm.weight",
+              "model.diffusion_model.down_0_0_attn.block_0.attn1.to_q.weight",
+              "cond_stage_model.out_3.weight")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = LatentDiffusion(**kw, dtype=torch.float32, device=dev)
+        m.load_state_dict(sd)
+        m.train()
+        b = {"img": batch["img"].to(dev), "mixed": {k: v.to(dev) for k, v in
+                                                    batch["mixed"].items()}}
+
+        t0 = time.perf_counter()
+        with m.model.diffusion_model.remat_blocks(tc["remat"]):
+            loss, _ = m.training_loss(b, None, t=t.to(dev), noise=noise.to(dev), train=False)
+        loss.backward()
+        grads = [p.grad for p in m.parameters() if p.requires_grad]
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))).item()
+        named = dict(m.named_parameters())
+        res[dev] = (loss.item(), gnorm, {k: named[k].grad.float().cpu() for k in listed})
+        log(f"[train-reference] {dev}: loss {res[dev][0]:.8f}, grad norm {gnorm:.8f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del m, grads, named
+    torch.cuda.empty_cache()
+    (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = res["cpu"], res["cuda"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    norm_rel = abs(n_gpu - n_cpu) / abs(n_cpu)
+    grad_rel = {k: rel_err_to_max(g_gpu[k], g_cpu[k]) for k in listed}
+    log(f"[train-reference] float32 card vs CPU: loss {loss_rel:.3g} relative (tolerance "
+        f"1e-4), grad norm {norm_rel:.3g} (1e-3), gradients / max "
+        f"{ {k.split('.', 1)[1]: f'{v:.3g}' for k, v in grad_rel.items()} } (1e-3)")
+    if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and all(v <= 1e-3 for v in grad_rel.values())):
+        raise RuntimeError("the card's float32 train step disagrees with the CPU")
+    return dict(loss_rel=loss_rel, grad_norm_rel=norm_rel, grad_rel_to_max=grad_rel)
+
+
+# a GroupNorm kernel whose output is this much too large (a systematic
+# error of about 4 bf16 ulps) must fail phase 6 (e)'s limit
+PLANTED_GN_SCALE = 2**-5
+
+
+def phase_train_bf16_check(cfg_module, model):
+    """(e) The numbers of the step that (b) times: one bf16 step at batch 24
+    (same weights, batch, t and noise, dropout off, remat as timed) with the
+    kernels, and again with each kernel launch replaced by its plain version
+    on the card (`group_norm_plain`, `flash_attention_plain`; the backwards
+    are the same code on both sides). The two can differ only by the
+    kernels' rounding, which is of the kind bf16 compute adds everywhere, so
+    the limit comes from the bf16 step's own error: the plain bf16
+    gradient's distance from a float32 step's (plain versions, TF32 off).
+    Over the 410 M trainable elements,
+        |g_kernels - g_plain| <= 2 |g_plain - g_float32|
+    (two bf16 runs whose roundings were independent would land sqrt(2)
+    apart), and the grad norms then differ by no more (triangle
+    inequality). The loss, a mean over 98,304 outputs, must agree to 2^-8
+    relative, one bf16 rounding of the loss itself. A GroupNorm kernel with
+    its output `PLANTED_GN_SCALE` too large must fail the gradient limit."""
+    import contextlib
+
+    import torch
+
+    from ealdm_torch.models.ddpm import LatentDiffusion
+    from ealdm_torch.ops import attention, norms
+
+    cfg, tc = cfg_module.FLAGSHIP, cfg_module.FLAGSHIP_TRAIN
+    n = tc["batch_size"]
+    batch = train_batch(n, cfg["res"], seed=41, device="cuda")
+    g = torch.Generator().manual_seed(42)
+    t = torch.randint(0, 1000, (n,), generator=g).cuda()
+    noise = torch.randn(n, cfg["zres"], cfg["zres"], 4, generator=g).cuda()
+    kernel_gn, kernel_flash = norms.group_norm_kernel, attention.flash_attention_kernel
+
+    def plain_gn(x, scale, bias, num_groups, eps, fuse_silu, pre_bias=None):
+        return norms.group_norm_plain(x, scale, bias, num_groups, eps,
+                                      norms.silu if fuse_silu else None, "NCHW",
+                                      None if pre_bias is None else pre_bias.to(x.dtype))
+
+    def faulty_gn(*args, **kwargs):
+        return kernel_gn(*args, **kwargs) * (1 + PLANTED_GN_SCALE)
+
+    @contextlib.contextmanager
+    def launches(gn, flash):
+        norms.group_norm_kernel, attention.flash_attention_kernel = gn, flash
+        try:
+            yield
+        finally:
+            norms.group_norm_kernel, attention.flash_attention_kernel = kernel_gn, kernel_flash
+
+    def step(m, remat):
+        """(loss, every trainable gradient as one float32 vector)."""
+        m.train()
+        params = [p for p in m.parameters() if p.requires_grad]
+        with m.model.diffusion_model.remat_blocks(remat):
+            loss, _ = m.training_loss(batch, None, t=t, noise=noise, train=False)
+        return loss.item(), torch.cat([x.float().flatten()
+                                       for x in torch.autograd.grad(loss, params)])
+
+    t0 = time.perf_counter()
+    with launches(plain_gn, attention.flash_attention_plain):
+        l_plain, g_plain = step(model, tc["remat"])
+        ref = LatentDiffusion(**cfg_module.model_kwargs(cfg), dtype=torch.float32,
+                              device="cuda")
+        ref.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+        l_ref, g_ref = step(ref, "none")
+        del ref
+    ref_norm = g_ref.norm().item()
+    bf16_err = (g_plain - g_ref).norm().item() / ref_norm
+    del g_ref
+    res = {"loss_float32": l_ref, "loss_plain": l_plain, "grad_norm_plain": g_plain.norm().item(),
+           "plain_vs_float32": bf16_err, "limit": 2 * bf16_err}
+    for name, gn in (("kernels", kernel_gn), ("planted_fault", faulty_gn)):
+        with launches(gn, kernel_flash):
+            loss, grad = step(model, tc["remat"])
+        res[name] = {"loss": loss, "loss_rel": abs(loss - l_plain) / abs(l_plain),
+                     "grad_norm": grad.norm().item(),
+                     "grad_vs_plain": (grad - g_plain).norm().item() / ref_norm}
+        del grad
+    del g_plain
+    torch.cuda.empty_cache()
+    k, f = res["kernels"], res["planted_fault"]
+    log(f"[train-bf16] batch {n}, {tc['dtype']}, remat {tc['remat']!r} "
+        f"({time.perf_counter() - t0:.1f} s): "
+        f"loss kernels {k['loss']:.8f}, plain {l_plain:.8f}, float32 {l_ref:.8f}; "
+        f"|g_kernels - g_plain| = {k['grad_vs_plain']:.4g} of |g_float32|, limit "
+        f"{res['limit']:.4g} (twice |g_plain - g_float32| = {bf16_err:.4g}); loss "
+        f"{k['loss_rel']:.3g} relative (limit {2**-8:.3g}); grad norms {k['grad_norm']:.6f} "
+        f"/ {res['grad_norm_plain']:.6f}")
+    log(f"[train-bf16] planted fault (GroupNorm output x (1 + {PLANTED_GN_SCALE:g})): "
+        f"{f['grad_vs_plain']:.4g} of |g_float32| against the limit {res['limit']:.4g}; "
+        f"loss {f['loss_rel']:.3g} relative")
+    if not (k["grad_vs_plain"] <= res["limit"] and k["loss_rel"] <= 2**-8):
+        raise RuntimeError("the bf16 train step with the kernels disagrees with the plain one")
+    if f["grad_vs_plain"] <= res["limit"]:
+        raise RuntimeError("the planted GroupNorm fault passed the bf16 step's limit")
+    return res
+
+
+def phases_train(cfg_module):
+    """Phase 6, training: (a) gradient checks, (b) + (c) the flagship train
+    step, (e) its bf16 numbers against the plain versions', (d) float32
+    card vs CPU. Returns the [train] line's dict."""
+    import torch
+
+    grads = phase_train_grads()
+    model, out = phase_train(cfg_module)
+    out["grad_check_worst"] = grads
+    out["bf16_check"] = phase_train_bf16_check(cfg_module, model)
+    out["reference"] = phase_train_reference(cfg_module, model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv):
     import torch
 
@@ -1018,14 +1534,16 @@ def main(argv):
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.perf_counter()
     phase_build()
+    train_only = "--train" in argv
+    rows = {}
     if "--groupnorm" in argv:
         rows = phase_group_norm()
-    else:
+    elif not train_only:
         phase_sass()
         rows = phase_kernels()
         rows.update(phase_group_norm())
         rows["bias_act"] = phase_ops()
-    if not {"--kernels", "--groupnorm"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--train"} & set(argv):
         steps, batch = 50, 24
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
         counts = e2e["launches"]
@@ -1042,9 +1560,17 @@ def main(argv):
         rows["flash_attention_packed"]["launches"] = packed["flash_attention_packed"]
         phase_reference(cfg_module, model)
         log(f"[e2e] {json.dumps(e2e)}")
+        del model
+        torch.cuda.empty_cache()
+    train = None
+    if not {"--kernels", "--groupnorm"} & set(argv):
+        train = phases_train(cfg_module)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    if train is not None:
+        log(f"[train] {json.dumps(train)}")
     log(smi)
-    log(json.dumps({"kernels": list(rows.values())}))
+    if not train_only:
+        log(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

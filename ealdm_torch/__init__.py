@@ -8,9 +8,10 @@ layout and names so each counterpart is found under the same path:
              filtered_lrelu, conv2d_resample, grid_sample (plain torch +
              the wrappers of the hand-written CUDA kernels)
   kernels/   CUDA C++ sources for sm_90a and the nvcc/ctypes loader
-  models/    UNet, VQ autoencoder, STDiff conditioning tower, LatentDiffusion,
-             FrozenBatchNorm
+  models/    UNet, VQ autoencoder, STDiff conditioning tower, LatentDiffusion
+             (sampling and training surface), distributions, FrozenBatchNorm
   samplers/  DDIM
+  training/  the LDM train step (AdamW, EMA, remat), LR schedules, checkpoints
   utils/     the flax-parameter bridge and the device rule
 
 Public tensors are NHWC as in `ealdm_tpu`; convolutional internals are NCHW.

@@ -82,6 +82,15 @@ TINY = dict(
 )
 
 
+# `bench.py --train`'s training step on FLAGSHIP (bench.py:59-80, :336-347):
+# flash attention and native LayerNorm statistics
+# (enable_inference_optimizations), bfloat16 compute on float32 parameters,
+# AdamW at 1e-5 with the first stage masked out, EMA decay 0.9999, remat
+# "dots"
+FLAGSHIP_TRAIN = dict(batch_size=24, dtype="bfloat16", learning_rate=1e-5,
+                      ema_decay=0.9999, remat="dots")
+
+
 def model_kwargs(cfg: dict) -> dict:
     """LatentDiffusion keyword arguments of FLAGSHIP / TINY (a deep copy)."""
     return copy.deepcopy(cfg["model"])

@@ -21,7 +21,7 @@ from ..ops.attention import (
 )
 from ..ops.norms import group_norm, layer_norm, silu
 
-# Token count at/above which the flash kernel is used (inference only).
+# Token count at/above which the flash kernel is used.
 FLASH_MIN_TOKENS = 256
 
 

@@ -1,10 +1,13 @@
-"""STDiff environment-conditioning tower, inference path (counterpart of
+"""STDiff environment-conditioning tower (counterpart of
 `ealdm_tpu/models/stdiff.py`).
 
 Public tensors are NHWC as in the JAX package. Ported: ConditioningTransform
-(no conditioning noise: it is a training-time augmentation), EqualizedDense,
-CondScale (its `w` and `c` branches), EnvLSTM, AdaIN and UnetCond with
-norm="group" or "frozen_bn".
+(without its conditioning noise: JAX's UnetCond builds it with
+add_noise=False, so no shipped path draws it), EqualizedDense, CondScale (its
+`w` and `c` branches), EnvLSTM, AdaIN and UnetCond with norm="group" or
+"frozen_bn". The two dropout sites (p 0.1: EnvLSTM's head and the out-head
+tokens) run in train() mode when the caller passes a `torch.Generator`, as
+flax's nn.Dropout runs when given a "dropout" rng and deterministic=False.
 """
 from __future__ import annotations
 
@@ -105,29 +108,48 @@ class CondScale(nn.Module):
         return styles
 
 
+def dropout(x, rate: float, generator: torch.Generator):
+    """flax nn.Dropout: keep each element with probability 1 - rate (a
+    uniform draw from `generator` below it) and scale it by 1 / (1 - rate)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class EnvLSTM(nn.Module):
     """LSTM over an env time series + 2-layer FC head on every step:
     [B, T, D] -> [B*T, emb]. The recurrence runs in float32 (the flax cell
-    has no compute dtype); the head in `dtype`."""
+    has no compute dtype); the head in `dtype`. Only the head is dropped out
+    (after fc_0), as in JAX: torch.nn.LSTM's own dropout acts between
+    stacked layers and stays off."""
 
     def __init__(self, input_size: int, hidden_size: int, output_size: int,
-                 num_layers: int = 1, dtype=torch.float32):
+                 num_layers: int = 1, dropout: float = 0.1, dtype=torch.float32):
         super().__init__()
         self.hidden_size, self.num_layers, self.dtype = hidden_size, num_layers, dtype
+        self.dropout_rate = dropout
         for layer in range(num_layers):
-            self.add_module(f"lstm_{layer}", nn.LSTM(
-                input_size if layer == 0 else hidden_size, hidden_size,
-                batch_first=True))
+            lstm = nn.LSTM(input_size if layer == 0 else hidden_size, hidden_size,
+                           batch_first=True)
+            # flax's cell has one bias a gate; torch adds bias_ih to bias_hh,
+            # so bias_ih stays 0 and out of training
+            nn.init.zeros_(lstm.bias_ih_l0)
+            lstm.bias_ih_l0.requires_grad_(False)
+            self.add_module(f"lstm_{layer}", lstm)
         self.fc_0 = Dense(hidden_size, output_size, dtype=dtype)
         self.fc_2 = Dense(output_size, output_size, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """Dropout runs in train() mode when `generator` is given."""
         b, t, _ = x.shape
         h = x.to(self.dtype).float()
         for layer in range(self.num_layers):
             h, _ = getattr(self, f"lstm_{layer}")(h)
         h = h.reshape(b * t, self.hidden_size)
-        return self.fc_2(F.relu(self.fc_0(h)))
+        h = F.relu(self.fc_0(h))
+        if self.training and generator is not None:
+            h = dropout(h, self.dropout_rate, generator)
+        return self.fc_2(h)
 
 
 class AdaIN(nn.Module):
@@ -194,8 +216,8 @@ class UnetCond(nn.Module):
         self.xform = ConditioningTransform(self.cond_args, num_ws=num_ws)
         c_dim = 2 * self.xform.num_f
         self.scaled_styles = CondScale(emb_dim, self.cond_args, c_dim)
-        self.f_mlp = EnvLSTM(f_dim, hidden_dim, emb_dim, num_layers, dtype)
-        self.w_mlp = EnvLSTM(w_dim, hidden_dim, emb_dim, num_layers, dtype)
+        self.f_mlp = EnvLSTM(f_dim, hidden_dim, emb_dim, num_layers, dtype=dtype)
+        self.w_mlp = EnvLSTM(w_dim, hidden_dim, emb_dim, num_layers, dtype=dtype)
         self.wadain = AdaIN(mid_dim, emb_dim, dtype)
         self.fadain = AdaIN(mid_dim, emb_dim, dtype)
         self.tadain = AdaIN(mid_dim, emb_dim, dtype)
@@ -207,17 +229,20 @@ class UnetCond(nn.Module):
         self.out_0 = Dense(hw, mid_dim * hw, dtype=dtype)
         self.out_3 = Dense(mid_dim * hw, out_dim, dtype=dtype)
 
-    def forward(self, img_feat, flow, weather, time, fuse_env: bool = True):
+    def forward(self, img_feat, flow, weather, time, fuse_env: bool = True,
+                generator: Optional[torch.Generator] = None):
         """img_feat [B, h, w, mid_dim] (the frozen first-stage encoding of
         the previous frame), flow [B, T, f_dim], weather [B, T, w_dim],
-        time [B, 1] -> context [B, mid_dim, out_dim]."""
+        time [B, 1] -> context [B, mid_dim, out_dim]. In train() mode with a
+        `generator`, the two dropout sites draw from it (the LSTM heads'
+        first, f then w, then the out head)."""
         cs = self.xform(time.float(), broadcast=True)
         c0 = cs[:, 0, :]
         h = img_feat
         if fuse_env:
             t_style = self.scaled_styles(c=c0)
-            f_emb = self.f_mlp(flow)
-            w_emb = self.w_mlp(weather)
+            f_emb = self.f_mlp(flow, generator)
+            w_emb = self.w_mlp(weather, generator)
             combined = torch.cat([
                 h, self.wadain(h, w_emb), self.fadain(h, f_emb),
                 self.tadain(h, t_style),
@@ -228,4 +253,7 @@ class UnetCond(nn.Module):
             h = combined + h
         b, fh, fw, c = h.shape
         tokens = h.permute(0, 3, 1, 2).reshape(b, c, fh * fw)
-        return self.out_3(F.relu(self.out_0(tokens)))
+        tokens = F.relu(self.out_0(tokens))
+        if self.training and generator is not None:
+            tokens = dropout(tokens, 0.1, generator)
+        return self.out_3(tokens)

@@ -1,10 +1,12 @@
 """ADM-style UNet denoiser (counterpart of `ealdm_tpu/models/unet.py`).
 
 Public I/O is NHWC as in the JAX package (x [N, H, W, C] in, float32
-[N, H, W, C] out); the internals run NCHW.
+[N, H, W, C] out); the internals run NCHW. Under `remat_blocks` each block
+is a rematerialisation region of its own.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -12,6 +14,7 @@ from torch import nn
 
 from ..ops.embeddings import timestep_embedding
 from ..ops.norms import silu
+from ..utils.remat import apply_remat, check_policy
 from .layers import (
     AttentionBlock,
     Dense,
@@ -75,6 +78,7 @@ class UNetModel(nn.Module):
         self.use_spatial_transformer = use_spatial_transformer
         self.transformer_depth = transformer_depth
         self.dtype = dtype
+        self.remat = "none"
         self.plan = []
 
         emb_dim = model_channels * 4
@@ -147,6 +151,9 @@ class UNetModel(nn.Module):
             t_emb = timestep_embedding(timesteps, self.model_channels)
             emb = self.time_embed_2(silu(self.time_embed_0(t_emb)))
 
+        def block(fn, *args, **kwargs):
+            return apply_remat(fn, self.remat)(*args, **kwargs)
+
         h = self.conv_in(x.to(self.dtype).permute(0, 3, 1, 2))
         hs = []
         for kind, name in self.plan:
@@ -156,14 +163,29 @@ class UNetModel(nn.Module):
                 h = torch.cat([h, hs.pop()], dim=1)
             elif kind == "res":
                 row = None if emb_tables is None else emb_tables[name]
-                h = getattr(self, name)(h, emb, emb_out=row)
+                h = block(getattr(self, name), h, emb, emb_out=row)
             elif kind == "attn" and self.use_spatial_transformer:
                 kv = None if context_kv is None else context_kv[name]
-                h = getattr(self, name)(h, context, kv=kv)
+                h = block(getattr(self, name), h, context, kv=kv)
             else:
-                h = getattr(self, name)(h)
-        h = self.out_conv(self.out_norm(h, act=silu))
+                h = block(getattr(self, name), h)
+        h = block(self._out_head, h)
         return h.permute(0, 2, 3, 1).float().contiguous()
+
+    def _out_head(self, h):
+        return self.out_conv(self.out_norm(h, act=silu))
+
+    @contextlib.contextmanager
+    def remat_blocks(self, policy: str):
+        """Within the context, each block of `plan` and the out head run as
+        a region of their own under `policy` (`utils.remat`): the backward
+        reruns one block when it reaches it, so one block's intermediates
+        are live at a time."""
+        saved, self.remat = self.remat, check_policy(policy)
+        try:
+            yield self
+        finally:
+            self.remat = saved
 
 
 def unet_site_plan(unet: UNetModel):

@@ -6,7 +6,9 @@ tensors and run `flash_attention_plain`, the same math in torch, on CPU
 tensors. bfloat16 runs on the tensor cores and rounds P to bfloat16 before
 P*V (as the TPU's MXU does); it needs 16-byte aligned tensors with strides
 in multiples of 8 elements and raises otherwise. float32 runs on FMA.
-`bf16_attention_shares` states the limits a bfloat16 kernel is held to
+On the card both run inside autograd Functions whose backward is the vjp of
+the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
+do. `bf16_attention_shares` states the limits a bfloat16 kernel is held to
 against the plain version. `sdpa` (the dense default) and
 `tiny_ctx_attention_packed` are plain torch, as they are plain jnp in the
 JAX package.
@@ -21,7 +23,7 @@ from .. import kernels
 from ..kernels import build
 
 __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
-           "flash_attention_plain", "bf16_attention_shares",
+           "flash_attention_plain", "flash_attention_vjp", "bf16_attention_shares",
            "tiny_ctx_attention_packed", "set_attention_impl", "attention_impl"]
 
 # "dense" (default), "flash" (the kernel at eligible self-attention sites) or
@@ -115,9 +117,72 @@ def bf16_attention_shares(got, q, k, v, want, heads=None, scale=None,
 
 
 def flash_attention(q, k, v, scale=None):
-    """Fused attention on [B, H, N, D] q and [B, H, M, D] k/v."""
+    """Fused attention on [B, H, N, D] q and [B, H, M, D] k/v; on the card
+    differentiable through `FlashAttention`."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
+    return FlashAttention.apply(q, k, v, scale)
+
+
+def flash_attention_packed(q, k, v, heads, scale=None):
+    """Fused attention on packed [B, Nq, H*D] q and [B, Nk, H*D] k/v (heads
+    are column strips); returns [B, Nq, H*D]. On the card differentiable
+    through `FlashAttentionPacked`."""
+    if not q.is_cuda:
+        o = flash_attention_plain(_split_heads(q, heads), _split_heads(k, heads),
+                                  _split_heads(v, heads), scale)
+        return o.transpose(1, 2).reshape(q.shape)
+    return FlashAttentionPacked.apply(q, k, v, heads, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward with the JAX package's rematerialised backward
+    (`_flash_vjp_bwd`): q, k, v are saved, no scores, and the backward is
+    `flash_attention_vjp`, the vjp of the dense `sdpa`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_attention_kernel(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*flash_attention_vjp(*ctx.saved_tensors, g, ctx.scale), None)
+
+
+class FlashAttentionPacked(torch.autograd.Function):
+    """`flash_attention_packed_kernel` with the backward of JAX's
+    `_packed_vjp_bwd`: the vjp of `sdpa` on the split heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.config = (scale, heads)
+        return flash_attention_packed_kernel(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*flash_attention_vjp(*ctx.saved_tensors, g, *ctx.config), None, None)
+
+
+def flash_attention_vjp(q, k, v, g, scale=None, heads=None):
+    """(dq, dk, dv) of attention for the output cotangent `g`, each in its
+    input's dtype: the vjp of the dense `sdpa` recomputed from q, k, v, as
+    `ealdm_tpu.ops.attention._flash_vjp_bwd` does. With `heads`, q/k/v/g are
+    packed [B, N, H*D] (JAX's `_packed_vjp_bwd`)."""
+    with torch.profiler.record_function("ealdm::flash_attention_vjp"), torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+        if heads is None:
+            o = sdpa(*inputs, scale)
+        else:
+            o = sdpa(*(_split_heads(t, heads) for t in inputs), scale)
+            o = o.transpose(1, 2).reshape(q.shape)
+        return torch.autograd.grad(o, inputs, g)
+
+
+def flash_attention_kernel(q, k, v, scale=None):
+    """Launch the flash kernel on CUDA [B, H, N, D] q and [B, H, M, D] k/v."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention takes [B, H, N, D] q/k/v")
     if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
@@ -130,13 +195,9 @@ def flash_attention(q, k, v, scale=None):
     return o
 
 
-def flash_attention_packed(q, k, v, heads, scale=None):
-    """Fused attention on packed [B, Nq, H*D] q and [B, Nk, H*D] k/v (heads
-    are column strips); returns [B, Nq, H*D]."""
-    if not q.is_cuda:
-        o = flash_attention_plain(_split_heads(q, heads), _split_heads(k, heads),
-                                  _split_heads(v, heads), scale)
-        return o.transpose(1, 2).reshape(q.shape)
+def flash_attention_packed_kernel(q, k, v, heads, scale=None):
+    """Launch the flash kernel on CUDA packed [B, Nq, H*D] q and [B, Nk, H*D]
+    k/v."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError("flash_attention_packed takes [B, N, H*D] q/k/v")
     b, nq, hd = q.shape
@@ -152,6 +213,8 @@ def flash_attention_packed(q, k, v, heads, scale=None):
 
 
 def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
+    if not q.is_cuda:
+        raise ValueError("the flash kernel needs CUDA tensors")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32/bfloat16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")

@@ -4,7 +4,9 @@
 (`kernels/csrc/group_norm.cu`, fp32 statistics) for the two layouts they
 take: dense channels_last, which is what the model's convolutions hand every
 norm, and NCHW-contiguous; on a CPU tensor it runs `group_norm_plain`, the
-jnp formulation written in torch. The JAX package's
+jnp formulation written in torch. On the card the kernel runs inside
+`GroupNormKernel`, whose backward is the plain formulation's vjp
+(`group_norm_vjp`), as the JAX package's `custom_vjp` does. The JAX package's
 `set_norm_impl("xla"|"pallas")` switch has no counterpart: it trades XLA
 scheduling, which eager PyTorch does not have.
 """
@@ -18,8 +20,9 @@ from .. import kernels
 from ..kernels import build
 
 __all__ = [
-    "group_norm", "group_norm_path", "group_norm_plain", "instance_norm_2d",
-    "layer_norm", "resolve_num_groups", "set_norm_stats_precision", "silu",
+    "GroupNormKernel", "group_norm", "group_norm_path", "group_norm_plain",
+    "group_norm_vjp", "instance_norm_2d", "layer_norm", "resolve_num_groups",
+    "set_norm_stats_precision", "silu",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,13 +85,47 @@ def group_norm(x, scale, bias, num_groups=32, eps=1e-5, act=None,
     if act not in (None, silu):
         raise ValueError("the GroupNorm kernel fuses SiLU only")
     xc = x if data_format == "NCHW" else x.permute(0, 3, 1, 2)
-    y = group_norm_kernel(
+    y = GroupNormKernel.apply(
         xc,
         torch.ones(c, device=x.device) if scale is None else scale.float(),
         torch.zeros(c, device=x.device) if bias is None else bias.float(),
-        num_groups, eps, act is silu, pre_bias,
+        pre_bias, num_groups, eps, act is silu,
     )
     return y if data_format == "NCHW" else y.permute(0, 2, 3, 1)
+
+
+class GroupNormKernel(torch.autograd.Function):
+    """`group_norm_kernel` with the JAX package's rematerialised backward
+    (`_group_norm_pallas_bwd`): only the inputs are saved, and the backward
+    is `group_norm_vjp`, the vjp of the plain formulation in float32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, pre_bias, num_groups, eps, fuse_silu):
+        ctx.save_for_backward(x, scale, bias, pre_bias)
+        ctx.config = (num_groups, eps, fuse_silu)
+        return group_norm_kernel(x, scale, bias, num_groups, eps, fuse_silu, pre_bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, pre_bias = ctx.saved_tensors
+        grads = group_norm_vjp(x, scale, bias, pre_bias, g, *ctx.config)
+        return (*grads, None, None, None)
+
+
+def group_norm_vjp(x, scale, bias, pre_bias, g, num_groups, eps, fuse_silu):
+    """Gradients of the NCHW-indexed GroupNorm (+pre-bias)(+SiLU) for the
+    output cotangent `g`: (dx, dscale, dbias, dpre_bias), each in its input's
+    dtype (dpre_bias None without a pre-bias). The forward is recomputed
+    through `group_norm_plain` with float32 statistics, as
+    `ealdm_tpu.ops.norms._group_norm_pallas_bwd` does."""
+    with torch.profiler.record_function("ealdm::group_norm_vjp"), torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, scale, bias)]
+        if pre_bias is not None:
+            inputs.append(pre_bias.detach().requires_grad_())
+        y = group_norm_plain(*inputs[:3], num_groups, eps, silu if fuse_silu else None,
+                             "NCHW", inputs[3] if pre_bias is not None else None)
+        grads = torch.autograd.grad(y, inputs, g)
+    return (*grads, None) if pre_bias is None else grads
 
 
 def group_norm_plain(x, scale, bias, num_groups, eps, act=None,

@@ -1,5 +1,5 @@
 """Parameter bridge: the JAX package's flax parameter tree -> this port's
-`state_dict`.
+`state_dict`, and a JAX train state's EMA shadow -> the port's.
 
 The tree arrives as nested dicts of numpy arrays (`jax.device_get(variables)`,
 with or without the top-level "params"). The port's submodules carry the
@@ -9,7 +9,8 @@ flax module names, so a flax path `a/b/c/<leaf>` becomes the port name
   Conv kernel [kh, kw, in, out] (HWIO)   -> weight [out, in, kh, kw] (OIHW)
   Dense kernel [in, out]                 -> weight [out, in]
   norm scale                             -> weight
-  bias, embedding, c_to_scales_weight    -> the same name, unchanged
+  bias, embedding, c_to_scales_weight,
+  a learned top-level logvar             -> the same name, unchanged
   EqualizedDense weight (already [out, in]),
   FrozenBatchNorm mean and var           -> the same name, unchanged
   OptimizedLSTMCell lstm_<l>/{i,h}{i,f,g,o}
@@ -18,7 +19,9 @@ flax module names, so a flax path `a/b/c/<leaf>` becomes the port name
          the h projection; torch adds bias_ih and bias_hh, so bias_ih_l0 is 0.
 
 `load_flax_params` raises on any port parameter left unfilled, any flax
-leaf left unused, and any shape that disagrees.
+leaf left unused, and any shape that disagrees; so does `load_flax_ema`,
+which fills an `EmaState` from the shadow tree of a JAX `EmaState` (the
+same structure as the parameters), so that a JAX train state resumes here.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ def _leaf(name: str, v: np.ndarray):
         raise ValueError(f"{name}: no rule for a {v.ndim}-d kernel")
     if last == "scale":
         return weight, v
-    if last in ("bias", "embedding", "c_to_scales_weight", "weight", "mean", "var"):
+    if last in ("bias", "embedding", "c_to_scales_weight", "weight", "mean", "var",
+                "logvar"):
         return name, v
     raise ValueError(f"{name}: no rule for flax leaf {last!r}")
 
@@ -117,3 +121,15 @@ def load_flax_params(module: torch.nn.Module, tree: Mapping, device=None) -> Non
     check_state_dict(module, sd)
     for name, p in module.named_parameters():
         p.copy_(torch.from_numpy(np.ascontiguousarray(sd[name], dtype=np.float32)))
+
+
+@torch.no_grad()
+def load_flax_ema(ema_state, module: torch.nn.Module, shadow_tree: Mapping) -> None:
+    """Copy a JAX EmaState's shadow tree into `ema_state.shadow` (an
+    `ealdm_torch.training.EmaState` of `module`'s parameters), in place."""
+    sd = flax_to_state_dict(shadow_tree)
+    check_state_dict(module, sd)
+    if set(ema_state.shadow) != set(sd):
+        raise ValueError("the EMA shadow does not cover the module's parameters")
+    for name, s in ema_state.shadow.items():
+        s.copy_(torch.from_numpy(np.ascontiguousarray(sd[name], dtype=np.float32)))

@@ -16,6 +16,7 @@ from ealdm_torch.ops.attention import (
     flash_attention,
     flash_attention_packed,
     flash_attention_plain,
+    sdpa,
 )
 from ealdm_torch.ops.bias_act import activation_funcs, bias_act, bias_act_plain
 from ealdm_torch.ops.norms import (
@@ -225,6 +226,105 @@ def test_group_norm_rejects_layouts(dev, view):
     with pytest.raises(ValueError):
         group_norm_kernel(x, ones, zeros, 32, 1e-6, True)
     assert kernels.launches == before
+
+
+def _grad_close(got, want):
+    """The Functions' backwards recompute the same float32 formula as
+    autograd through the plain version, on the same inputs: each gradient
+    to 1e-5 of its largest element (the sums may run in another order)."""
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 1e-5 * max(scale, 1e-30)
+
+
+def _grads(fn, inputs, g):
+    inputs = [t.detach().requires_grad_() for t in inputs]
+    y = fn(*inputs)
+    return y, torch.autograd.grad(y, inputs, g)
+
+
+_GN_GRAD_CASES = {  # id: ([N, C, H, W], rows of the pre-bias or None)
+    "one_read": ((3, 64, 9, 7), "n"),
+    "cg4_no_pre": ((2, 128, 12, 20), None),
+    "two_read": ((2, 64, 130, 130), "n"),
+    "n1_broadcast_pre": ((1, 96, 10, 10), "1"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(_GN_GRAD_CASES))
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("act", [None, silu], ids=["plain", "silu"])
+def test_group_norm_grad(dev, dtype, case, channels_last, act):
+    """GroupNormKernel's gradients (x, scale, bias, pre-bias) against
+    autograd through group_norm_plain, and its output's grad_fn."""
+    shape, pre_rows = _GN_GRAD_CASES[case]
+    n, c = shape[:2]
+    x = (3 * _randn(*shape, dtype=torch.float32, dev=dev) + 1).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    inputs = [x, 1 + 0.1 * _randn(c, dtype=torch.float32, dev=dev, seed=4),
+              0.1 * _randn(c, dtype=torch.float32, dev=dev, seed=5)]
+    if pre_rows:
+        inputs.append(_randn(n if pre_rows == "n" else 1, c, dtype=dtype, dev=dev, seed=6))
+    g = _randn(*shape, dtype=dtype, dev=dev, seed=7)
+    y, got = _grads(lambda x, s, b, p=None: group_norm(x, s, b, 32, 1e-6, act, "NCHW", p),
+                    inputs, g)
+    assert type(y.grad_fn).__name__ == "GroupNormKernelBackward"
+    _, want = _grads(lambda x, s, b, p=None: group_norm_plain(x, s, b, 32, 1e-6, act, "NCHW", p),
+                     inputs, g)
+    _grad_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_grad_through_residual(dev, dtype):
+    """x + GroupNorm(x), as the UNet routes a skip around every norm: with a
+    detached kernel output the backward still runs, and x's gradient is the
+    cotangent alone; scale and bias would get none."""
+    x = (3 * _randn(2, 64, 16, 16, dtype=torch.float32, dev=dev) + 1).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    inputs = [x, 1 + 0.1 * _randn(64, dtype=torch.float32, dev=dev, seed=4),
+              0.1 * _randn(64, dtype=torch.float32, dev=dev, seed=5)]
+    g = _randn(2, 64, 16, 16, dtype=dtype, dev=dev, seed=7)
+    _, got = _grads(lambda x, s, b: x + group_norm(x, s, b, 32, 1e-5, silu, "NCHW"), inputs, g)
+    _, want = _grads(lambda x, s, b: x + group_norm_plain(x, s, b, 32, 1e-5, silu, "NCHW"),
+                     inputs, g)
+    assert (got[0].float() - g.float()).abs().max() > 1e-2
+    _grad_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape_q,shape_kv", [((2, 3, 130, 32), (2, 3, 70, 32)),
+                                              ((2, 2, 256, 32), (2, 2, 256, 32)),
+                                              ((1, 1, 100, 512), (1, 1, 45, 512))])
+def test_flash_attention_grad(dev, dtype, shape_q, shape_kv):
+    """FlashAttention's gradients against the vjp of the dense sdpa (its
+    backward, as in JAX) and close to autograd through the kernel's plain
+    version (another formula: q and k each pre-scaled by scale**0.5)."""
+    qkv = [_randn(*s, dtype=dtype, dev=dev, seed=i)
+           for i, s in enumerate((shape_q, shape_kv, shape_kv))]
+    g = _randn(*shape_q, dtype=dtype, dev=dev, seed=4)
+    y, got = _grads(flash_attention, qkv, g)
+    assert type(y.grad_fn).__name__ == "FlashAttentionBackward"
+    _grad_close(got, _grads(sdpa, qkv, g)[1])
+    if dtype == torch.float32:
+        for a, b in zip(got, _grads(flash_attention_plain, qkv, g)[1]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_packed_grad(dev, dtype):
+    heads, d = 4, 32
+    qkv = [_randn(2, 192, heads * d, dtype=dtype, dev=dev, seed=s) for s in (1, 2, 3)]
+    g = _randn(2, 192, heads * d, dtype=dtype, dev=dev, seed=4)
+
+    def dense(q, k, v):
+        o = sdpa(*(_split_heads(t, heads) for t in (q, k, v)))
+        return o.transpose(1, 2).reshape(q.shape)
+
+    y, got = _grads(lambda q, k, v: flash_attention_packed(q, k, v, heads), qkv, g)
+    assert type(y.grad_fn).__name__ == "FlashAttentionPackedBackward"
+    _grad_close(got, _grads(dense, qkv, g)[1])
 
 
 def _bias_act_x(layout, dtype, dev):
