@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels    # phases 1-2b only: a new kernel's first call
     python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
     python3 chip_smoke.py --train      # the build and phase 6 (training) only
+    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-10 only
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc, and
@@ -17,6 +18,10 @@ Phases, each of which raises (non-zero exit) on failure:
      one PyTorch library call (a yardstick only; the port never calls it);
      GroupNorm in both layouts it takes, timed at the main path's
      (channels_last) on inputs that do not fit the L2;
+  2c. flash attention at the head dims of the repo's other configurations
+     (24, 40, 48, 80 at 1024 and 256 tokens; 384 and 576 at 1024), split
+     and packed, both dtypes, timed like phase 2; the gradients through
+     FlashAttention at d = 48;
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -45,8 +50,25 @@ Phases, each of which raises (non-zero exit) on failure:
      step with each kernel launch replaced by its plain version, and a
      planted GroupNorm fault that must fail the same limit; (d) one float32
      train step at batch 1, the card against the CPU.
+  7. inpainting (`config.INPAINT`, scripts/inpaint.py's run): the VQ-f4
+     encode of a seeded 256^2 batch of 16, a keep-mask, `sample_images(mask,
+     x0)` with DDIM-50 at eta 0, decode and composite; launches against the
+     module tree (flash per head dim, GroupNorm per path), three timed runs,
+     a profile, float32 card vs CPU over 2 steps, and PLMS over 4 steps;
+  8. the unconditional VQ-f8 LDM (`config.UNCOND`) at batch 24, one DDIM-50
+     eta 1 run, timed, launches checked;
+  9. the pixel-space DDPM (`config.PIXEL`) at batch 4: 4 DDIM and 4 PLMS
+     steps, launches checked (GroupNorm C/G = 7 to 56);
+  10. the KL-f4 autoencoder (`config.KL_F4`) round trip at batch 16, 256^2:
+     bfloat16 timed, launches checked, the PSNR of bfloat16 against float32.
+  Each of phases 7-10 also holds every kernel launch of one bfloat16 pass
+  (7: encode, one UNet call, decode; 8: one UNet call and a decode; 9: one
+  UNet call; 10: one round trip) against its plain version on the same
+  inputs, at the shapes and strides the path gives it (`hold_sites`).
+  Phases 7-10 run after phase 5 and before phase 6.
 
-The last lines of output are a `[train]` JSON line with phase 6's numbers,
+The last lines of output are a `[paths]` JSON line with phases 7-10's
+numbers, a `[train]` JSON line with phase 6's numbers,
 the card's name and power limit, a JSON line with every kernel's numbers
 (not with --train), and {"ok": true, "device": {...}}.
 """
@@ -73,8 +95,14 @@ PEAK_BYTES = 3.35e12
 # `peak_exp` for the clock.
 SFU_EXP_PER_CLOCK = 16
 
-# the redesigned bfloat16 flash kernels, as named in flash_attention.cu
-MMA_KERNELS = ("flash_mma_d32_kernel", "flash_mma_d512_kernel")
+# the bfloat16 flash kernels, as named in flash_attention.cu (templates over
+# the padded head dim)
+MMA_KERNELS = ("flash_mma_narrow_kernel", "flash_mma_wide_kernel")
+# head dims of the repo's configurations other than the flagship's 32 and
+# 512: the UNets' (txt2img 40/80, inpainting 48, lsun_churches 24/48) and
+# cin256-v2's wide heads
+NARROW_HEAD_DIMS = (24, 40, 48, 80)
+WIDE_HEAD_DIMS = (384, 576)
 # the channels_last GroupNorm kernels (group_norm.cu): the two that stage
 # rows in shared memory by asynchronous copies, and the streaming one; and
 # the NCHW kernels kept from PR 1
@@ -180,11 +208,14 @@ def device_ms(fn, iters=20, warmup=2):
     """Device time per call: the sum of every CUDA kernel's time under
     torch.profiler over `iters` calls. Unlike `cuda_ms` it leaves out the
     gaps where the device waits for the host, which dominate a call of a
-    few microseconds."""
-    ms = sum(device_ms_by_kernel(fn, iters, warmup).values())
-    if ms <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return ms
+    few microseconds. A profile that records no kernel at all (it happens
+    now and then, after many profiles in one process) is taken again, up to
+    three times; then it raises, so a row's time is always device time."""
+    for _ in range(3):
+        ms = sum(device_ms_by_kernel(fn, iters, warmup).values())
+        if ms > 0:
+            return ms
+    raise RuntimeError("the profiler recorded no kernel in three profiles")
 
 
 def compare(errs, kernel, dtype, got, want, what, attn=None):
@@ -362,7 +393,7 @@ def phase_kernels():
     for heads, shape in ((8, (48, 1024, 256)), (16, (48, 256, 512))):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
-            check_attn("flash_attention_packed", q, k, v,
+            check_attn("flash_attention_packed_d32", q, k, v,
                        f"[B,N,HD]={list(shape)} H={heads}", heads)
     # -- the limits' teeth at the main path's largest d=32 shape: two planted
     #    faults, each of which one of the two limits must catch
@@ -386,28 +417,6 @@ def phase_kernels():
     bf = torch.bfloat16
     res = {}
 
-    def attn_row(row, kernel, shape, layout, kernel_fn, plain_fn, lib_fn, replaces, qkv,
-                 counter=None):
-        """`row` names the JSON row, `kernel` the error record it reports and
-        the launch counter it reads, or `counter` = (kernel, query rows) its
-        launches at one shape."""
-        b, h, n, d = shape
-        flops = 4 * b * h * n * n * d
-        nbytes = 4 * b * h * n * d * 2
-        bms, by = bound(flops, nbytes, PEAK_BF16, exps=b * h * n * n)
-        # The exponentials are operations too (on the SFU, at their own
-        # rate); `bound_kind` says which limit it is. Times are device time
-        # (torch.profiler), which leaves out the wrapper's host time; the
-        # CUDA-event time per call (`event_ms`) is kept beside the kernel's.
-        res[row] = dict(
-            name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention.cu",
-            replaces=replaces, launches=None, max_abs_err=errs[kernel],
-            ms=device_ms(lambda: kernel_fn(*qkv)), plain_ms=device_ms(lambda: plain_fn(*qkv)),
-            bound_ms=bms, bound_by="bytes" if by == "bytes" else "operations",
-            bound_kind=by, library_ms=device_ms(lambda: lib_fn(*qkv)),
-            event_ms=cuda_ms(lambda: kernel_fn(*qkv)),
-            shape=list(shape), layout=layout, dtype="bfloat16", counter=counter or kernel)
-
     def packed(fn, heads):  # [B,H,N,D] attention on packed [B,N,H*D] q/k/v
         return lambda q, k, v: fn(*(_split_heads(t, heads) for t in (q, k, v))) \
             .transpose(1, 2).reshape(q.shape)
@@ -417,26 +426,49 @@ def phase_kernels():
     for row, shape in (("flash_attention_d32", (48, 8, 1024, 32)),
                        ("flash_attention_d512", (24, 1, 1024, 512))):
         qkv = [randn(*shape, dtype=bf) for _ in range(3)]
-        attn_row(row, row, shape, "contiguous [B,H,N,D]", flash_attention,
-                 flash_attention_plain, sdpa_lib, flash_replaces, qkv)
+        attention_row(res, errs, row, row, shape, "contiguous [B,H,N,D]", flash_attention,
+                      flash_attention_plain, sdpa_lib, flash_replaces, qkv)
     # the d=32 kernel on the main path's layout: the head-strided view of the
     # [B, N, H*D] projection, at both UNet levels that take it
     for row, (b, n, heads) in (("flash_attention_d32_split_n1024", (48, 1024, 8)),
                                ("flash_attention_d32_split_n256", (48, 256, 16))):
         qkv = [_split_heads(randn(b, n, heads * 32, dtype=bf), heads) for _ in range(3)]
-        attn_row(row, "flash_attention_d32", (b, heads, n, 32),
-                 f"head-strided view of [{b},{n},{heads * 32}]", flash_attention,
-                 flash_attention_plain, sdpa_lib, flash_replaces, qkv,
-                 counter=("flash_attention_d32", n))
+        attention_row(res, errs, row, "flash_attention_d32", (b, heads, n, 32),
+                      f"head-strided view of [{b},{n},{heads * 32}]", flash_attention,
+                      flash_attention_plain, sdpa_lib, flash_replaces, qkv,
+                      counter=("flash_attention_d32", n))
     b, n, heads = 48, 1024, 8
     qkv = [randn(b, n, heads * 32, dtype=bf) for _ in range(3)]
-    attn_row("flash_attention_packed", "flash_attention_packed", (b, heads, n, 32),
-             f"packed [{b},{n},{heads * 32}]",
-             lambda q, k, v: flash_attention_packed(q, k, v, heads),
-             packed(flash_attention_plain, heads), packed(sdpa_lib, heads),
-             "ealdm_tpu/ops/attention.py:272", qkv)
+    attention_row(res, errs, "flash_attention_packed_d32", "flash_attention_packed_d32",
+                  (b, heads, n, 32), f"packed [{b},{n},{heads * 32}]",
+                  lambda q, k, v: flash_attention_packed(q, k, v, heads),
+                  packed(flash_attention_plain, heads), packed(sdpa_lib, heads),
+                  "ealdm_tpu/ops/attention.py:272", qkv)
     log_rows(res)
     return res
+
+
+def attention_row(res, errs, row, kernel, shape, layout, kernel_fn, plain_fn, lib_fn,
+                  replaces, qkv, counter=None):
+    """Time one bfloat16 attention shape into res[row]: `row` names the JSON
+    row, `kernel` the error record it reports and the launch counter it
+    reads, or `counter` = (kernel, query rows) its launches at one shape."""
+    b, h, n, d = shape
+    flops = 4 * b * h * n * n * d
+    nbytes = 4 * b * h * n * d * 2
+    bms, by = bound(flops, nbytes, PEAK_BF16, exps=b * h * n * n)
+    # The exponentials are operations too (on the SFU, at their own rate);
+    # `bound_kind` says which limit it is. Times are device time
+    # (torch.profiler), which leaves out the wrapper's host time; the
+    # CUDA-event time per call (`event_ms`) is kept beside the kernel's.
+    res[row] = dict(
+        name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention.cu",
+        replaces=replaces, launches=None, max_abs_err=errs[kernel],
+        ms=device_ms(lambda: kernel_fn(*qkv)), plain_ms=device_ms(lambda: plain_fn(*qkv)),
+        bound_ms=bms, bound_by="bytes" if by == "bytes" else "operations",
+        bound_kind=by, library_ms=device_ms(lambda: lib_fn(*qkv)),
+        event_ms=cuda_ms(lambda: kernel_fn(*qkv)),
+        shape=list(shape), layout=layout, dtype="bfloat16", counter=counter or kernel)
 
 
 def log_rows(rows):
@@ -558,6 +590,81 @@ def phase_group_norm():
         res[row]["counter"] = row
     log_rows(res)
     return res
+
+
+# ------------------------------------------------------------------ phase 2c
+def phase_head_dims():
+    """Flash attention at the head dims of the repo's other configurations:
+    NARROW_HEAD_DIMS at [16, 8, N, d] with N = 1024 and 256, WIDE_HEAD_DIMS at
+    [16, 1, 1024, d]. Each against `flash_attention_plain` in bfloat16 (both
+    limits of `bf16_attention_shares`) and float32 (1e-4), through the split
+    and the packed entry point; then bfloat16 timings of the split one (a row
+    each, bound and library call as phase 2's); then the gradients of q, k
+    and v through FlashAttention at d = 48 against autograd through the
+    dense sdpa (1e-5 of each gradient's largest element, as phase 6 (a)).
+    Returns (the JSON line's rows, the largest gradient error)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ealdm_torch.ops.attention import (
+        flash_attention, flash_attention_packed, flash_attention_plain, flash_counter, sdpa)
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    f32, bf = torch.float32, torch.bfloat16
+    errs = {}
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def packed(t):  # [B, H, N, D] -> the projection-native [B, N, H*D]
+        b, h, n, d = t.shape
+        return t.transpose(1, 2).reshape(b, n, h * d).contiguous()
+
+    cases = [(16, 8, n, d) for d in NARROW_HEAD_DIMS for n in (1024, 256)]
+    cases += [(16, 1, 1024, d) for d in WIDE_HEAD_DIMS]
+    for shape in cases:
+        name = flash_counter(shape[3])
+        for dtype in (f32, bf):
+            q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
+            want = flash_attention_plain(q, k, v)
+            compare(errs, name, dtype, flash_attention(q, k, v), want,
+                    f"[B,H,N,D]={list(shape)}", attn=(q, k, v, None))
+            pq, pk, pv = (packed(t) for t in (q, k, v))
+            compare(errs, name, dtype, flash_attention_packed(pq, pk, pv, shape[1]), packed(want),
+                    f"packed [B,N,HD], H={shape[1]}", attn=(pq, pk, pv, shape[1]))
+            del q, k, v, want, pq, pk, pv
+    torch.cuda.synchronize()
+
+    res = {}
+    for shape in cases:
+        b, h, n, d = shape
+        row = f"flash_attention_d{d}_n{n}" if d in NARROW_HEAD_DIMS else flash_counter(d)
+        qkv = [randn(*shape, dtype=bf) for _ in range(3)]
+        attention_row(res, errs, row, flash_counter(d), shape, "contiguous [B,H,N,D]",
+                      flash_attention, flash_attention_plain, F.scaled_dot_product_attention,
+                      "ealdm_tpu/ops/attention.py:77", qkv, counter=(flash_counter(d), n))
+        del qkv
+
+    worst = 0.0
+    for dtype in (f32, bf):
+        qkv = [randn(16, 8, 256, 48, dtype=dtype) for _ in range(3)]
+        g = randn(16, 8, 256, 48, dtype=dtype)
+        outs = {}
+        for how, fn in (("kernel", flash_attention), ("plain", sdpa)):
+            inputs = [t.detach().requires_grad_() for t in qkv]
+            y = fn(*inputs)
+            outs[how] = (y, torch.autograd.grad(y, inputs, g))
+        y, grads = outs["kernel"]
+        if y.grad_fn is None or type(y.grad_fn).__name__ != "FlashAttentionBackward":
+            raise RuntimeError(f"flash d=48 output grad_fn {y.grad_fn}")
+        rel = [rel_err_to_max(a, b) for a, b in zip(grads, outs["plain"][1])]
+        worst = max(worst, *rel)
+        log(f"  flash_attention_d48 gradients [16,8,256,48] {str(dtype)[6:]}: dq, dk, dv "
+            f"errors / max {[f'{e:.2g}' for e in rel]} (tolerance 1e-5)")
+        if not all(math.isfinite(e) and e <= 1e-5 for e in rel):
+            raise RuntimeError("flash d=48 gradients disagree with the plain version")
+    log_rows(res)
+    return res, worst
 
 
 # ------------------------------------------------------------------ phase 2b
@@ -758,47 +865,6 @@ def group_norm_sites(module, side):
     return sites
 
 
-def expected_launches(model, steps, batch, cfg):
-    """Launch counts of one sample_images run, from the module tree: every
-    GroupNorm32 and every eligible self-attention site runs once per
-    forward; the UNet runs once per step on the 2N CFG batch, the encoder
-    once (the 2N conditioning pair), the decoder once. Each GroupNorm site
-    takes the kernel path `group_norm_path` gives its shape, channels_last."""
-    import collections
-
-    import torch
-
-    from ealdm_torch.models.layers import SpatialTransformer, flash_eligible
-    from ealdm_torch.models.vae import VaeAttnBlock
-    from ealdm_torch.ops.norms import group_norm_path, resolve_num_groups
-
-    unet = model.model.diffusion_model
-    fs = model.first_stage_model
-    unet_flash = {}  # token count -> flash sites per UNet call
-    for st in unet.modules():
-        if isinstance(st, SpatialTransformer) and flash_eligible(st.tokens, st.tokens):
-            unet_flash[st.tokens] = unet_flash.get(st.tokens, 0) + st.depth
-    vae_flash = sum(1 for part in (fs.encoder, fs.decoder) for m in part.modules()
-                    if isinstance(m, VaeAttnBlock) and flash_eligible(m.tokens, m.tokens))
-    census = collections.Counter()
-    for module, n, side, runs in ((unet, 2 * batch, cfg["zres"], steps),
-                                  (fs.encoder, 2 * batch, cfg["res"], 1),
-                                  (fs.decoder, batch, cfg["zres"], 1)):
-        for c, s, groups in group_norm_sites(module, side):
-            shape = (n, c, s, s)
-            path = group_norm_path(shape, torch.bfloat16, resolve_num_groups(c, groups))
-            census[(path, ("channels_last", shape, "bfloat16"))] += runs
-    return {
-        "unet_flash_sites": sum(unet_flash.values()) * steps,
-        "unet_flash_sites_by_tokens": {n: c * steps for n, c in sorted(unet_flash.items())},
-        "vae_flash_sites": vae_flash,
-        "group_norm": sum(v for (name, _), v in census.items() if name == "group_norm"),
-        "group_norm_two_pass": sum(v for (name, _), v in census.items()
-                                   if name == "group_norm_two_pass"),
-        "group_norm_census": dict(census),
-    }
-
-
 def phase_main_path(cfg_module, steps, batch):
     import torch
 
@@ -850,87 +916,53 @@ def phase_main_path(cfg_module, steps, batch):
         raise RuntimeError("non-finite output")
     if float(img.float().std()) == 0.0:
         raise RuntimeError("constant output")
-    want = expected_launches(model, steps, batch, cfg)
-    got = {"unet_flash_sites": counts["flash_attention_d32"],
-           "unet_flash_sites_by_tokens": {n: c for (name, n), c in sorted(details.items())
-                                          if name == "flash_attention_d32"},
-           "vae_flash_sites": counts["flash_attention_d512"],
-           "group_norm": counts["group_norm"],
-           "group_norm_two_pass": counts["group_norm_two_pass"],
-           "group_norm_census": {k: c for k, c in details.items()
-                                 if k[0].startswith("group_norm")}}
     log(f"[main] batch {batch}, DDIM-{steps}, eta 1, CFG 2: {dt:.3f} s "
         f"= {batch / dt:.4f} img/s, the median of {[round(w, 4) for w in walls]} s "
         f"(warm-up {warm_s:.1f} s), peak memory "
         f"{peak_gb:.2f} GiB, output {list(img.shape)} std {float(img.float().std()):.4f}")
-    log(f"[main] launches {counts}, the d=32 ones by query rows "
-        f"{got['unet_flash_sites_by_tokens']}")
+    # the UNet once a step on the 2N CFG batch, the encoder once (the 2N
+    # conditioning pair), the decoder once
+    fs = model.first_stage_model
+    want = path_census([(model.model.diffusion_model, 2 * batch, cfg["zres"], steps),
+                        (fs.encoder, 2 * batch, cfg["res"], 1),
+                        (fs.decoder, batch, cfg["zres"], 1)])
     log("[main] GroupNorm launches by path, layout, [N, C, H, W] and dtype, counted at "
         "the launch (expected from the module tree):")
-    for key in sorted(set(got["group_norm_census"]) | set(want["group_norm_census"])):
+    for key in sorted(k for k in set(details) | set(want) if k[0].startswith("group_norm")):
         log(f"  {key[0]:20s} {key[1][0]:14s} {str(list(key[1][1])):22s} {key[1][2]}: "
-            f"{got['group_norm_census'].get(key, 0)} "
-            f"({want['group_norm_census'].get(key, 0)})")
-    if got != want:
-        raise RuntimeError(f"launch counts {got} differ from the module tree's {want}")
-    if counts["bias_act"] != 0:
-        raise RuntimeError(f"the sampling path launched bias_act {counts['bias_act']} times")
-    for name in ("flash_attention_d32", "flash_attention_d512", "group_norm",
-                 "group_norm_two_pass"):
-        if counts[name] == 0:
-            raise RuntimeError(f"{name} was not launched on the main path")
+            f"{details.get(key, 0)} ({want.get(key, 0)})")
+    check_launches("main", want, details)
+    d32_by_rows = {n: c for (name, n), c in sorted(details.items())
+                   if name == "flash_attention_d32"}
+    log(f"[main] the d=32 flash launches by query rows {d32_by_rows}")
     return model, mixed, details, dict(
         img_per_s=batch / dt, seconds=dt, walls_s=walls, peak_gib=peak_gb, warmup_s=warm_s,
-        launches=counts, d32_launches_by_rows=got["unet_flash_sites_by_tokens"])
+        launches=counts, d32_launches_by_rows=d32_by_rows)
 
 
 def phase_profile(model, mixed, batch, steps, unprofiled_s):
     """One main-path run under torch.profiler: device time by kernel, and the
-    device's idle share against the profiled run's wall time and against
-    the unprofiled timed run (the profiler slows the host)."""
+    device's idle share against the unprofiled timed run (the profiler slows
+    the host)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ealdm_torch.inference import sample_images
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sample_images(model, batch, (32, 32, 4), steps=steps, eta=1.0,
-                      guidance_scale=2.0, mixed=mixed, hoist=True, generator=g)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    log(f"[profile] DDIM-{steps} batch {batch}: device busy {busy:.3f} s; idle share "
-        f"{1 - busy / wall_s:.3f} of the profiled wall {wall_s:.3f} s, "
-        f"{1 - busy / unprofiled_s:.3f} of the unprofiled {unprofiled_s:.3f} s")
-    # each kernel counts in the first group whose name it contains
-    groups = {"flash attention": (*MMA_KERNELS, "flash_row_kernel", "flash_wide_kernel"),
-              "group_norm": GN_KERNELS,
-              "convolution": ("fprop", "conv", "nchw", "nhwc"),
-              "matmul": ("gemm", "nvjet", "cutlass"),
-              "copies": ("copy_kernel",)}
-    totals = dict.fromkeys([*groups, "other"], 0.0)
-    for key, t, _ in rows:
-        tag = next((g for g, names in groups.items() if any(n in key for n in names)),
-                   "other")
-        totals[tag] += t
-    for tag, t in totals.items():
-        log(f"[profile] {tag:16s} {t:.3f} s = {t / busy:.3f} of device time")
-    for key, t, n in rows[:20]:
-        log(f"[profile] {t * 1e3:9.2f} ms {t / busy:6.3f} x{n:<6d} {key[:110]}")
-    return dict(device_busy_s=busy, idle_share=1 - busy / unprofiled_s,
-                profiled_wall_s=wall_s, flash_s=totals["flash attention"],
+    prof = profile_groups(
+        lambda: sample_images(model, batch, (32, 32, 4), steps=steps, eta=1.0,
+                              guidance_scale=2.0, mixed=mixed, hoist=True, generator=g),
+        "profile", unprofiled_s)
+    busy, totals = prof["device_busy_s"], prof["device_s_by_group"]
+    return dict(device_busy_s=busy, idle_share=prof["idle_share"],
+                profiled_wall_s=prof["profiled_wall_s"], flash_s=totals["flash attention"],
                 flash_share=totals["flash attention"] / busy,
                 group_norm_s=totals["group_norm"], group_norm_share=totals["group_norm"] / busy)
 
 
 def phase_packed(model, mixed, batch, steps):
+    import collections
+
     import torch
 
     from ealdm_torch import kernels
@@ -949,10 +981,10 @@ def phase_packed(model, mixed, batch, steps):
         torch.cuda.synchronize()
         out[impl] = (img.float(), z.float())
         if impl == "flash_packed":
-            counts = dict(kernels.launches)
+            counts = collections.Counter(kernels.launches)
     set_attention_impl("flash")
-    if counts["flash_attention_packed"] == 0:
-        raise RuntimeError("flash_attention_packed was not launched")
+    if counts["flash_attention_packed_d32"] == 0:
+        raise RuntimeError("flash_attention_packed_d32 was not launched")
     if counts["flash_attention_d32"] != 0:
         raise RuntimeError("the packed run still launched the split-layout kernel in the UNet")
     z_f, z_p = out["flash"][1], out["flash_packed"][1]
@@ -1013,6 +1045,500 @@ def phase_reference(cfg_module, bf16_model):
     # 1/sqrt(alpha) ~ 14.
     if not (rel <= 1e-3 and img_err <= 1e-3 * img_scale):
         raise RuntimeError("the card's float32 result disagrees with the CPU reference")
+
+
+# ------------------------------------------------------------------ phases 7-10
+def flash_sites(module, runs, census):
+    """Add to `census` the flash launches of `runs` forwards of `module`:
+    every eligible self-attention site (AttentionBlock, SpatialTransformer
+    per depth, VaeAttnBlock) under its head dim's counter and its tokens."""
+    from ealdm_torch.models.layers import AttentionBlock, SpatialTransformer, flash_eligible
+    from ealdm_torch.models.vae import VaeAttnBlock
+    from ealdm_torch.ops.attention import flash_counter
+
+    for m in module.modules():
+        if isinstance(m, AttentionBlock):
+            d, k = m.head_dim, 1
+        elif isinstance(m, SpatialTransformer):
+            d, k = m.block(0).attn1.dim_head, m.depth
+        elif isinstance(m, VaeAttnBlock):
+            d, k = m.q.weight.shape[0], 1
+        else:
+            continue
+        if flash_eligible(m.tokens, m.tokens):
+            census[(flash_counter(d), m.tokens)] += k * runs
+
+
+def path_census(passes):
+    """{(counter, detail): launches} of a bfloat16 run whose forwards are
+    `passes` = [(module, batch, input side, runs)], from the module tree:
+    each GroupNorm32 once a forward on the path `group_norm_path` gives its
+    channels_last shape, each eligible attention site once."""
+    import collections
+
+    import torch
+
+    from ealdm_torch.ops.norms import group_norm_path, resolve_num_groups
+
+    census = collections.Counter()
+    for module, n, side, runs in passes:
+        for c, s, groups in group_norm_sites(module, side):
+            shape = (n, c, s, s)
+            path = group_norm_path(shape, torch.bfloat16, resolve_num_groups(c, groups))
+            census[(path, ("channels_last", shape, "bfloat16"))] += runs
+        flash_sites(module, runs, census)
+    return dict(census)
+
+
+def check_launches(label, want, got=None):
+    """Raise unless `got`, the launches since the last reset unless given,
+    are `want` exactly; log them by counter (GroupNorm by path, flash by
+    head dim)."""
+    import collections
+
+    from ealdm_torch import kernels
+
+    got = dict(kernels.launch_details) if got is None else got
+    totals = collections.Counter()
+    for (name, _), n in got.items():
+        totals[name] += n
+    log(f"[{label}] launches {dict(sorted(totals.items()))}")
+    for key in sorted(set(got) | set(want), key=str):
+        if got.get(key, 0) != want.get(key, 0):
+            log(f"  {str(key):72s} {got.get(key, 0)} (module tree {want.get(key, 0)})")
+    if got != want:
+        raise RuntimeError(f"{label}: launch counts differ from the module tree's")
+    return got
+
+
+def hold_sites(label, fn):
+    """Run fn under no_grad with every GroupNorm and flash kernel launch held
+    against its plain version on the same inputs (the shapes, strides and
+    layouts the path gives it): bfloat16 flash by both limits of
+    `bf16_attention_shares`, the rest by `tolerance`. Logs each site's worst
+    share and raises if any exceeds 1, or if a launch went unheld.
+    Returns {site: worst share}."""
+    import torch
+
+    from ealdm_torch import kernels
+    from ealdm_torch.ops import attention, norms
+
+    kernel_gn, kernel_flash = norms.group_norm_kernel, attention.flash_attention_kernel
+    sites, held = {}, [0]
+
+    def note(key, share):
+        sites[key] = max(sites.get(key, 0.0), share)
+        held[0] += 1
+
+    def gn(x, scale, bias, num_groups, eps, fuse_silu, pre_bias=None):
+        y = kernel_gn(x, scale, bias, num_groups, eps, fuse_silu, pre_bias)
+        want = norms.group_norm_plain(x, scale, bias, num_groups, eps,
+                                      norms.silu if fuse_silu else None, "NCHW",
+                                      None if pre_bias is None else pre_bias.to(x.dtype))
+        note((norms.group_norm_path(x.shape, x.dtype, num_groups), tuple(x.shape),
+              f"C/G {x.shape[1] // num_groups}"),
+             ((y.float() - want.float()).abs() / tolerance(x.dtype, want)).max().item())
+        return y
+
+    def flash(q, k, v, scale=None):
+        o = kernel_flash(q, k, v, scale)
+        want = attention.flash_attention_plain(q, k, v, scale)
+        if q.dtype == torch.bfloat16:
+            share = max(attention.bf16_attention_shares(o, q, k, v, want, scale=scale))
+        else:
+            share = ((o.float() - want.float()).abs() / tolerance(q.dtype, want)).max().item()
+        note((attention.flash_counter(q.shape[3]), tuple(q.shape), f"strides {q.stride()}"),
+             share)
+        del want
+        return o
+
+    kernels.reset_launch_counts()
+    norms.group_norm_kernel, attention.flash_attention_kernel = gn, flash
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        norms.group_norm_kernel, attention.flash_attention_kernel = kernel_gn, kernel_flash
+    torch.cuda.synchronize()
+    launched = sum(kernels.launches.values())
+    for key, share in sorted(sites.items(), key=str):
+        log(f"  {key[0]:24s} {str(list(key[1])):22s} {key[2]:30s} {share:.3g} of the limit")
+    worst = max(sites.values())
+    log(f"[{label}] {held[0]} kernel launches at {len(sites)} sites held against their "
+        f"plain versions ({launched} launched): worst {worst:.3g} of the limit")
+    if held[0] != launched:
+        raise RuntimeError(f"{label}: {launched - held[0]} kernel launches were not held")
+    if not (math.isfinite(worst) and worst <= 1):
+        raise RuntimeError(f"{label}: a kernel site disagrees with its plain version")
+    return sites
+
+
+def timed_runs(fn, n=3):
+    """Wall seconds of n runs of fn, each ending in a synchronize."""
+    import torch
+
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def check_image(label, img, shape):
+    import torch
+
+    if tuple(img.shape) != tuple(shape):
+        raise RuntimeError(f"{label}: output shape {tuple(img.shape)}, not {shape}")
+    if not bool(torch.isfinite(img).all()) or float(img.float().std()) == 0.0:
+        raise RuntimeError(f"{label}: non-finite or constant output")
+
+
+def profile_groups(fn, label, unprofiled_s, top=20):
+    """One run of fn under torch.profiler: device busy, the idle share
+    against `unprofiled_s` (a run without the profiler, which slows the
+    host), device time by group and the `top` kernels. Each kernel counts in
+    the first group whose name it contains."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    if busy <= 0:
+        raise RuntimeError(f"{label}: the profiler saw no device time")
+    groups = {"flash attention": (*MMA_KERNELS, "flash_wide_kernel"),
+              "group_norm": GN_KERNELS,
+              "convolution": ("fprop", "conv", "nchw", "nhwc"),
+              "matmul": ("gemm", "nvjet", "cutlass"),
+              "copies": ("copy_kernel",)}
+    totals = dict.fromkeys([*groups, "other"], 0.0)
+    for key, t, _ in rows:
+        tag = next((g for g, names in groups.items() if any(n in key for n in names)), "other")
+        totals[tag] += t
+    log(f"[{label}] device busy {busy:.4f} s; idle share {1 - busy / unprofiled_s:.3f} "
+        f"of the unprofiled {unprofiled_s:.4f} s ({1 - busy / wall_s:.3f} of the profiled "
+        f"{wall_s:.4f} s); {sum(r[2] for r in rows)} kernel launches")
+    for tag, t in totals.items():
+        log(f"[{label}] {tag:16s} {t:.4f} s = {t / busy:.3f} of device time")
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:top]:
+        log(f"[{label}] {t * 1e3:9.2f} ms {t / busy:6.3f} x{n:<6d} {key[:110]}")
+    return dict(device_busy_s=busy, idle_share=1 - busy / unprofiled_s, profiled_wall_s=wall_s,
+                device_s_by_group=totals)
+
+
+def inpaint_inputs(batch, res, seed):
+    """A seeded image batch in [-1, 1] and its hole masks (1 = hole, one
+    box an image, 1/8 to 1/2 of the side), as scripts/inpaint.py reads them."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand(batch, res, res, 3, generator=g) * 2 - 1
+    mask = torch.zeros(batch, res, res, 1)
+    for i in range(batch):
+        h, w = (int(v) for v in torch.randint(res // 8, res // 2, (2,), generator=g))
+        y, x = (int(v) for v in torch.randint(0, res - res // 2, (2,), generator=g))
+        mask[i, y:y + h, x:x + w] = 1.0
+    return img, mask
+
+
+def keep_mask(mask_px, side):
+    """The latent-resolution keep-mask (1 = keep the known region):
+    nearest-neighbour resize of the pixel hole mask."""
+    import torch.nn.functional as F
+
+    hole = F.interpolate(mask_px.permute(0, 3, 1, 2), size=(side, side), mode="nearest")
+    return 1.0 - hole.permute(0, 2, 3, 1)
+
+
+def phase_inpaint(cfg_module):
+    """Phase 7: scripts/inpaint.py's run at INPAINT's full width, batch 16,
+    DDIM-50 at eta 0, bfloat16; every kernel launch of one pass (encode, one
+    UNet call, decode) held against its plain version (`hold_sites`)."""
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch import kernels
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.models.ddpm import LatentDiffusion
+
+    cfg = cfg_module.INPAINT
+    batch, steps, res, zres = 16, 50, cfg["res"], cfg["zres"]
+    ealdm_torch.enable_inference_optimizations()
+    model = LatentDiffusion(**cfg_module.model_kwargs(cfg), dtype=torch.bfloat16,
+                            device="cuda").eval()
+    random_init_(model, seed=50)
+    log(f"[inpaint] INPAINT, {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"parameters, batch {batch}, DDIM-{steps}, eta 0")
+    img_cpu, mask_cpu = inpaint_inputs(batch, res, seed=51)
+    img, mask_px = img_cpu.cuda(), mask_cpu.cuda()
+    latent = (zres, zres, cfg["zch"])
+
+    def run(steps_, sampler="ddim"):
+        """encode, sample with the mask, decode, composite."""
+        g = torch.Generator(device="cuda").manual_seed(52)
+        z = model.get_first_stage_encoding(model.encode_first_stage(img))
+        out, _ = sample_images(model, batch, latent, steps=steps_, eta=0.0, sampler=sampler,
+                               mask=keep_mask(mask_px, zres), x0=z, generator=g)
+        return img * (1 - mask_px) + out.float() * mask_px
+
+    fs, unet = model.first_stage_model, model.model.diffusion_model
+
+    def census(unet_runs):
+        return path_census([(fs.encoder, batch, res, 1), (unet, batch, zres, unet_runs),
+                            (fs.decoder, batch, zres, 1)])
+
+    t0 = time.perf_counter()
+    run(steps)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = None
+
+    def counted():
+        nonlocal out
+        out = run(steps)
+
+    walls = timed_runs(counted, 1)
+    details = check_launches("inpaint", census(steps))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walls += timed_runs(lambda: run(steps), 2)
+    dt = sorted(walls)[1]
+    check_image("inpaint", out, (batch, res, res, 3))
+    known = mask_px.expand_as(out) == 0
+    if not torch.equal(out[known], img.expand_as(out)[known]):
+        raise RuntimeError("inpaint: the composite changed the known pixels")
+    log(f"[inpaint] {dt:.4f} s = {batch / dt:.4f} img/s, the median of "
+        f"{[round(w, 4) for w in walls]} s (warm-up {warm_s:.1f} s), peak {peak:.2f} GiB")
+    prof = profile_groups(lambda: run(steps), "inpaint-profile", dt, top=12)
+    t_mid = torch.full((batch,), 500, dtype=torch.int64, device="cuda")
+
+    def one_pass():  # encode, one UNet call, decode
+        z = model.get_first_stage_encoding(model.encode_first_stage(img))
+        model.apply_model(z, t_mid, None)
+        model.decode_first_stage(z)
+
+    held = hold_sites("inpaint-held", one_pass)
+    # PLMS, 4 steps: 5 UNet calls (the first step evaluates twice)
+    kernels.reset_launch_counts()
+    plms_walls = timed_runs(lambda: check_image("inpaint-plms", run(4, "plms"),
+                                                (batch, res, res, 3)), 1)
+    check_launches("inpaint-plms", census(5))
+    log(f"[inpaint-plms] 4 steps in {plms_walls[0]:.4f} s")
+    ref = inpaint_reference(cfg_module, model, img_cpu[:1], mask_cpu[:1])
+    del model
+    torch.cuda.empty_cache()
+    return details, dict(batch=batch, steps=steps, img_per_s=batch / dt, seconds=dt,
+                         walls_s=walls, warmup_s=warm_s, peak_gib=peak, **prof,
+                         held_sites=len(held), held_worst_share=max(held.values()),
+                         plms4_s=plms_walls[0], reference=ref)
+
+
+def inpaint_reference(cfg_module, bf16_model, img, mask_px):
+    """Phase 7's float32 check: batch 1, 2 DDIM steps with the mask, the
+    card (kernels) against the CPU (plain versions), same weights, x_T and
+    noise; the encode too. TF32 is off (main): 1e-3 of the latent's scale,
+    as phase 5."""
+    import torch
+
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.models.ddpm import LatentDiffusion
+
+    cfg = cfg_module.INPAINT
+    kw = cfg_module.model_kwargs(cfg)
+    sd = {k: v.float() for k, v in bf16_model.state_dict().items()}
+    models = {}
+    for dev in ("cpu", "cuda"):
+        m = LatentDiffusion(**kw, dtype=torch.float32, device=dev).eval()
+        m.load_state_dict(sd)
+        models[dev] = m
+    latent = (cfg["zres"], cfg["zres"], cfg["zch"])
+    g = torch.Generator().manual_seed(53)
+    x_T = torch.randn(1, *latent, generator=g)
+    draws = {(i, kind): torch.randn(1, *latent, generator=g)
+             for i in range(2) for kind in ("mask", "step")}
+    with torch.no_grad():
+        z = {dev: m.encode_first_stage(img.to(dev)).float().cpu() for dev, m in models.items()}
+    keep = keep_mask(mask_px, cfg["zres"])
+    out = {}
+    for dev, m in models.items():
+        out[dev] = sample_images(
+            m, 1, latent, steps=2, eta=0.0, mask=keep.to(dev), x0=z["cpu"].to(dev),
+            x_T=x_T.to(dev), noise_fn=lambda i, shape, kind="step": draws[(i, kind)],
+            decode=False, device=dev).float().cpu()
+    enc = rel_err_to_max(z["cuda"], z["cpu"])
+    rel = rel_err_to_max(out["cuda"], out["cpu"])
+    log(f"[inpaint-reference] float32 card vs CPU: encode max diff / max|z| {enc:.3g}, "
+        f"masked 2-step latent {rel:.3g} (tolerance 1e-3 each)")
+    del models
+    if not (enc <= 1e-3 and rel <= 1e-3):
+        raise RuntimeError("inpaint: the card's float32 result disagrees with the CPU")
+    return dict(encode_rel=enc, latent_rel=rel)
+
+
+def phase_uncond(cfg_module):
+    """Phase 8: the unconditional VQ-f8 LDM (UNCOND) at batch 24, one DDIM-50
+    eta 1 run after a 2-step warm-up, bfloat16; every kernel launch of one
+    UNet call and a decode held against its plain version."""
+    import torch
+
+    from ealdm_torch import kernels
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.models.ddpm import LatentDiffusion
+
+    cfg = cfg_module.UNCOND
+    batch, steps = 24, 50
+    model = LatentDiffusion(**cfg_module.model_kwargs(cfg), dtype=torch.bfloat16,
+                            device="cuda").eval()
+    random_init_(model, seed=60)
+    latent = (cfg["zres"], cfg["zres"], cfg["zch"])
+    out = {}
+
+    def run(steps_):
+        g = torch.Generator(device="cuda").manual_seed(61)
+        out["img"], _ = sample_images(model, batch, latent, steps=steps_, eta=1.0, generator=g)
+
+    timed_runs(lambda: run(2), 1)
+    kernels.reset_launch_counts()
+    (wall,) = timed_runs(lambda: run(steps), 1)
+    details = check_launches("uncond", path_census(
+        [(model.model.diffusion_model, batch, cfg["zres"], steps),
+         (model.first_stage_model.decoder, batch, cfg["zres"], 1)]))
+    check_image("uncond", out["img"], (batch, cfg["res"], cfg["res"], 3))
+    t_mid = torch.full((batch,), 500, dtype=torch.int64, device="cuda")
+    z = torch.randn(batch, *latent, generator=torch.Generator().manual_seed(62)).cuda()
+    held = hold_sites("uncond-held", lambda: model.decode_first_stage(
+        model.apply_model(z, t_mid, None)))
+    log(f"[uncond] UNCOND {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"parameters, batch {batch}, DDIM-{steps} eta 1: {wall:.4f} s = "
+        f"{batch / wall:.4f} img/s")
+    del model
+    torch.cuda.empty_cache()
+    return details, dict(batch=batch, steps=steps, seconds=wall, img_per_s=batch / wall,
+                         held_sites=len(held), held_worst_share=max(held.values()))
+
+
+def phase_pixel(cfg_module):
+    """Phase 9: the pixel-space DDPM (PIXEL) at batch 4, 4 DDIM and 4 PLMS
+    steps, bfloat16, launches checked; then every GroupNorm and flash launch
+    of one UNet call held against its plain version (`hold_sites`)."""
+    import torch
+
+    from ealdm_torch import kernels
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.models.ddpm import DDPM
+
+    cfg = cfg_module.PIXEL
+    batch, res = 4, cfg["res"]
+    model = DDPM(**cfg_module.model_kwargs(cfg), dtype=torch.bfloat16, device="cuda").eval()
+    random_init_(model, seed=62)
+    unet = model.model.diffusion_model
+    log(f"[pixel] PIXEL {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, "
+        f"batch {batch}, {res}^2")
+    out, numbers, details = {}, {}, {}
+    for sampler, calls in (("ddim", 4), ("plms", 5)):
+        def run():
+            g = torch.Generator(device="cuda").manual_seed(63)
+            out["img"], _ = sample_images(model, batch, (res, res, 3), steps=4,
+                                          eta=1.0 if sampler == "ddim" else 0.0,
+                                          sampler=sampler, generator=g)
+
+        timed_runs(run, 1)  # warm-up
+        kernels.reset_launch_counts()
+        (wall,) = timed_runs(run, 1)
+        details[sampler] = check_launches(f"pixel-{sampler}",
+                                          path_census([(unet, batch, res, calls)]))
+        check_image(f"pixel-{sampler}", out["img"], (batch, res, res, 3))
+        log(f"[pixel-{sampler}] 4 steps ({calls} UNet calls) in {wall:.4f} s")
+        numbers[f"{sampler}4_s"] = wall
+
+    # every kernel launch of one UNet call against its plain version
+    g = torch.Generator(device="cuda").manual_seed(64)
+    x = torch.randn(batch, res, res, 3, generator=g, device="cuda")
+    t = torch.tensor([999, 500, 250, 1], device="cuda")
+    sites = hold_sites("pixel-held", lambda: model.apply_model(x, t, None))
+    gn = {k: v for k, v in sites.items() if k[2].startswith("C/G")}
+    worst = max(gn.values())
+    cgs = sorted({int(k[2].split()[1]) for k in gn})
+    log(f"[pixel] {len(gn)} GroupNorm shapes of one UNet call, C/G {cgs}: worst "
+        f"{worst:.3g} of the limit")
+    del model
+    torch.cuda.empty_cache()
+    return details["ddim"], dict(batch=batch, **numbers, group_norm_shapes=len(gn),
+                                 group_norm_cg=cgs, group_norm_worst_share=worst,
+                                 held_sites=len(sites),
+                                 held_worst_share=max(sites.values()))
+
+
+def phase_kl(cfg_module):
+    """Phase 10: the KL-f4 round trip (encode, posterior sample, decode) at
+    batch 16, 256^2: bfloat16 timed over three runs after a warm-up with its
+    launches checked, every kernel launch of one run held against its plain
+    version, then float32 on the same input and noise; the PSNR of
+    the bfloat16 reconstruction against the float32 one (peak-to-peak 2)."""
+    import torch
+
+    from ealdm_torch import kernels
+    from ealdm_torch.models.vae import AutoencoderKL
+
+    cfg = cfg_module.KL_F4
+    batch, res = 16, cfg["res"]
+    kw = cfg_module.vae_kwargs(cfg)
+    vae = AutoencoderKL(**kw, dtype=torch.bfloat16).eval()
+    vae32 = AutoencoderKL(**kw, dtype=torch.float32).eval()
+    random_init_(vae, seed=70)
+    vae32.load_state_dict(vae.state_dict())
+    g = torch.Generator().manual_seed(71)
+    x = (torch.rand(batch, res, res, 3, generator=g) * 2 - 1).cuda()
+    noise = torch.randn(batch, cfg["zres"], cfg["zres"], kw["embed_dim"], generator=g).cuda()
+    rec = {}
+
+    def run(m, key):
+        with torch.no_grad():
+            rec[key], _ = m(x, noise=noise)
+
+    timed_runs(lambda: run(vae, "bf16"), 1)
+    kernels.reset_launch_counts()
+    walls = timed_runs(lambda: run(vae, "bf16"), 1)
+    details = check_launches("kl", path_census([(vae.encoder, batch, res, 1),
+                                                (vae.decoder, batch, cfg["zres"], 1)]))
+    walls += timed_runs(lambda: run(vae, "bf16"), 2)
+    dt = sorted(walls)[1]
+    held = hold_sites("kl-held", lambda: vae(x, noise=noise))
+    run(vae32, "f32")
+    torch.cuda.synchronize()
+    for key in rec:
+        check_image(f"kl-{key}", rec[key], (batch, res, res, 3))
+    mse = (rec["bf16"].float() - rec["f32"]).square().mean().item()
+    psnr = 10 * math.log10(4.0 / mse) if mse > 0 else float("inf")
+    log(f"[kl] KL_F4 {sum(p.numel() for p in vae.parameters()) / 1e6:.1f} M parameters, "
+        f"batch {batch}, {res}^2 round trip in bfloat16: {dt:.4f} s = {batch / dt:.4f} img/s, "
+        f"the median of {[round(w, 4) for w in walls]} s; PSNR bfloat16 vs float32 "
+        f"{psnr:.2f} dB")
+    del vae, vae32, rec
+    torch.cuda.empty_cache()
+    return details, dict(batch=batch, seconds=dt, walls_s=walls, img_per_s=batch / dt,
+                         psnr_bf16_vs_f32_db=psnr, held_sites=len(held),
+                         held_worst_share=max(held.values()))
+
+
+def phases_paths(cfg_module):
+    """Phases 7-10. Returns ({path: launch details}, the [paths] line)."""
+    details, out = {}, {}
+    details["inpaint"], out["inpaint"] = phase_inpaint(cfg_module)
+    details["uncond"], out["uncond"] = phase_uncond(cfg_module)
+    details["pixel"], out["pixel"] = phase_pixel(cfg_module)
+    details["kl"], out["kl"] = phase_kl(cfg_module)
+    return details, out
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1115,37 +1641,18 @@ def expected_train_launches(model, batch, cfg, remat):
     pair; the UNet once on the 2N CFG batch, and under "dots" or "full" once
     more when the backward recomputes each of its blocks and its out head
     (the kernels' outputs are not saved). The cond tower has no kernel
-    site. {(counter, detail): n} in
-    the wrappers' terms, plus the totals by counter."""
+    site. {(counter, detail): n} in the wrappers' terms, plus the totals by
+    counter."""
     import collections
-
-    import torch
-
-    from ealdm_torch.models.layers import SpatialTransformer, flash_eligible
-    from ealdm_torch.models.vae import VaeAttnBlock
-    from ealdm_torch.ops.norms import group_norm_path, resolve_num_groups
 
     unet = model.model.diffusion_model
     enc = model.first_stage_model.encoder
-    unet_runs = 1 if remat == "none" else 2
-    census = collections.Counter()
-    for module, n, side, runs in ((unet, 2 * batch, cfg["zres"], unet_runs),
-                                  (enc, batch, cfg["res"], 1), (enc, 2 * batch, cfg["res"], 1)):
-        for c, s, groups in group_norm_sites(module, side):
-            shape = (n, c, s, s)
-            path = group_norm_path(shape, torch.bfloat16, resolve_num_groups(c, groups))
-            census[(path, ("channels_last", shape, "bfloat16"))] += runs
-    for st in unet.modules():
-        if isinstance(st, SpatialTransformer) and flash_eligible(st.tokens, st.tokens):
-            census[("flash_attention_d32", st.tokens)] += st.depth * unet_runs
-    enc_attn = [m for m in enc.modules()
-                if isinstance(m, VaeAttnBlock) and flash_eligible(m.tokens, m.tokens)]
-    for m in enc_attn:
-        census[("flash_attention_d512", m.tokens)] += 2
+    census = path_census([(unet, 2 * batch, cfg["zres"], 1 if remat == "none" else 2),
+                          (enc, batch, cfg["res"], 1), (enc, 2 * batch, cfg["res"], 1)])
     totals = collections.Counter()
     for (name, _), n in census.items():
         totals[name] += n
-    return dict(census), dict(totals)
+    return census, dict(totals)
 
 
 def train_profile_groups(prof):
@@ -1160,7 +1667,7 @@ def train_profile_groups(prof):
               "ealdm::flash_attention_vjp": "attention backward (plain)",
               "ealdm::adamw": "AdamW and EMA", "ealdm::ema": "AdamW and EMA"}
     by_name = {"GroupNorm forward kernel": GN_KERNELS,
-               "flash forward kernel": (*MMA_KERNELS, "flash_row_kernel", "flash_wide_kernel"),
+               "flash forward kernel": (*MMA_KERNELS, "flash_wide_kernel"),
                "convolutions": ("fprop", "dgrad", "wgrad", "conv", "nchw", "nhwc"),
                "matmuls": ("gemm", "nvjet", "cutlass"),
                "copies and casts": ("copy_kernel",),
@@ -1535,15 +2042,20 @@ def main(argv):
     t_start = time.perf_counter()
     phase_build()
     train_only = "--train" in argv
-    rows = {}
+    paths_only = "--paths" in argv
+    rows, head_dim_grads = {}, None
     if "--groupnorm" in argv:
         rows = phase_group_norm()
     elif not train_only:
         phase_sass()
-        rows = phase_kernels()
-        rows.update(phase_group_norm())
-        rows["bias_act"] = phase_ops()
-    if not {"--kernels", "--groupnorm", "--train"} & set(argv):
+        if not paths_only:
+            rows = phase_kernels()
+            rows.update(phase_group_norm())
+            rows["bias_act"] = phase_ops()
+        head_dim_rows, head_dim_grads = phase_head_dims()
+        rows.update(head_dim_rows)
+    launches_by_path = {}
+    if not {"--kernels", "--groupnorm", "--train", "--paths"} & set(argv):
         steps, batch = 50, 24
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
         counts = e2e["launches"]
@@ -1557,15 +2069,34 @@ def main(argv):
                 row["launches"] = counts[name]
         e2e.update(phase_profile(model, mixed, batch, steps, e2e["seconds"]))
         packed = phase_packed(model, mixed, batch, steps=2)
-        rows["flash_attention_packed"]["launches"] = packed["flash_attention_packed"]
+        rows["flash_attention_packed_d32"]["launches"] = packed["flash_attention_packed_d32"]
         phase_reference(cfg_module, model)
         log(f"[e2e] {json.dumps(e2e)}")
         del model
         torch.cuda.empty_cache()
+        launches_by_path["flagship"] = details
+    paths = None
+    if not {"--kernels", "--groupnorm", "--train"} & set(argv):
+        path_details, paths = phases_paths(cfg_module)
+        launches_by_path.update(path_details)
+        paths["flash_d48_grad_worst"] = head_dim_grads
+    for row in rows.values():
+        # each path's launches of the row's counter (at its shape, for a
+        # shape's row); a row the flagship does not reach reads the
+        # inpainting path's
+        counter = row.get("counter", row["name"])
+        row["launches_by_path"] = {
+            path: (d.get(counter, 0) if isinstance(counter, tuple)
+                   else sum(n for (name, _), n in d.items() if name == counter))
+            for path, d in launches_by_path.items()}
+        if row["launches"] is None and "inpaint" in launches_by_path:
+            row["launches"] = row["launches_by_path"]["inpaint"]
     train = None
-    if not {"--kernels", "--groupnorm"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--paths"} & set(argv):
         train = phases_train(cfg_module)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    if paths is not None:
+        log(f"[paths] {json.dumps(paths)}")
     if train is not None:
         log(f"[train] {json.dumps(train)}")
     log(smi)

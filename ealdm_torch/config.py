@@ -3,6 +3,15 @@
 FLAGSHIP and TINY mirror `bench.py build_model` (tiny=False / tiny=True):
 the benchmarked STDiff -> DDIM-50 CFG -> VQ-f8 program. FLAGSHIP has the
 shapes of `model.params` in `configs/latent-diffusion/stdiff_cin-ldm-vq-f8.yaml`.
+The unconditional paths, each at its source's full width:
+  INPAINT  the latent inpainting model of `scripts/inpaint.py` as
+           `scripts/perf/bench_configs.py` `bench_inpaint` builds it (VQ-f4,
+           8192 codes; an AttentionBlock UNet with 8 heads);
+  UNCOND   `configs/latent-diffusion/uncond_cin-ldm-vq-f8.yaml`;
+  PIXEL    `configs/latent-diffusion/uncond_stdiff_cin-ldm-vq-f8.yaml`, the
+           128^2 pixel-space DDPM (identity first stage);
+  KL_F4    `configs/autoencoder/autoencoder_kl_64x64x3.yaml`, the
+           AutoencoderKL alone (`vae_kwargs`).
 """
 from __future__ import annotations
 
@@ -91,6 +100,87 @@ FLAGSHIP_TRAIN = dict(batch_size=24, dtype="bfloat16", learning_rate=1e-5,
                       ema_decay=0.9999, remat="dots")
 
 
+# the VQ-f4 first stage of INPAINT (bench_configs.py:300-304)
+_VQ_F4 = {
+    "target": "ldm.models.autoencoder.VQModelInterface",
+    "params": {
+        "embed_dim": 3, "n_embed": 8192,
+        "ddconfig": dict(
+            double_z=False, z_channels=3, resolution=256, in_channels=3, out_ch=3,
+            ch=128, ch_mult=[1, 2, 4], num_res_blocks=2, attn_resolutions=[],
+            dropout=0.0,
+        ),
+    },
+}
+
+# 256^2 images, 64^2 x 3 latents (bench_configs.py:288-312)
+INPAINT = dict(
+    res=256, zres=64, zch=3,
+    model=dict(
+        unet_config=dict(
+            image_size=64, in_channels=3, out_channels=3, model_channels=128,
+            attention_resolutions=[8, 4, 2], num_res_blocks=2,
+            channel_mult=[1, 2, 3, 4], num_heads=8,
+        ),
+        first_stage_config=_VQ_F4,
+        cond_stage_config="__is_unconditional__",
+        timesteps=1000, linear_start=0.0015, linear_end=0.0205,
+    ),
+)
+
+# 256^2 images, 32^2 x 4 latents (uncond_cin-ldm-vq-f8.yaml model.params)
+UNCOND = dict(
+    res=256, zres=32, zch=4,
+    model=dict(
+        unet_config=dict(
+            image_size=32, in_channels=4, out_channels=4, model_channels=256,
+            attention_resolutions=[4, 2, 1], num_res_blocks=2,
+            channel_mult=[1, 2, 4], num_head_channels=32,
+        ),
+        first_stage_config=_first_stage(256, 32, 128, 16384),
+        cond_stage_config="__is_unconditional__",
+        timesteps=1000, linear_start=0.0015, linear_end=0.0195,
+        num_timesteps_cond=1, first_stage_key="img",
+    ),
+)
+
+# 128^2 x 3 pixels (uncond_stdiff_cin-ldm-vq-f8.yaml model.params)
+PIXEL = dict(
+    res=128, zres=128, zch=3,
+    model=dict(
+        unet_config=dict(
+            image_size=128, in_channels=3, out_channels=3, model_channels=224,
+            attention_resolutions=[8, 4, 2], num_res_blocks=2,
+            channel_mult=[1, 2, 3, 4], num_head_channels=32,
+        ),
+        first_stage_config={"target": "STDiff.models.IdentityAutoEncoder"},
+        cond_stage_config="__is_unconditional__",
+        timesteps=1000, linear_start=0.0015, linear_end=0.0195,
+        num_timesteps_cond=1, first_stage_key="img",
+    ),
+)
+
+# 256^2 images, 64^2 x 3 latents (autoencoder_kl_64x64x3.yaml model.params,
+# without the loss)
+KL_F4 = dict(
+    res=256, zres=64, zch=3,
+    vae=dict(
+        embed_dim=3,
+        ddconfig=dict(
+            double_z=True, z_channels=3, resolution=256, in_channels=3, out_ch=3,
+            ch=128, ch_mult=[1, 2, 4], num_res_blocks=2, attn_resolutions=[],
+            dropout=0.0,
+        ),
+    ),
+)
+
+
 def model_kwargs(cfg: dict) -> dict:
-    """LatentDiffusion keyword arguments of FLAGSHIP / TINY (a deep copy)."""
+    """LatentDiffusion keyword arguments of a configuration above (a deep
+    copy)."""
     return copy.deepcopy(cfg["model"])
+
+
+def vae_kwargs(cfg: dict) -> dict:
+    """AutoencoderKL keyword arguments of KL_F4 (a deep copy)."""
+    return copy.deepcopy(cfg["vae"])

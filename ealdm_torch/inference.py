@@ -1,8 +1,10 @@
-"""Sampling pipeline: conditioning -> DDIM loop -> VQ decode (counterpart of
-`ealdm_tpu/inference.py`).
+"""Sampling pipeline: conditioning -> DDIM or PLMS loop -> first-stage
+decode (counterpart of `ealdm_tpu/inference.py`).
 
-`sample_images` is the port's main path. It runs on the card unless the
-caller passes device="cpu" (and built the model there).
+`sample_images` is the port's main path, conditional (the STDiff pair with
+CFG) or unconditional, with the inpainting composite when given a mask and
+x0. It runs on the card unless the caller passes device="cpu" (and built the
+model there).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from .models.ddpm import LatentDiffusion
 from .models.unet import precompute_context_kv, precompute_emb_tables
 from .ops.schedules import DDIMSchedule, DiffusionSchedule
 from .samplers.ddim import DDIMConfig, _tree_map, ddim_sample
+from .samplers.plms import plms_sample
 from .utils.device import check_module_device
 
 
@@ -47,13 +50,15 @@ def make_eps_fn(model: LatentDiffusion):
 
 
 def hoist_invariants(model: LatentDiffusion, ddim: DDIMSchedule, cond=None,
-                     uncond=None):
+                     uncond=None, want_emb_tables: bool = True):
     """Precompute the step-invariant work of a DDIM chain once: every
     SpatialTransformer's cross-attn K/V of the constant contexts, and the
     timestep MLP + every ResBlock's emb projection for all S timesteps.
-    Returns (eps_fn, cond', uncond', extra_tables) for `ddim_sample`."""
+    Returns (eps_fn, cond', uncond', extra_tables) for `ddim_sample`.
+    want_emb_tables=False (PLMS, which evaluates off the per-step grid)
+    skips the tables; extra_tables is then None."""
     unet = model.model.diffusion_model
-    emb_tables = precompute_emb_tables(unet, ddim.timesteps)
+    emb_tables = precompute_emb_tables(unet, ddim.timesteps) if want_emb_tables else None
     kv = model.conditioning_key == "crossattn" and unet.use_spatial_transformer
     if kv:
         if cond is not None:
@@ -77,16 +82,20 @@ def encode_cfg_conditioning(model: LatentDiffusion, mixed: Dict):
 def sample_images(model: LatentDiffusion, batch_size: int, latent_shape,
                   steps: int = 50, eta: float = 1.0,
                   guidance_scale: Optional[float] = None,
-                  mixed: Optional[Dict] = None,
+                  mixed: Optional[Dict] = None, sampler: str = "ddim",
                   quantize_denoised: bool = False, decode: bool = True,
-                  x_T=None, hoist: bool = True,
+                  x_T=None, mask=None, x0=None, hoist: bool = True,
                   generator: Optional[torch.Generator] = None, noise_fn=None,
                   device=None):
     """The full pipeline. Returns (images [N, H, W, 3], latents [N, h, w, c])
     or, with decode=False, the latents.
 
+    sampler: "ddim" or "plms" (eta 0). mask / x0: inpainting, [N, h, w, 1]
+    (1 keeps x0) and the known latent [N, h, w, c], both float32.
     device: where to run, "cuda" unless given; the model must live there.
     generator / noise_fn: the sampler's noise source (see ddim_sample)."""
+    if sampler not in ("ddim", "plms"):
+        raise ValueError(f"unknown sampler {sampler!r}")
     dev = check_module_device(model, device)
     sched = DiffusionSchedule.create(
         timesteps=model.timesteps, beta_schedule=model.beta_schedule,
@@ -96,19 +105,27 @@ def sample_images(model: LatentDiffusion, batch_size: int, latent_shape,
     ddim = DDIMSchedule.create(sched, steps, eta=eta)
     if guidance_scale is None:
         guidance_scale = model.unconditional_guidance_scale
-    cfg = DDIMConfig(num_steps=steps, eta=eta,
-                     unconditional_guidance_scale=guidance_scale)
+    cfg = DDIMConfig(num_steps=steps, eta=eta, unconditional_guidance_scale=guidance_scale,
+                     parameterization=model.parameterization)
     uncond = cond = None
     if mixed is not None:
         mixed = {k: v.to(dev) for k, v in mixed.items()}
         uncond, cond = encode_cfg_conditioning(model, mixed)
     if hoist:
-        eps_fn, cond, uncond, extra = hoist_invariants(model, ddim, cond, uncond)
+        eps_fn, cond, uncond, extra = hoist_invariants(
+            model, ddim, cond, uncond, want_emb_tables=sampler != "plms")
     else:
         eps_fn, extra = make_eps_fn(model), None
     shape = (batch_size,) + tuple(latent_shape)
-    z = ddim_sample(eps_fn, shape, ddim, cfg, cond=cond, uncond=uncond, x_T=x_T,
-                    generator=generator, noise_fn=noise_fn, extra_tables=extra)
+    inpaint = dict(mask=None if mask is None else mask.to(dev, torch.float32),
+                   x0=None if x0 is None else x0.to(dev, torch.float32), schedule=sched)
+    if sampler == "plms":
+        z = plms_sample(eps_fn, shape, ddim, cfg, cond=cond, uncond=uncond, x_T=x_T,
+                        generator=generator, noise_fn=noise_fn, **inpaint)
+    else:
+        z = ddim_sample(eps_fn, shape, ddim, cfg, cond=cond, uncond=uncond, x_T=x_T,
+                        generator=generator, noise_fn=noise_fn, extra_tables=extra,
+                        **inpaint)
     if quantize_denoised:
         z = model.quantize_latent(z)
     if not decode:

@@ -2,23 +2,20 @@
 by `build.py`).
 
 `launches` counts, per kernel, the launches its wrapper made (one per
-wrapper call that reached the kernel). `launch_details` splits those counts
+wrapper call that reached the kernel); flash attention counts per head dim
+and entry point (`ops.attention.flash_counter`), under names that appear at
+their first launch. `launch_details` splits those counts
 by what each launch was given: {(name, detail): n}, the detail being the
 query-row count for flash attention and (layout, shape, dtype) for
 GroupNorm. The wrappers live beside their plain PyTorch versions in
 `ops/attention.py`, `ops/norms.py` and `ops/bias_act.py`.
 """
 
-KERNELS = (
-    "flash_attention_d32",
-    "flash_attention_d512",
-    "flash_attention_packed",
-    "group_norm",
-    "group_norm_two_pass",
-    "bias_act",
-)
+import collections
 
-launches = dict.fromkeys(KERNELS, 0)
+KERNELS = ("group_norm", "group_norm_two_pass", "bias_act")
+
+launches = collections.Counter(dict.fromkeys(KERNELS, 0))
 launch_details = {}
 
 
@@ -29,6 +26,6 @@ def count_launch(name: str, detail) -> None:
 
 
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    launches.clear()
+    launches.update(dict.fromkeys(KERNELS, 0))
     launch_details.clear()

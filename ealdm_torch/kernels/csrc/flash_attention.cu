@@ -14,44 +14,62 @@
 // rows >= Nq are not stored. Every key tile holds at least one valid key, so
 // the running max is finite after the first tile.
 //
-// bfloat16, the main path (`flash_mma_d32_kernel`, `flash_mma_d512_kernel`):
-// both products on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate). The scale is applied to the fp32 scores, folded with log2(e)
-// into one FMA before ex2.approx; P is rounded to bf16 for P*V (as the TPU's
-// MXU rounds it), the row sums use the fp32 P. K/V tiles are staged in shared
-// memory as bf16 by 16-byte cp.async copies (keys >= Nk zero-filled), double
-// buffered so the next tile's copy overlaps this tile's math. Shared-memory
-// rows are padded by 16 bytes, so the 8 rows an ldmatrix phase reads fall in
-// 8 distinct 16-byte bank groups.
+// bfloat16, the main path (`flash_mma_narrow_kernel` for D <= 128,
+// `flash_mma_wide_kernel` above): both products on the tensor cores with
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate). The scale is applied to the
+// fp32 scores, folded with log2(e) into one FMA before ex2.approx; P is
+// rounded to bf16 for P*V (as the TPU's MXU rounds it), the row sums use the
+// fp32 P. K/V tiles are staged in shared memory as bf16 by 16-byte cp.async
+// copies (keys >= Nk zero-filled), double buffered so the next tile's copy
+// overlaps this tile's math. Shared-memory rows are padded by 16 bytes, so
+// the 8 rows an ldmatrix phase reads fall in 8 distinct 16-byte bank groups.
 //
-//  * D = 32, the UNet's heads. Bound on this card: the softmax's exponentials,
-//    not the tensor cores. A score costs 4*D = 128 tensor-core operations but
-//    one ex2 on the SFU, which issues 16 a clock per SM: 4.18e12/s at the
-//    H100 SXM's 1980 MHz maximum SM clock against 989e12 op/s, so exp time
-//    is nearly twice the operation time ([48,8,1024,32]: 0.096 ms against
-//    0.052; at [48,16,256,32] the bytes bind, 0.0150 ms).
+// Any D that is a multiple of 8 from 8 to 640 (every head dim the repo's
+// configurations reach: 24 ... 576). Each kernel is a template over a padded
+// width DP >= D: D = 24 and 40 are not multiples of mma's k-step of 16, and
+// the wide kernel's warps own equal column strips. The pad columns of the
+// Q, K and V tiles are zero-filled by the same cp.async (src-size 0) and the
+// Q fragments read zeros there, so q.k^T is unchanged; output columns past D
+// are never written. D is a multiple of 8, so a 16-byte chunk is all data or
+// all pad.
+//
+//  * D <= 128, DP = round_up(D, 16) (the UNet's heads: 32 in the flagship,
+//    48 in the inpainting model, 24/40/80 in other configurations). Bound on
+//    this card at d = 32: the softmax's exponentials, not the tensor cores.
+//    A score costs 4*D tensor-core operations but one ex2 on the SFU, which
+//    issues 16 a clock per SM: 4.18e12/s at the H100 SXM's 1980 MHz maximum
+//    SM clock against 989e12 op/s, so below D = 59 exp time exceeds the
+//    operation time ([48,8,1024,32]: 0.096 ms against 0.052; at
+//    [48,16,256,32] the bytes bind, 0.0150 ms).
 //    Design: a block of 4 warps owns 64 query rows, 16 per warp; Q's
-//    A-fragments are loaded once from global memory into registers (16x32
-//    bf16, 2 k-steps). Per 64-key tile a warp runs S = Q*K^T (8 n-tiles x 2
+//    A-fragments are loaded once from global memory into registers (DP/16
+//    k-steps). Per 64-key tile a warp runs S = Q*K^T (8 n-tiles x DP/16
 //    k-steps, K from ldmatrix) into 32 fp32 registers, the online softmax
 //    over its quad (shfl_xor 1, 2), packs P to bf16 A-fragments in registers
 //    (the m16n8 C layout is the m16n8k16 A layout) and runs O += P*V (V from
-//    ldmatrix.trans) into 16 fp32 registers. 20 KiB of shared memory a
-//    block; at 78 registers a thread 6 blocks share an SM.
-//  * D = 512, the VAE's single head. Bound: operations (its exps take an
-//    eighth of the operation time). Design: 64 query rows per block, 8 warps;
-//    Q (64x512) stays in shared memory, K/V tiles of 32 keys x 512 are
-//    double buffered (215,552 bytes in all, one block an SM). Each warp
-//    computes a 16x16 piece of S over the full depth (Q and K by ldmatrix),
-//    the pieces meet in shared memory, 4 threads a row run the online
-//    softmax and write P (bf16) and the per-row rescale, and each warp keeps
-//    a 64-row x 64-column strip of O in 128 fp32 registers, reading P as
-//    A-fragments and V by ldmatrix.trans.
+//    ldmatrix.trans) into DP/2 fp32 registers. 4 * 64 * (DP + 8) * 2 bytes
+//    of shared memory a block (20 KiB at DP = 32, 68 KiB at 128). At
+//    DP = 32 a thread takes 83 registers, so 5 blocks share an SM where the
+//    earlier kernel written for d = 32 alone took 78 and 6: about 4% slower
+//    (PERF.md).
+//  * 128 < D <= 640, DP = round_up(D, 64) (the VAE's single head, 512; 384
+//    and 576 in cin256-v2). Bound: operations (its exps take an eighth of
+//    the operation time at D = 512). Design: 8 warps, 64 query rows a block
+//    for DP <= 512 and 32 above (so that the accumulators fit the register
+//    file and Q plus two K/V buffers the 227 KB of shared memory: 215,552
+//    bytes at DP = 512 and 640). Q stays in shared memory, K/V tiles of 32
+//    keys x DP are double buffered. Each warp computes a 16x16 (64 rows) or
+//    16x8 (32 rows) piece of S over the full depth (Q and K by ldmatrix),
+//    the pieces meet in shared memory, 256 / rows threads a row run the
+//    online softmax and write P (bf16) and the per-row rescale, and each
+//    warp keeps a strip of DP / 8 columns of O for every row in fp32
+//    registers (128 at DP = 512), reading P as A-fragments and V by
+//    ldmatrix.trans.
 //
-// float32 keeps the first port's FMA kernels (`flash_row_kernel`,
-// `flash_wide_kernel`): one thread per query row for D = 32, D split over
-// 256 threads for D = 512, fp32 tiles in shared memory. They are the card's
-// float32 reference; the main path runs bfloat16.
+// float32 keeps the first port's FMA kernel `flash_wide_kernel` (D split
+// over the threads, up to 5 columns a thread, fp32 tiles in shared memory)
+// for every D. It is the card's float32 reference; the main path runs
+// bfloat16.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -66,118 +84,24 @@ struct Strides {
 };
 
 // ================================================================ float32
-// ---------------------------------------------------------------- D = 32
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(BQ)
-flash_row_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H,
-                 int Nq, int Nk, Strides qs, Strides ks, Strides vs,
-                 Strides os, float scale) {
-  __shared__ float4 Ks[BK * D / 4];
-  __shared__ float4 Vs[BK * D / 4];
-  float* Kf = reinterpret_cast<float*>(Ks);
-  float* Vf = reinterpret_cast<float*>(Vs);
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int row = blockIdx.x * BQ + threadIdx.x;
-  const bool active = row < Nq;
-  const float* kp = k + b * ks.b + h * ks.h;
-  const float* vp = v + b * vs.b + h * vs.h;
-
-  float qr[D];
-  if (active) {
-    const float* qp = q + b * qs.b + h * qs.h + (long long)row * qs.n;
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = qp[d] * scale;
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = 0.f;
-  }
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < Nk; k0 += BK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < BK * D; idx += BQ) {
-      const int j = idx / D, d = idx % D;
-      const int key = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < Nk) {
-        kv = kp[(long long)key * ks.n + d];
-        vv = vp[(long long)key * vs.n + d];
-      }
-      Kf[idx] = kv;
-      Vf[idx] = vv;
-    }
-    __syncthreads();
-    const int nvalid = min(BK, Nk - k0);
-
-    float s[BK];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float a = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kk = Ks[j * (D / 4) + d4];
-        a = fmaf(qr[4 * d4 + 0], kk.x, a);
-        a = fmaf(qr[4 * d4 + 1], kk.y, a);
-        a = fmaf(qr[4 * d4 + 2], kk.z, a);
-        a = fmaf(qr[4 * d4 + 3], kk.w, a);
-      }
-      s[j] = (j < nvalid) ? a : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float m_new = fmaxf(m, mt);  // finite: the tile holds a valid key
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 vv = Vs[j * (D / 4) + d4];
-        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-      }
-    }
-    m = m_new;
-  }
-  if (active) {
-    const float inv = 1.f / l;
-    float* op = o + b * os.b + h * os.h + (long long)row * os.n;
-#pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
-  }
+// BQ rows, BK = 32 keys, NT = 8 * BQ threads (4 rows a warp); thread t owns
+// columns t, t + NT, ..., COLS of them (columns >= D idle).
+template <int BQ>
+size_t wide_smem_bytes(int D) {
+  constexpr int BK = 32;
+  return sizeof(float) * ((size_t)BQ * D + (size_t)BK * (D + 1) + (size_t)BK * D +
+                          (size_t)BK * BQ + 2 * BQ);
 }
 
-// ---------------------------------------------------------------- D = 512
-// BQ = 32 rows, BK = 32 keys, NT = 256 threads (8 warps, 4 rows each).
-template <int D, int BQ, int BK>
-constexpr size_t wide_smem_bytes() {
-  return sizeof(float) * ((size_t)BQ * D + (size_t)BK * (D + 1) +
-                          (size_t)BK * D + (size_t)BK * BQ + 2 * BQ);
-}
-
-template <int D, int BQ, int BK, int NT>
+template <int BQ, int NT, int COLS>
 __global__ void __launch_bounds__(NT)
 flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int H,
-                  int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+                  int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
                   Strides os, float scale) {
-  static_assert(BK == 32, "one key per lane");
+  constexpr int BK = 32;  // one key per lane
   static_assert(BQ == 4 * (NT / 32), "4 rows per warp");
-  static_assert(D % NT == 0 && D % 4 == 0, "columns split evenly");
-  constexpr int COLS = D / NT;
-  constexpr int KP = D + 1;  // padded K row: lane j hits bank (j + k) % 32
+  const int KP = D + 1;  // padded K row: lane j hits bank (j + k) % 32
 
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][D]  q * scale
@@ -274,7 +198,10 @@ flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       float vv[COLS];
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) vv[c] = Vs[j * D + tid + c * NT];
+      for (int c = 0; c < COLS; ++c) {
+        const int col = tid + c * NT;
+        vv[c] = col < D ? Vs[j * D + col] : 0.f;
+      }
 #pragma unroll
       for (int i4 = 0; i4 < BQ / 4; ++i4) {
         const float4 p4 = *reinterpret_cast<const float4*>(Pt + j * BQ + 4 * i4);
@@ -300,7 +227,8 @@ flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / l_s[i];
     float* op = o + b * os.b + h * os.h + (long long)row * os.n;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) op[tid + c * NT] = acc[i][c] * inv;
+    for (int c = 0; c < COLS; ++c)
+      if (tid + c * NT < D) op[tid + c * NT] = acc[i][c] * inv;
   }
 }
 
@@ -368,66 +296,107 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------------------------- D = 32
-constexpr int kD32Rows = 64;     // query rows a block: 4 warps x 16
-constexpr int kD32Keys = 64;     // keys a tile
-constexpr int kD32Ld = 32 + 8;   // smem row: 80 bytes
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// max / sum over groups of W neighbouring lanes (W a power of 2 up to 32)
+template <int W>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = 1; off < W; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+template <int W>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < W; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// ---------------------------------------------------------------- D <= 128
+constexpr int kNRows = 64;     // query rows a block: 4 warps x 16
+constexpr int kNKeys = 64;     // keys a tile
+constexpr int kNThreads = 128;
+
+template <int DP>
+constexpr size_t narrow_smem_bytes() {  // K and V, two buffers each
+  return sizeof(bf16) * 4 * kNKeys * (DP + 8);
+}
 
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4*g + t. A (16x16):
 // a0 (row g, cols 2t..2t+1), a1 (row g+8), a2 (row g, cols 2t+8..), a3
 // (row g+8, cols 2t+8..). B (16x8): b0 (rows 2t..2t+1, col g), b1 (rows
 // 2t+8..). C (16x8): c0,c1 (row g, cols 2t..2t+1), c2,c3 (row g+8).
-__global__ void __launch_bounds__(128)
-flash_mma_d32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                     int Nq, int Nk, Strides qs, Strides ks, Strides vs,
-                     Strides os, float scale_log2) {
-  __shared__ __align__(16) bf16 Ks[2][kD32Keys * kD32Ld];
-  __shared__ __align__(16) bf16 Vs[2][kD32Keys * kD32Ld];
+template <int DP>
+__global__ void __launch_bounds__(kNThreads)
+flash_mma_narrow_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                        int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
+                        Strides os, float scale_log2) {
+  static_assert(DP % 16 == 0 && DP <= 128, "DP: a multiple of 16 up to 128");
+  constexpr int LD = DP + 8;      // smem row: DP/8 + 1 chunks of 16 bytes (odd)
+  constexpr int KSTEPS = DP / 16;  // k-steps of Q*K^T
+  constexpr int CHUNKS = DP / 8;   // 16-byte chunks a padded row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][kNKeys][LD]
+  bf16* Vs = Ks + 2 * kNKeys * LD;               // [2][kNKeys][LD]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
+  const int dchunks = D / 8;  // chunks that hold data; the rest are zero pad
   const bf16* kp = k + b * ks.b + h * ks.h;
   const bf16* vp = v + b * vs.b + h * vs.h;
 
-  // a tile is 64 keys x 4 chunks of 16 bytes, for K and for V
+  // a tile is 64 keys x CHUNKS chunks of 16 bytes, for K and for V
   auto load_tile = [&](int tile, int buf) {
-    const int k0 = tile * kD32Keys;
+    const int k0 = tile * kNKeys;
+    bf16* Kb = Ks + buf * kNKeys * LD;
+    bf16* Vb = Vs + buf * kNKeys * LD;
 #pragma unroll
-    for (int c = tid; c < kD32Keys * 4; c += 128) {
-      const int j = c >> 2, ch = c & 3;
-      const bool ok = k0 + j < Nk;
-      const long long key = ok ? k0 + j : 0;
-      cp_async16(smem_u32(&Ks[buf][j * kD32Ld + ch * 8]), kp + key * ks.n + ch * 8, ok);
-      cp_async16(smem_u32(&Vs[buf][j * kD32Ld + ch * 8]), vp + key * vs.n + ch * 8, ok);
+    for (int c = tid; c < kNKeys * CHUNKS; c += kNThreads) {
+      const int j = c / CHUNKS, ch = c % CHUNKS;
+      const bool key_ok = k0 + j < Nk, ok = key_ok && ch < dchunks;
+      const long long src = (key_ok ? k0 + j : 0);
+      const int col = ch < dchunks ? ch * 8 : 0;
+      cp_async16(smem_u32(Kb + j * LD + ch * 8), kp + src * ks.n + col, ok);
+      cp_async16(smem_u32(Vb + j * LD + ch * 8), vp + src * vs.n + col, ok);
     }
     cp_async_commit();
   };
-  const int ntiles = (Nk + kD32Keys - 1) / kD32Keys;
+  const int ntiles = (Nk + kNKeys - 1) / kNKeys;
   load_tile(0, 0);
 
-  // Q's A-fragments for the two k-steps (d 0..15, 16..31), straight from
-  // global memory; rows >= Nq are zeros
-  const int r0 = blockIdx.x * kD32Rows + warp * 16 + g, r1 = r0 + 8;
+  // Q's A-fragments, KSTEPS k-steps, straight from global memory; rows >= Nq
+  // and pad columns are zeros
+  const int r0 = blockIdx.x * kNRows + warp * 16 + g, r1 = r0 + 8;
   const bf16* qp = q + b * qs.b + h * qs.h;
-  uint32_t qa[2][4];
+  uint32_t qa[KSTEPS][4];
 #pragma unroll
-  for (int ks_ = 0; ks_ < 2; ++ks_) {
+  for (int kk = 0; kk < KSTEPS; ++kk) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int col = 16 * ks_ + 8 * half + 2 * t;
-      qa[ks_][2 * half] = r0 < Nq
+      const int col = 16 * kk + 8 * half + 2 * t;
+      const bool cok = 16 * kk + 8 * half < D;
+      qa[kk][2 * half] = r0 < Nq && cok
           ? *reinterpret_cast<const uint32_t*>(qp + r0 * qs.n + col) : 0u;
-      qa[ks_][2 * half + 1] = r1 < Nq
+      qa[kk][2 * half + 1] = r1 < Nq && cok
           ? *reinterpret_cast<const uint32_t*>(qp + r1 * qs.n + col) : 0u;
     }
   }
 
-  float acc[4][4];  // O: 16 rows x 4 n-tiles of 8 columns
+  float acc[CHUNKS][4];  // O: 16 rows x CHUNKS n-tiles of 8 columns
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < CHUNKS; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g+8 (raw scores)
@@ -438,23 +407,33 @@ flash_mma_d32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait_all();  // this tile has landed
     __syncthreads();      // ... for every thread; the other buffer is free
     if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
-    const bf16* Kt = Ks[buf];
-    const bf16* Vt = Vs[buf];
+    const bf16* Kt = Ks + buf * kNKeys * LD;
+    const bf16* Vt = Vs + buf * kNKeys * LD;
 
     // S = Q K^T: 16 rows x 64 keys in 8 n-tiles. One ldmatrix.x4 gives a
-    // key octet's B-fragments for both k-steps (d chunks 0, 8, 16, 24).
+    // key octet's B-fragments for two k-steps (4 chunks of d), an .x2 those
+    // of a last odd k-step.
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      uint32_t kb[4];
-      ldsm_x4(kb, smem_u32(Kt + (nt * 8 + (lane & 7)) * kD32Ld + (lane >> 3) * 8));
-      mma_bf16(s[nt], qa[0], kb[0], kb[1]);
-      mma_bf16(s[nt], qa[1], kb[2], kb[3]);
+      const bf16* krow = Kt + (nt * 8 + (lane & 7)) * LD;
+#pragma unroll
+      for (int kp2 = 0; kp2 < KSTEPS / 2; ++kp2) {
+        uint32_t kb[4];
+        ldsm_x4(kb, smem_u32(krow + 32 * kp2 + (lane >> 3) * 8));
+        mma_bf16(s[nt], qa[2 * kp2], kb[0], kb[1]);
+        mma_bf16(s[nt], qa[2 * kp2 + 1], kb[2], kb[3]);
+      }
+      if constexpr (KSTEPS % 2) {
+        uint32_t kb[2];
+        ldsm_x2(kb, smem_u32(krow + 16 * (KSTEPS - 1) + ((lane >> 3) & 1) * 8));
+        mma_bf16(s[nt], qa[KSTEPS - 1], kb[0], kb[1]);
+      }
     }
-    const int k0 = tile * kD32Keys;
-    if (k0 + kD32Keys > Nk) {
+    const int k0 = tile * kNKeys;
+    if (k0 + kNKeys > Nk) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -479,7 +458,7 @@ flash_mma_d32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l0 *= alpha0;
     l1 *= alpha1;
 #pragma unroll
-    for (int dt = 0; dt < 4; ++dt) {
+    for (int dt = 0; dt < CHUNKS; ++dt) {
       acc[dt][0] *= alpha0;
       acc[dt][1] *= alpha0;
       acc[dt][2] *= alpha1;
@@ -504,12 +483,11 @@ flash_mma_d32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // (keys 16kk..16kk+15, d 16dp..16dp+15)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
+      const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int dp = 0; dp < 2; ++dp) {
+      for (int dp = 0; dp < DP / 16; ++dp) {
         uint32_t vb[4];
-        const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = 16 * dp + (lane >> 4) * 8;
-        ldsm_x4_trans(vb, smem_u32(Vt + key * kD32Ld + col));
+        ldsm_x4_trans(vb, smem_u32(Vt + key * LD + 16 * dp + (lane >> 4) * 8));
         mma_bf16(acc[2 * dp], pa[kk], vb[0], vb[1]);
         mma_bf16(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
       }
@@ -519,7 +497,8 @@ flash_mma_d32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
   bf16* op = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int dt = 0; dt < 4; ++dt) {
+  for (int dt = 0; dt < CHUNKS; ++dt) {
+    if (dt * 8 >= D) break;  // pad columns are not stored
     const int col = dt * 8 + 2 * t;
     if (r0 < Nq)
       *reinterpret_cast<uint32_t*>(op + r0 * os.n + col) =
@@ -530,110 +509,132 @@ flash_mma_d32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- D = 512
-constexpr int kWD = 512;
-constexpr int kWRows = 64;        // query rows a block
+// ---------------------------------------------------------------- D > 128
 constexpr int kWKeys = 32;        // keys a tile
 constexpr int kWThreads = 256;    // 8 warps
-constexpr int kWLd = kWD + 8;     // Q/K/V smem row: 1040 bytes
 constexpr int kWSLd = kWKeys + 8; // fp32 score row
 constexpr int kWPLd = kWKeys + 8; // bf16 P row: 80 bytes
-constexpr size_t kWSmem =
-    sizeof(bf16) * ((size_t)kWRows * kWLd + 4 * (size_t)kWKeys * kWLd +
-                    (size_t)kWRows * kWPLd) +
-    sizeof(float) * ((size_t)kWRows * kWSLd + 2 * kWRows);
 
+template <int DP, int ROWS>
+constexpr size_t wide_mma_smem_bytes() {  // Q, K/V x 2 buffers, P; S, alpha, l
+  return sizeof(bf16) * ((size_t)ROWS * (DP + 8) + 4 * (size_t)kWKeys * (DP + 8) +
+                         (size_t)ROWS * kWPLd) +
+         sizeof(float) * ((size_t)ROWS * kWSLd + 2 * ROWS);
+}
+
+template <int DP, int ROWS>
 __global__ void __launch_bounds__(kWThreads, 1)
-flash_mma_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+flash_mma_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                      int Nq, int Nk, Strides qs, Strides ks, Strides vs,
+                      int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
                       Strides os, float scale_log2) {
+  static_assert(DP % 64 == 0 && (ROWS == 64 || ROWS == 32), "DP / ROWS");
+  constexpr int LD = DP + 8;             // Q/K/V smem row: DP/8 + 1 chunks (odd)
+  constexpr int CHUNKS = DP / 8;
+  constexpr int MT = ROWS / 16;          // m-tiles of a block
+  constexpr int NPW = MT / 2;            // n-tiles (8 keys) of S a warp
+  constexpr int CW = DP / 8;             // columns of O a warp
+  constexpr int NTW = CW / 8;            // their n-tiles
+  constexpr int TPR = kWThreads / ROWS;  // softmax threads a row
+  constexpr int KPT = kWKeys / TPR;      // keys a softmax thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][kWLd]
-  bf16* Ks = Qs + kWRows * kWLd;                 // [2][32][kWLd]
-  bf16* Vs = Ks + 2 * kWKeys * kWLd;             // [2][32][kWLd]
-  bf16* Ps = Vs + 2 * kWKeys * kWLd;             // [64][kWPLd]
-  float* Ss = reinterpret_cast<float*>(Ps + kWRows * kWPLd);  // [64][kWSLd]
-  float* alpha_s = Ss + kWRows * kWSLd;          // [64]
-  float* l_s = alpha_s + kWRows;                 // [64]
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
+  bf16* Ks = Qs + ROWS * LD;                     // [2][32][LD]
+  bf16* Vs = Ks + 2 * kWKeys * LD;               // [2][32][LD]
+  bf16* Ps = Vs + 2 * kWKeys * LD;               // [ROWS][kWPLd]
+  float* Ss = reinterpret_cast<float*>(Ps + ROWS * kWPLd);  // [ROWS][kWSLd]
+  float* alpha_s = Ss + ROWS * kWSLd;            // [ROWS]
+  float* l_s = alpha_s + ROWS;                   // [ROWS]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int row0 = blockIdx.x * kWRows;
+  const int row0 = blockIdx.x * ROWS;
+  const int dchunks = D / 8;
   const bf16* kp = k + b * ks.b + h * ks.h;
   const bf16* vp = v + b * vs.b + h * vs.h;
-  constexpr int kChunks = kWD / 8;  // 16-byte chunks a row
 
-  {  // Q, rows >= Nq zero-filled; joins the first tile's copy group
+  {  // Q, rows >= Nq and pad columns zero-filled; joins the first tile's group
     const bf16* qp = q + b * qs.b + h * qs.h;
-    for (int c = tid; c < kWRows * kChunks; c += kWThreads) {
-      const int i = c / kChunks, ch = c % kChunks;
-      const bool ok = row0 + i < Nq;
-      const long long row = ok ? row0 + i : 0;
-      cp_async16(smem_u32(Qs + i * kWLd + ch * 8), qp + row * qs.n + ch * 8, ok);
+    for (int c = tid; c < ROWS * CHUNKS; c += kWThreads) {
+      const int i = c / CHUNKS, ch = c % CHUNKS;
+      const bool row_ok = row0 + i < Nq;
+      const long long row = row_ok ? row0 + i : 0;
+      const int col = ch < dchunks ? ch * 8 : 0;
+      cp_async16(smem_u32(Qs + i * LD + ch * 8), qp + row * qs.n + col,
+                 row_ok && ch < dchunks);
     }
   }
   auto load_tile = [&](int tile, int buf) {
     const int k0 = tile * kWKeys;
-    bf16* Kb = Ks + buf * kWKeys * kWLd;
-    bf16* Vb = Vs + buf * kWKeys * kWLd;
+    bf16* Kb = Ks + buf * kWKeys * LD;
+    bf16* Vb = Vs + buf * kWKeys * LD;
 #pragma unroll 4
-    for (int c = tid; c < kWKeys * kChunks; c += kWThreads) {
-      const int j = c / kChunks, ch = c % kChunks;
-      const bool ok = k0 + j < Nk;
-      const long long key = ok ? k0 + j : 0;
-      cp_async16(smem_u32(Kb + j * kWLd + ch * 8), kp + key * ks.n + ch * 8, ok);
-      cp_async16(smem_u32(Vb + j * kWLd + ch * 8), vp + key * vs.n + ch * 8, ok);
+    for (int c = tid; c < kWKeys * CHUNKS; c += kWThreads) {
+      const int j = c / CHUNKS, ch = c % CHUNKS;
+      const bool key_ok = k0 + j < Nk, ok = key_ok && ch < dchunks;
+      const long long key = key_ok ? k0 + j : 0;
+      const int col = ch < dchunks ? ch * 8 : 0;
+      cp_async16(smem_u32(Kb + j * LD + ch * 8), kp + key * ks.n + col, ok);
+      cp_async16(smem_u32(Vb + j * LD + ch * 8), vp + key * vs.n + col, ok);
     }
     cp_async_commit();
   };
   const int ntiles = (Nk + kWKeys - 1) / kWKeys;
   load_tile(0, 0);
 
-  float acc[4][8][4];  // O: 64 rows (4 m-tiles) x this warp's 64 columns
+  float acc[MT][NTW][4];  // O: ROWS rows x this warp's CW columns
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  // softmax: 4 threads a row, 8 keys each
-  const int sr = tid >> 2, sq = tid & 3;
+  // softmax: TPR threads a row, KPT keys each
+  const int sr = tid / TPR, sq = tid % TPR;
   float m_run = -INFINITY, l_run = 0.f;
-  // S piece of this warp: rows 16*smt.., keys 16*skh..
-  const int smt = warp & 3, skh = warp >> 2;
+  // S piece of this warp: rows 16*smt.., keys 8*NPW*skg..
+  const int smt = warp % MT, skg = warp / MT;
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int buf = tile & 1;
     cp_async_wait_all();
     __syncthreads();  // tile landed for all; P, alpha and the old buffers are free
     if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
-    const bf16* Kt = Ks + buf * kWKeys * kWLd;
-    const bf16* Vt = Vs + buf * kWKeys * kWLd;
+    const bf16* Kt = Ks + buf * kWKeys * LD;
+    const bf16* Vt = Vs + buf * kWKeys * LD;
 
-    // S piece = Q[16 rows] K[16 keys]^T over the full depth, 32 k-steps
-    float s[2][4];
+    // S piece = Q[16 rows] K[8*NPW keys]^T over the full depth, DP/16 k-steps
+    float s[NPW][4];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < NPW; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
     const uint32_t qa_addr =
-        smem_u32(Qs + (16 * smt + (lane & 15)) * kWLd + (lane >> 4) * 8);
-    const uint32_t kb_addr = smem_u32(
-        Kt + (16 * skh + (lane & 7) + (lane >> 4) * 8) * kWLd + ((lane >> 3) & 1) * 8);
+        smem_u32(Qs + (16 * smt + (lane & 15)) * LD + (lane >> 4) * 8);
+    const uint32_t kb_addr =
+        NPW == 2 ? smem_u32(Kt + (16 * skg + (lane & 7) + (lane >> 4) * 8) * LD +
+                            ((lane >> 3) & 1) * 8)
+                 : smem_u32(Kt + (8 * skg + (lane & 7)) * LD + ((lane >> 3) & 1) * 8);
 #pragma unroll 8
-    for (int kstep = 0; kstep < kWD / 16; ++kstep) {
-      uint32_t a[4], kb[4];
+    for (int kstep = 0; kstep < DP / 16; ++kstep) {
+      uint32_t a[4];
       ldsm_x4(a, qa_addr + kstep * 32);
-      ldsm_x4(kb, kb_addr + kstep * 32);
-      mma_bf16(s[0], a, kb[0], kb[1]);
-      mma_bf16(s[1], a, kb[2], kb[3]);
+      if constexpr (NPW == 2) {
+        uint32_t kb[4];
+        ldsm_x4(kb, kb_addr + kstep * 32);
+        mma_bf16(s[0], a, kb[0], kb[1]);
+        mma_bf16(s[1], a, kb[2], kb[3]);
+      } else {
+        uint32_t kb[2];
+        ldsm_x2(kb, kb_addr + kstep * 32);
+        mma_bf16(s[0], a, kb[0], kb[1]);
+      }
     }
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int col = 16 * skh + 8 * nt + 2 * t;
+    for (int nt = 0; nt < NPW; ++nt) {
+      const int col = 8 * NPW * skg + 8 * nt + 2 * t;
       *reinterpret_cast<float2*>(Ss + (16 * smt + g) * kWSLd + col) =
           make_float2(s[nt][0], s[nt][1]);
       *reinterpret_cast<float2*>(Ss + (16 * smt + g + 8) * kWSLd + col) =
@@ -641,42 +642,46 @@ flash_mma_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
 
-    {  // online softmax of row sr, keys 8*sq .. 8*sq+7
-      const float4 lo = *reinterpret_cast<const float4*>(Ss + sr * kWSLd + 8 * sq);
-      const float4 hi = *reinterpret_cast<const float4*>(Ss + sr * kWSLd + 8 * sq + 4);
-      float sv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      const int key0 = tile * kWKeys + 8 * sq;
+    {  // online softmax of row sr, keys KPT*sq .. KPT*sq+KPT-1
+      float sv[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; i += 4) {
+        const float4 f = *reinterpret_cast<const float4*>(Ss + sr * kWSLd + KPT * sq + i);
+        sv[i] = f.x;
+        sv[i + 1] = f.y;
+        sv[i + 2] = f.z;
+        sv[i + 3] = f.w;
+      }
+      const int key0 = tile * kWKeys + KPT * sq;
       float mx = m_run;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < KPT; ++i) {
         if (key0 + i >= Nk) sv[i] = -INFINITY;
         mx = fmaxf(mx, sv[i]);
       }
-      mx = quad_max(mx);  // the 4 threads of a row are one quad
+      mx = group_max<TPR>(mx);  // the TPR threads of a row are neighbouring lanes
       const float alpha = ex2((m_run - mx) * scale_log2);
       m_run = mx;
       const float mc = mx * scale_log2;
       l_run *= alpha;
-      uint32_t packed[4];
+      uint32_t* prow = reinterpret_cast<uint32_t*>(Ps + sr * kWPLd + KPT * sq);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < KPT / 2; ++i) {
         const float p0 = ex2(fmaf(sv[2 * i], scale_log2, -mc));
         const float p1 = ex2(fmaf(sv[2 * i + 1], scale_log2, -mc));
         l_run += p0 + p1;
-        packed[i] = pack_bf16(p0, p1);
+        prow[i] = pack_bf16(p0, p1);
       }
-      *reinterpret_cast<uint4*>(Ps + sr * kWPLd + 8 * sq) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
       if (sq == 0) alpha_s[sr] = alpha;
     }
     __syncthreads();
 
-    // O = O * alpha + P V on this warp's 64 columns
+    // O = O * alpha + P V on this warp's CW columns
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
       const float a_lo = alpha_s[16 * mt + g], a_hi = alpha_s[16 * mt + g + 8];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < NTW; ++nt) {
         acc[mt][nt][0] *= a_lo;
         acc[mt][nt][1] *= a_lo;
         acc[mt][nt][2] *= a_hi;
@@ -685,37 +690,45 @@ flash_mma_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 #pragma unroll
     for (int kk = 0; kk < kWKeys / 16; ++kk) {
-      uint32_t pa[4][4];
+      uint32_t pa[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
         ldsm_x4(pa[mt], smem_u32(Ps + (16 * mt + (lane & 15)) * kWPLd + 16 * kk +
                                  (lane >> 4) * 8));
       const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const bf16* vrow = Vt + key * LD + CW * warp;
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < NTW / 2; ++np) {
         uint32_t vb[4];
-        ldsm_x4_trans(vb, smem_u32(Vt + key * kWLd + 64 * warp + 16 * np +
-                                   (lane >> 4) * 8));
+        ldsm_x4_trans(vb, smem_u32(vrow + 16 * np + (lane >> 4) * 8));
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
+        for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(acc[mt][2 * np], pa[mt], vb[0], vb[1]);
           mma_bf16(acc[mt][2 * np + 1], pa[mt], vb[2], vb[3]);
         }
       }
+      if constexpr (NTW % 2) {
+        uint32_t vb[2];
+        ldsm_x2_trans(vb, smem_u32(vrow + 16 * (NTW / 2)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][NTW - 1], pa[mt], vb[0], vb[1]);
+      }
     }
   }
 
-  l_run = quad_sum(l_run);
+  l_run = group_sum<TPR>(l_run);
   if (sq == 0) l_s[sr] = l_run;
   __syncthreads();
   bf16* op = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int mt = 0; mt < MT; ++mt) {
     const int ra = 16 * mt + g, rb = ra + 8;
     const float inv_a = 1.f / l_s[ra], inv_b = 1.f / l_s[rb];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = 64 * warp + 8 * nt + 2 * t;
+    for (int nt = 0; nt < NTW; ++nt) {
+      const int col0 = CW * warp + 8 * nt;
+      if (col0 >= D) break;  // pad columns are not stored
+      const int col = col0 + 2 * t;
       if (row0 + ra < Nq)
         *reinterpret_cast<uint32_t*>(op + (long long)(row0 + ra) * os.n + col) =
             pack_bf16(acc[mt][nt][0] * inv_a, acc[mt][nt][1] * inv_a);
@@ -727,29 +740,71 @@ flash_mma_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- launch
+// D is a multiple of 8 from 8 to 640 (checked by the entry point).
+template <int BQ, int NT, int COLS>
+cudaError_t launch_wide_f32(const float* q, const float* k, const float* v, float* o,
+                            int B, int H, int Nq, int Nk, int D, Strides qs,
+                            Strides ks, Strides vs, Strides os, float scale,
+                            cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes<BQ>(D);
+  auto kern = flash_wide_kernel<BQ, NT, COLS>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Nq + BQ - 1) / BQ, B * H);
+  kern<<<grid, NT, smem, stream>>>(q, k, v, o, H, Nq, Nk, D, qs, ks, vs, os, scale);
+  return cudaSuccess;
+}
+
 cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
                        int B, int H, int Nq, int Nk, int D, Strides qs,
                        Strides ks, Strides vs, Strides os, float scale,
                        cudaStream_t stream) {
-  if (D == 32) {
-    constexpr int BQ = 128, BK = 64;
-    dim3 grid((Nq + BQ - 1) / BQ, B * H);
-    flash_row_kernel<32, BQ, BK><<<grid, BQ, 0, stream>>>(
-        q, k, v, o, H, Nq, Nk, qs, ks, vs, os, scale);
-  } else if (D == 512) {
-    constexpr int BQ = 32, BK = 32, NT = 256;
-    constexpr size_t smem = wide_smem_bytes<512, BQ, BK>();
-    auto kern = flash_wide_kernel<512, BQ, BK, NT>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    dim3 grid((Nq + BQ - 1) / BQ, B * H);
-    kern<<<grid, NT, smem, stream>>>(q, k, v, o, H, Nq, Nk, qs, ks, vs, os,
-                                     scale);
-  } else {
-    return cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  if (D <= 256) {
+    e = launch_wide_f32<32, 256, 1>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os, scale,
+                                    stream);
+  } else if (D <= 512) {
+    e = launch_wide_f32<32, 256, 2>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os, scale,
+                                    stream);
+  } else {  // 16 rows a block keep the fp32 tiles within shared memory
+    e = launch_wide_f32<16, 128, 5>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os, scale,
+                                    stream);
   }
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_narrow(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+                          int H, int Nq, int Nk, int D, Strides qs, Strides ks,
+                          Strides vs, Strides os, float scale_log2, cudaStream_t stream) {
+  constexpr size_t smem = narrow_smem_bytes<DP>();
+  auto kern = flash_mma_narrow_kernel<DP>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Nq + kNRows - 1) / kNRows, B * H);
+  kern<<<grid, kNThreads, smem, stream>>>(q, k, v, o, H, Nq, Nk, D, qs, ks, vs, os,
+                                          scale_log2);
+  return cudaSuccess;
+}
+
+template <int DP>
+cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+                        int H, int Nq, int Nk, int D, Strides qs, Strides ks,
+                        Strides vs, Strides os, float scale_log2, cudaStream_t stream) {
+  constexpr int ROWS = DP <= 512 ? 64 : 32;
+  constexpr size_t smem = wide_mma_smem_bytes<DP, ROWS>();
+  static_assert(smem <= 232448, "Q and two K/V buffers fit shared memory");
+  auto kern = flash_mma_wide_kernel<DP, ROWS>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Nq + ROWS - 1) / ROWS, B * H);
+  kern<<<grid, kWThreads, smem, stream>>>(q, k, v, o, H, Nq, Nk, D, qs, ks, vs, os,
+                                          scale_log2);
+  return cudaSuccess;
 }
 
 // The caller guarantees 16-byte aligned bases and strides that are
@@ -759,21 +814,29 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                         Strides ks, Strides vs, Strides os, float scale,
                         cudaStream_t stream) {
   const float scale_log2 = scale * 1.4426950408889634f;
-  if (D == 32) {
-    dim3 grid((Nq + kD32Rows - 1) / kD32Rows, B * H);
-    flash_mma_d32_kernel<<<grid, 128, 0, stream>>>(q, k, v, o, H, Nq, Nk, qs, ks,
-                                                   vs, os, scale_log2);
-  } else if (D == kWD) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_mma_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kWSmem);
-    if (e != cudaSuccess) return e;
-    dim3 grid((Nq + kWRows - 1) / kWRows, B * H);
-    flash_mma_d512_kernel<<<grid, kWThreads, kWSmem, stream>>>(
-        q, k, v, o, H, Nq, Nk, qs, ks, vs, os, scale_log2);
-  } else {
-    return cudaErrorInvalidValue;
+#define EALDM_FLASH_ARGS q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os, scale_log2, stream
+  cudaError_t e;
+  switch (D <= 128 ? (D + 15) / 16 * 16 : (D + 63) / 64 * 64) {
+    case 16: e = launch_narrow<16>(EALDM_FLASH_ARGS); break;
+    case 32: e = launch_narrow<32>(EALDM_FLASH_ARGS); break;
+    case 48: e = launch_narrow<48>(EALDM_FLASH_ARGS); break;
+    case 64: e = launch_narrow<64>(EALDM_FLASH_ARGS); break;
+    case 80: e = launch_narrow<80>(EALDM_FLASH_ARGS); break;
+    case 96: e = launch_narrow<96>(EALDM_FLASH_ARGS); break;
+    case 112: e = launch_narrow<112>(EALDM_FLASH_ARGS); break;
+    case 128: e = launch_narrow<128>(EALDM_FLASH_ARGS); break;
+    case 192: e = launch_wide<192>(EALDM_FLASH_ARGS); break;
+    case 256: e = launch_wide<256>(EALDM_FLASH_ARGS); break;
+    case 320: e = launch_wide<320>(EALDM_FLASH_ARGS); break;
+    case 384: e = launch_wide<384>(EALDM_FLASH_ARGS); break;
+    case 448: e = launch_wide<448>(EALDM_FLASH_ARGS); break;
+    case 512: e = launch_wide<512>(EALDM_FLASH_ARGS); break;
+    case 576: e = launch_wide<576>(EALDM_FLASH_ARGS); break;
+    case 640: e = launch_wide<640>(EALDM_FLASH_ARGS); break;
+    default: return cudaErrorInvalidValue;
   }
+#undef EALDM_FLASH_ARGS
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -787,7 +850,8 @@ extern "C" int ealdm_flash_attention(
     long long q_sn, long long k_sb, long long k_sh, long long k_sn,
     long long v_sb, long long v_sh, long long v_sn, long long o_sb,
     long long o_sh, long long o_sn, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || B * H > 65535)
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || B * H > 65535 || D < 8 || D > 640 ||
+      D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_sn}, ks{k_sb, k_sh, k_sn}, vs{v_sb, v_sh, v_sn},
       os{o_sb, o_sh, o_sn};

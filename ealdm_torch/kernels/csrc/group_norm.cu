@@ -16,10 +16,14 @@
 //
 // * channels_last, dense per sample ([N, H*W, C] in memory: every tensor the
 //   model's convolutions hand the norms). A sample is one contiguous block of
-//   H*W rows of C channels. Thread t owns the 16-byte vectors t, t + NT, ...
-//   of its rows; NT is a multiple of C/V (V channels a vector), so each
+//   H*W rows of C channels. Thread t owns the 16-byte vectors t, t + NW, ...
+//   of its rows; NW is a multiple of C/V (V channels a vector), so each
 //   thread keeps the same V channels throughout and loads their pre-bias,
-//   scale and bias once. Statistics are per-channel partials combined into
+//   scale and bias once. NW is the block's thread count when that count can
+//   be a multiple of both 32 and C/V within 512 threads; otherwise (C/V =
+//   84, 140, 168, 196 ...: the pixel UNet's 672 to 1568 channels) the block
+//   rounds NW up to a multiple of 32 and the extra threads take part in the
+//   reductions only (`work_threads`). Statistics are per-channel partials combined into
 //   per-group totals (a vector may span two groups when C/G < V) in a fixed
 //   order, never atomics. Values are shifted by the sample's first value of
 //   each group before they are summed (d = v - v[row 0, first channel of g]),
@@ -241,9 +245,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The threads that own vectors: the largest multiple of C / V in the block
+// (the block is a multiple of 32 threads).
+__device__ __forceinline__ int work_threads(int C, int V) {
+  const int tpr = C / V;
+  return blockDim.x / tpr * tpr;
+}
+
 // out[g] = the sum over the block of every thread's per-channel values
 // `val` that belong to group g, in a fixed order. red: blockDim.x * V floats
-// ([row lane][C]); blockDim.x is a multiple of 32 and of C / V.
+// ([row lane][C]); the first work_threads(C, V) threads' rows are summed.
 template <int V>
 __device__ void group_sums(const float (&val)[V], float* red, float* out, int C, int G) {
   const int t = threadIdx.x;
@@ -252,7 +263,7 @@ __device__ void group_sums(const float (&val)[V], float* red, float* out, int C,
     *reinterpret_cast<float4*>(&red[t * V + i]) =
         make_float4(val[i], val[i + 1], val[i + 2], val[i + 3]);
   __syncthreads();
-  const int cg = C / G, lanes = blockDim.x * V / C;
+  const int cg = C / G, lanes = work_threads(C, V) * V / C;
   const int warp = t / 32, lane = t % 32;
   for (int g = warp; g < G; g += blockDim.x / 32) {
     float acc = 0.f;
@@ -293,9 +304,10 @@ __device__ void slice_stats(const uint4* buf, int nvec, int rows, int piece_vecs
                             int c0, int C, int G, float* red, float* part, bool trace) {
   constexpr int V = Vec<T>::V;
   const int cg = C / G;
+  const int nw = work_threads(C, V), t0 = threadIdx.x < nw ? threadIdx.x : nvec;
   float s[V] = {};
   int ready = 0;  // pieces known to have arrived
-  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+  for (int v = t0; v < nvec; v += nw) {
     while (v >= ready * piece_vecs) {
       while (!mbar_try_wait(smem_u32(&bars[ready]), parity)) {
       }
@@ -314,7 +326,7 @@ __device__ void slice_stats(const uint4* buf, int nvec, int rows, int piece_vecs
 #pragma unroll
   for (int i = 0; i < V; ++i) om[i] = off[i] - (rows ? part[(c0 + i) / cg] / cnt : 0.f);
   float q[V] = {};
-  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+  for (int v = t0; v < nvec; v += nw) {
     float f[V];
     Vec<T>::unpack(buf[v], f);
 #pragma unroll
@@ -456,9 +468,10 @@ gn_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
     float mean[V], a[V], b[V];
     channel_affine<V>(coef, scale, bias, c0, cgc, G, mean, a, b);
     uint4* out = reinterpret_cast<uint4*>(y + n * sample + (long long)r0 * C);
+    const int nw = work_threads(C, V);
     for (int k = 0; k < st.pieces(); ++k) {
-      const int end = min((k + 1) * st.piece_vecs(), nvec);
-      for (int v = k * st.piece_vecs() + t; v < end; v += blockDim.x)
+      const int end = t < nw ? min((k + 1) * st.piece_vecs(), nvec) : 0;
+      for (int v = k * st.piece_vecs() + t; v < end; v += nw)
         out[v] = normalize<T>(buf[v], off, mean, a, b, silu);
       if (refill) {
         __syncthreads();  // piece k is read
@@ -554,28 +567,32 @@ gn_tile_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
   const int nvec = min(rows_per, HW - r0) * C / V;
   const uint4* src = reinterpret_cast<const uint4*>(x + base + (long long)r0 * C);
   uint4* dst = reinterpret_cast<uint4*>(y + base + (long long)r0 * C);
-  for (int v0 = t; v0 < nvec; v0 += kApplyUnroll * blockDim.x) {
+  const int nw = work_threads(C, V);
+  for (int v0 = t < nw ? t : nvec; v0 < nvec; v0 += kApplyUnroll * nw) {
     uint4 u[kApplyUnroll];
 #pragma unroll
     for (int k = 0; k < kApplyUnroll; ++k) {
-      const int v = v0 + k * blockDim.x;
+      const int v = v0 + k * nw;
       if (v < nvec) u[k] = __ldg(src + v);
     }
 #pragma unroll
     for (int k = 0; k < kApplyUnroll; ++k) {
-      const int v = v0 + k * blockDim.x;
+      const int v = v0 + k * nw;
       if (v < nvec) dst[v] = normalize<T>(u[k], off, mean, a, b, silu);
     }
   }
 }
 
-// Threads per block for C channels of V per vector: a multiple of 32 and of
-// C / V, about `want`; 0 if that takes more than 512.
+// Threads per block for C channels of V per vector, about `want`: a
+// multiple of 32 and of C / V where one up to 512 exists; else a multiple
+// of C / V (the work threads) rounded up to 32. 0 if C / V exceeds 512.
 int cl_threads(int C, int V, int want) {
   const int tpr = C / V;
   int l = tpr;
   while (l % 32) l += tpr;  // lcm(tpr, 32)
-  return l > 512 ? 0 : l * (l < want ? want / l : 1);
+  if (l <= 512) return l * (l < want ? want / l : 1);
+  if (tpr > 512) return 0;
+  return (tpr * std::max(1, want / tpr) + 31) / 32 * 32;
 }
 
 bool bad_cl_shape(int N, int C, int HW, int G, int V) {

@@ -1,12 +1,14 @@
-"""LatentDiffusion (counterpart of `ealdm_tpu/models/ddpm.py`).
+"""LatentDiffusion and DDPM (counterpart of `ealdm_tpu/models/ddpm.py`).
 
-Builders for the flagship's three targets (the UNet, the VQ first stage and
-the STDiff UnetCond tower), DiffusionWrapper with crossattn conditioning, the
-CFG conditioning pair, apply_model with the hoisted step invariants, the
-first-stage encode and decode, and the training objective: q_sample and the
-posterior algebra, the eps loss with training-time CFG (one 2N-batched UNet
-call, [c_neg, c_pos] order), the logvar table, the VLB weighting and the
-shortened conditioning schedule.
+Builders for the UNet, the first stages (VQ, KL, the pixel-space identity)
+and the cond stages (the STDiff UnetCond tower, or none for the
+unconditional models), DiffusionWrapper with None and crossattn
+conditioning, the CFG conditioning pair, apply_model with the hoisted step
+invariants, the first-stage encode and decode, and the training objective:
+q_sample and the posterior algebra, the eps or x0 loss with training-time
+CFG (one 2N-batched UNet call, [c_neg, c_pos] order), the logvar table, the
+VLB weighting and the shortened conditioning schedule. `DDPM` is the
+pixel-space model: identity first stage, no conditioning.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from ..utils.device import resolve_device
 from .distributions import normal_kl
 from .stdiff import UnetCond
 from .unet import UNetModel
-from .vae import VQModel
+from .vae import AutoencoderKL, IdentityFirstStage, VQModel
 
 
 def build_unet(unet_config: Dict[str, Any], dtype=torch.float32) -> UNetModel:
@@ -32,19 +34,34 @@ def build_unet(unet_config: Dict[str, Any], dtype=torch.float32) -> UNetModel:
     return UNetModel(**cfg, dtype=dtype)
 
 
-def build_first_stage(config: Dict[str, Any], dtype=torch.float32) -> VQModel:
+def build_first_stage(config: Optional[Dict[str, Any]], dtype=torch.float32,
+                      device=None) -> nn.Module:
+    """VQModel, AutoencoderKL or IdentityFirstStage (no config, or an
+    identity target) from a first_stage_config {target, params}; the KL
+    model is built on `device` (see AutoencoderKL), the others on the
+    current default device."""
+    config = config or {}
     target = config.get("target", "identity")
     params = dict(config.get("params", {}))
     if target.endswith("VQModelInterface") or target.endswith("VQModel"):
         return VQModel(ddconfig=dict(params["ddconfig"]), n_embed=params["n_embed"],
                        embed_dim=params["embed_dim"], dtype=dtype)
+    if target.endswith("AutoencoderKL"):
+        return AutoencoderKL(ddconfig=dict(params["ddconfig"]), embed_dim=params["embed_dim"],
+                             dtype=dtype, device=device)
+    if "Identity" in target or target == "identity":
+        return IdentityFirstStage()
     raise NotImplementedError(f"first stage {target!r} is not ported yet")
 
 
-def build_cond_stage(config: Dict[str, Any], feat_hw: int,
-                     dtype=torch.float32) -> UnetCond:
-    """The STDiff UnetCond tower; feat_hw is the side of the first-stage
-    feature map it reads."""
+def build_cond_stage(config, feat_hw: Optional[int],
+                     dtype=torch.float32) -> Optional[UnetCond]:
+    """The STDiff UnetCond tower (feat_hw is the side of the first-stage
+    feature map it reads), or None for "__is_unconditional__"."""
+    if config in ("__is_unconditional__", None):
+        return None
+    if isinstance(config, str):
+        raise NotImplementedError(f"cond stage {config!r} is not ported yet")
     target = config.get("target", "")
     if not target.endswith("UnetCond"):
         raise NotImplementedError(f"cond stage {target!r} is not ported yet")
@@ -92,10 +109,11 @@ class LatentDiffusion(nn.Module):
     requires_grad=False, as the reference freezes it, and the cond stage
     too when `cond_stage_trainable` is false."""
 
-    def __init__(self, unet_config, first_stage_config, cond_stage_config,
-                 timesteps: int = 1000, beta_schedule: str = "linear",
-                 linear_start: float = 1e-4, linear_end: float = 2e-2,
-                 cosine_s: float = 8e-3, parameterization: str = "eps",
+    def __init__(self, unet_config, first_stage_config=None,
+                 cond_stage_config="__is_unconditional__", timesteps: int = 1000,
+                 beta_schedule: str = "linear", linear_start: float = 1e-4,
+                 linear_end: float = 2e-2, cosine_s: float = 8e-3,
+                 parameterization: str = "eps",
                  loss_type: str = "l2", conditioning_key: Optional[str] = None,
                  first_stage_key: str = "img", cond_stage_key: str = "image",
                  cond_stage_trainable: bool = False, num_timesteps_cond: int = 1,
@@ -104,9 +122,8 @@ class LatentDiffusion(nn.Module):
                  l_simple_weight: float = 1.0, original_elbo_weight: float = 0.0,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if parameterization != "eps":
-            raise NotImplementedError(
-                f"parameterization {parameterization!r} is not ported yet")
+        if parameterization not in ("eps", "x0"):
+            raise NotImplementedError(f"parameterization {parameterization!r}")
         if loss_type not in ("l1", "l2"):
             raise NotImplementedError(f"loss_type {loss_type!r}")
         if not 1 <= num_timesteps_cond <= timesteps:
@@ -115,6 +132,7 @@ class LatentDiffusion(nn.Module):
         self.timesteps, self.beta_schedule = timesteps, beta_schedule
         self.linear_start, self.linear_end, self.cosine_s = linear_start, linear_end, cosine_s
         self.loss_type = loss_type
+        self.parameterization = parameterization
         self.conditioning_key = conditioning_key
         self.first_stage_key, self.cond_stage_key = first_stage_key, cond_stage_key
         self.cond_stage_trainable = cond_stage_trainable
@@ -124,11 +142,13 @@ class LatentDiffusion(nn.Module):
         self.original_elbo_weight = original_elbo_weight
         self.unet_config = dict(unet_config)
         self.dtype = dtype
-        dd = first_stage_config["params"]["ddconfig"]
-        feat_hw = dd["resolution"] // 2 ** (len(dd["ch_mult"]) - 1)
+        feat_hw = None
+        if isinstance(cond_stage_config, dict):  # UnetCond reads the encoder's features
+            dd = first_stage_config["params"]["ddconfig"]
+            feat_hw = dd["resolution"] // 2 ** (len(dd["ch_mult"]) - 1)
         with torch.device(dev):
             self.model = DiffusionWrapper(unet_config, conditioning_key, dtype)
-            self.first_stage_model = build_first_stage(first_stage_config, dtype)
+            self.first_stage_model = build_first_stage(first_stage_config, dtype, dev)
             self.cond_stage_model = build_cond_stage(cond_stage_config, feat_hw, dtype)
             logvar = torch.full((timesteps,), float(logvar_init))
             if learn_logvar:
@@ -136,12 +156,12 @@ class LatentDiffusion(nn.Module):
             else:
                 self.register_buffer("logvar", logvar, persistent=False)
         self.first_stage_model.requires_grad_(False)
-        if not cond_stage_trainable:
+        if not cond_stage_trainable and self.cond_stage_model is not None:
             self.cond_stage_model.requires_grad_(False)
         self.schedule = DiffusionSchedule.create(
             timesteps=timesteps, beta_schedule=beta_schedule,
             linear_start=linear_start, linear_end=linear_end, cosine_s=cosine_s,
-            device=dev,
+            parameterization=parameterization, device=dev,
         )
         # the shortened conditioning-noise schedule (reference
         # make_cond_schedule); active only when num_timesteps_cond > 1
@@ -153,20 +173,37 @@ class LatentDiffusion(nn.Module):
         self.shorten_cond_schedule = num_timesteps_cond > 1
 
     # ------------------------------------------------------------- first stage
-    def encode_first_stage(self, x):
-        """Image [N, H, W, 3] -> the un-quantized latent, without gradient."""
+    def encode_first_stage(self, x, generator=None, sample_posterior: bool = True,
+                           noise=None):
+        """Image [N, H, W, 3] -> latent, without gradient: VQ's un-quantized
+        latent, a KL posterior's sample (from `generator`, or `noise` when
+        given) or mode, or the image itself (identity)."""
+        fs = self.first_stage_model
         with torch.no_grad():
-            return self.first_stage_model.encode_prequant(x)
+            if isinstance(fs, VQModel):
+                return fs.encode_prequant(x)
+            if isinstance(fs, AutoencoderKL):
+                posterior = fs.encode(x)
+                return posterior.sample(generator, noise) if sample_posterior else posterior.mode()
+            return fs.encode(x)
 
     def get_first_stage_encoding(self, z):
         return self.scale_factor * z
 
     def decode_first_stage(self, z):
-        """Latent [N, h, w, 4] -> image [N, H, W, 3] (quantized first)."""
-        return self.first_stage_model.decode_interface((1.0 / self.scale_factor) * z)
+        """Latent [N, h, w, c] -> image [N, H, W, 3]; a VQ latent is
+        quantized first."""
+        z = (1.0 / self.scale_factor) * z
+        fs = self.first_stage_model
+        if isinstance(fs, VQModel):
+            return fs.decode_interface(z)
+        return fs.decode(z)
 
     def quantize_latent(self, z):
-        return self.first_stage_model.quantize(z)[0]
+        """VQ-quantize a latent (the identity for other first stages)."""
+        if isinstance(self.first_stage_model, VQModel):
+            return self.first_stage_model.quantize(z)[0]
+        return z
 
     # ------------------------------------------------------------- conditioning
     def _mixed_image_features(self, img):
@@ -262,7 +299,7 @@ class LatentDiffusion(nn.Module):
         return (target - pred).square()
 
     def p_losses(self, x_start, cond_context, t, noise):
-        """(loss, metrics) of the eps objective. cond_context is None, [N,
+        """(loss, metrics) of the eps (or x0) objective. cond_context is None, [N,
         ...] or the [2N, ...] CFG pair (first half negative, second half
         positive): then the UNet runs once on the 2N batch and its output is
         guided with `unconditional_guidance_scale`."""
@@ -275,7 +312,8 @@ class LatentDiffusion(nn.Module):
             model_output = e_uncond + self.unconditional_guidance_scale * (e_cond - e_uncond)
         else:
             model_output = self.apply_model(x_noisy, t, cond_context)
-        loss_simple = self._pixel_loss(model_output, noise).mean(
+        target = noise if self.parameterization == "eps" else x_start
+        loss_simple = self._pixel_loss(model_output, target).mean(
             dim=tuple(range(1, x_start.dim())))
         logvar_t = self.logvar[t]
         loss = self.l_simple_weight * (loss_simple / torch.exp(logvar_t) + logvar_t).mean()
@@ -289,13 +327,14 @@ class LatentDiffusion(nn.Module):
         return (self.conditioning_key is not None and self.cond_stage_key == "mixed"
                 and self.unconditional_guidance_scale != 1.0)
 
-    def encode_inputs(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def encode_inputs(self, batch: Dict[str, Any], generator=None) -> Dict[str, Any]:
         """The frozen first-stage work of a training batch, without
-        gradient: "z", the scaled latent of the target frames, and
-        "features", the encoder features of the conditioning images (the 2N
-        [img, img_random] pair under training-time CFG) or None."""
+        gradient: "z", the scaled latent of the target frames (a KL
+        posterior sampled from `generator`), and "features", the encoder
+        features of the conditioning images (the 2N [img, img_random] pair
+        under training-time CFG) or None."""
         x = batch.get("img", batch.get(self.first_stage_key))
-        z = self.get_first_stage_encoding(self.encode_first_stage(x))
+        z = self.get_first_stage_encoding(self.encode_first_stage(x, generator))
         features = None
         if self.conditioning_key is not None and self.cond_stage_key == "mixed":
             mixed = batch["mixed"]
@@ -313,7 +352,7 @@ class LatentDiffusion(nn.Module):
         given; with `train` (and the module in train() mode) the cond tower's
         dropout draws from it too. encoded: `encode_inputs(batch)`, if the
         caller already ran it."""
-        enc = self.encode_inputs(batch) if encoded is None else encoded
+        enc = self.encode_inputs(batch, generator) if encoded is None else encoded
         z = enc["z"]
         if t is None:
             t = torch.randint(0, self.timesteps, (z.shape[0],), generator=generator,
@@ -342,3 +381,14 @@ class LatentDiffusion(nn.Module):
                 tc = torch.cat([tc, tc])
             cond_context = self.q_sample(cond_context, tc, c_noise)
         return self.p_losses(z, cond_context, t, noise)
+
+
+class DDPM(LatentDiffusion):
+    """Pixel-space DDPM: identity first stage, no conditioning, no
+    training-time guidance (the JAX package's API-parity subclass)."""
+
+    def __init__(self, unet_config, first_stage_config=None,
+                 cond_stage_config="__is_unconditional__",
+                 unconditional_guidance_scale: float = 1.0, **kwargs):
+        super().__init__(unet_config, first_stage_config, cond_stage_config,
+                         unconditional_guidance_scale=unconditional_guidance_scale, **kwargs)

@@ -280,13 +280,16 @@ class SpatialTransformer(nn.Module):
 
 class AttentionBlock(nn.Module):
     """QKV self-attention over flattened spatial positions (legacy head
-    split: heads before the q/k/v split)."""
+    split: heads before the q/k/v split). `tokens` is the H*W this site runs
+    at, `head_dim` its heads' width."""
 
-    def __init__(self, channels, num_heads=1, dtype=torch.float32):
+    def __init__(self, channels, num_heads=1, tokens=None, dtype=torch.float32):
         super().__init__()
         if channels % num_heads:
             raise ValueError(f"{channels} channels do not split into {num_heads} heads")
         self.num_heads = num_heads
+        self.tokens = tokens
+        self.head_dim = channels // num_heads
         self.norm = GroupNorm32(channels)
         self.qkv = Dense(channels, 3 * channels, dtype=dtype)
         self.proj_out = Dense(channels, channels, dtype=dtype)

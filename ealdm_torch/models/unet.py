@@ -100,7 +100,8 @@ class UNetModel(nn.Module):
                     ch, heads, dim_head, transformer_depth, context_dim,
                     tokens=(image_size // ds) ** 2, dtype=dtype))
             else:
-                add("attn", name, AttentionBlock(ch, heads, dtype=dtype))
+                add("attn", name, AttentionBlock(ch, heads, tokens=(image_size // ds) ** 2,
+                                                 dtype=dtype))
 
         skips = []
 

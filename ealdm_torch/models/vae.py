@@ -1,8 +1,9 @@
-"""VQ-f8 first stage (counterpart of `ealdm_tpu/models/vae.py`).
+"""First stages (counterpart of `ealdm_tpu/models/vae.py`): the VQ models,
+the KL autoencoder and the pixel-space identity.
 
-Encoder, Decoder and VQModel take and return NHWC tensors as in the JAX
-package; their internals run NCHW. `AutoencoderKL` and the linear-attention
-block are not ported yet.
+Encoder, Decoder, VQModel and AutoencoderKL take and return NHWC tensors as
+in the JAX package; their internals run NCHW. The linear-attention block is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norms import silu
+from ..utils.device import resolve_device
+from .distributions import DiagonalGaussian
 from .layers import Conv2D, GroupNorm32, _attend, conv1x1, conv3x3, upsample_nearest
 from .quantize import VectorQuantizer
 
@@ -90,7 +93,8 @@ class VaeUpsample(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, ch: int, z_channels: int, ch_mult: Sequence[int] = (1, 2, 4, 8),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
-                 resolution: int = 256, in_channels: int = 3, dtype=torch.float32):
+                 resolution: int = 256, in_channels: int = 3, double_z: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.num_levels = len(ch_mult)
@@ -114,10 +118,10 @@ class Encoder(nn.Module):
         self.mid_attn_1 = VaeAttnBlock(block_in, curr_res ** 2, dtype)
         self.mid_block_2 = VaeResnetBlock(block_in, dtype=dtype)
         self.norm_out = GroupNorm32(block_in, eps=1e-6)
-        self.conv_out = conv3x3(block_in, z_channels, dtype)
+        self.conv_out = conv3x3(block_in, 2 * z_channels if double_z else z_channels, dtype)
 
     def forward(self, x):
-        """x: [N, H, W, C] -> features [N, H/f, W/f, z]."""
+        """x: [N, H, W, C] -> features [N, H/f, W/f, z] (2z with double_z)."""
         h = self.conv_in(_nchw(x.to(self.dtype)))
         for i_level in range(self.num_levels):
             for i_block in range(self.num_res_blocks):
@@ -179,18 +183,21 @@ class Decoder(nn.Module):
 
 
 # ddconfig options that no ported configuration changes, as (the JAX
-# package's default, the one value the port accepts).
-_DD_FIXED = {"double_z": (True, False), "dropout": (0.0, 0.0),
+# package's default, the one value the port accepts). `double_z` is the
+# model's own: False for VQ, True for KL (the JAX AutoencoderKL asserts it).
+_DD_FIXED = {"dropout": (0.0, 0.0),
              "resamp_with_conv": (True, True), "give_pre_end": (False, False),
              "tanh_out": (False, False), "attn_type": ("vanilla", "vanilla"),
              "use_linear_attn": (False, False)}
 
 
-def _ddkwargs(ddconfig: dict, decoder: bool = False) -> dict:
-    for key, (default, ported) in _DD_FIXED.items():
+def _ddkwargs(ddconfig: dict, decoder: bool = False, double_z: bool = False,
+              model: str = "VQModel") -> dict:
+    fixed = {**_DD_FIXED, "double_z": (True, double_z)}
+    for key, (default, ported) in fixed.items():
         value = ddconfig.get(key, default)
         if value != ported:
-            raise NotImplementedError(f"VQModel ddconfig {key}={value!r} is not ported yet")
+            raise NotImplementedError(f"{model} ddconfig {key}={value!r} is not ported yet")
     keys = ["ch", "ch_mult", "num_res_blocks", "attn_resolutions", "resolution",
             "z_channels"]
     out = {k: ddconfig[k] for k in keys if k in ddconfig}
@@ -198,6 +205,7 @@ def _ddkwargs(ddconfig: dict, decoder: bool = False) -> dict:
         out["out_ch"] = ddconfig["out_ch"]
     else:
         out["in_channels"] = ddconfig.get("in_channels", 3)
+        out["double_z"] = double_z
     return out
 
 
@@ -223,3 +231,43 @@ class VQModel(nn.Module):
     def decode_interface(self, h):
         """`VQModelInterface.decode`: quantize the latent, then decode."""
         return self.decode(self.quantize(h)[0])
+
+
+class AutoencoderKL(nn.Module):
+    """KL-regularised VAE: Encoder (double_z) -> quant_conv (2 * embed_dim
+    moments) -> DiagonalGaussian; post_quant_conv -> Decoder. Built on
+    `device` (default "cuda", which raises without a card)."""
+
+    def __init__(self, ddconfig: dict, embed_dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        enc_kw = _ddkwargs(ddconfig, double_z=True, model="AutoencoderKL")
+        dec_kw = _ddkwargs(ddconfig, decoder=True, double_z=True, model="AutoencoderKL")
+        with torch.device(resolve_device(device)):
+            self.encoder = Encoder(**enc_kw, dtype=dtype)
+            self.decoder = Decoder(**dec_kw, dtype=dtype)
+            self.quant_conv = conv1x1(2 * ddconfig["z_channels"], 2 * embed_dim, dtype)
+            self.post_quant_conv = conv1x1(embed_dim, ddconfig["z_channels"], dtype)
+
+    def encode(self, x) -> DiagonalGaussian:
+        """x [N, H, W, 3] -> the posterior over [N, h, w, embed_dim]."""
+        return DiagonalGaussian.from_moments(_nhwc(self.quant_conv(_nchw(self.encoder(x)))))
+
+    def decode(self, z):
+        return self.decoder(_nhwc(self.post_quant_conv(_nchw(z))))
+
+    def forward(self, x, generator=None, sample_posterior: bool = True, noise=None):
+        """(reconstruction, posterior); z is a posterior sample (from
+        `generator`, or `noise` when given) or its mode."""
+        posterior = self.encode(x)
+        z = posterior.sample(generator, noise) if sample_posterior else posterior.mode()
+        return self.decode(z), posterior
+
+
+class IdentityFirstStage(nn.Module):
+    """Pixel-space passthrough (also STDiff's IdentityAutoEncoder)."""
+
+    def encode(self, x):
+        return x
+
+    def decode(self, x):
+        return x

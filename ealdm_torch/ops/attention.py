@@ -3,9 +3,12 @@
 `flash_attention` ([B, H, N, D]) and `flash_attention_packed` ([B, N, H*D])
 launch the hand-written kernel (`kernels/csrc/flash_attention.cu`) on CUDA
 tensors and run `flash_attention_plain`, the same math in torch, on CPU
-tensors. bfloat16 runs on the tensor cores and rounds P to bfloat16 before
-P*V (as the TPU's MXU does); it needs 16-byte aligned tensors with strides
-in multiples of 8 elements and raises otherwise. float32 runs on FMA.
+tensors. The kernels take any head dim that is a multiple of 8 from 8 to
+640 (`FLASH_HEAD_DIMS`; the JAX kernel takes any) and raise for others.
+bfloat16 runs on the tensor cores and rounds P to bfloat16 before P*V (as
+the TPU's MXU does); it needs 16-byte aligned tensors with strides in
+multiples of 8 elements and raises otherwise. float32 runs on FMA. Each
+launch counts under `flash_counter(d)` (per head dim and entry point).
 On the card both run inside autograd Functions whose backward is the vjp of
 the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
 do. `bf16_attention_shares` states the limits a bfloat16 kernel is held to
@@ -23,7 +26,8 @@ from .. import kernels
 from ..kernels import build
 
 __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
-           "flash_attention_plain", "flash_attention_vjp", "bf16_attention_shares",
+           "flash_attention_plain", "flash_counter", "FLASH_HEAD_DIMS",
+           "flash_attention_vjp", "bf16_attention_shares",
            "tiny_ctx_attention_packed", "set_attention_impl", "attention_impl"]
 
 # "dense" (default), "flash" (the kernel at eligible self-attention sites) or
@@ -31,7 +35,15 @@ __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
 # the block-diagonal tiny-context cross-attention), as in the JAX package.
 _ATTN_IMPL = "dense"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 512)
+# head dims the kernels take: multiples of 8 (16-byte rows in bfloat16) up
+# to 640 (a wide block's Q and K/V tiles in shared memory)
+FLASH_HEAD_DIMS = range(8, 641, 8)
+
+
+def flash_counter(d: int, packed: bool = False) -> str:
+    """The launch counter of the flash kernel at head dim `d`, for the
+    [B, H, N, D] entry point or the packed one."""
+    return f"flash_attention{'_packed' if packed else ''}_d{d}"
 
 
 def set_attention_impl(mode: str):
@@ -191,7 +203,7 @@ def flash_attention_kernel(q, k, v, scale=None):
     d = q.shape[3]
     _launch(q, k, v, o, q.shape[0], q.shape[1], q.shape[2], k.shape[2], d,
             [t.stride()[:3] for t in (q, k, v, o)], scale)
-    kernels.count_launch(f"flash_attention_d{d}", q.shape[2])
+    kernels.count_launch(flash_counter(d), q.shape[2])
     return o
 
 
@@ -208,7 +220,7 @@ def flash_attention_packed_kernel(q, k, v, heads, scale=None):
     # (batch, head, row) strides of the packed view: heads are d-column strips
     strides = [(t.stride(0), d * t.stride(2), t.stride(1)) for t in (q, k, v, o)]
     _launch(q, k, v, o, b, heads, nq, k.shape[1], d, strides, scale)
-    kernels.count_launch("flash_attention_packed", nq)
+    kernels.count_launch(flash_counter(d, packed=True), nq)
     return o
 
 
@@ -218,8 +230,9 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32/bfloat16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel has no head dim {d} (has {_KERNEL_HEAD_DIMS})")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash kernels take head dims that are multiples of 8 "
+                         f"from 8 to 640, not {d}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k, v must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):

@@ -1,5 +1,6 @@
-"""Samplers (DDIM)."""
+"""Samplers (DDIM, ancestral, PLMS)."""
 
-from .ddim import DDIMConfig, ddim_sample, ddim_step
+from .ddim import DDIMConfig, ancestral_sample, ddim_sample, ddim_step
+from .plms import plms_sample
 
-__all__ = ["DDIMConfig", "ddim_sample", "ddim_step"]
+__all__ = ["DDIMConfig", "ancestral_sample", "ddim_sample", "ddim_step", "plms_sample"]

@@ -18,6 +18,11 @@ flax module names, so a flax path `a/b/c/<leaf>` becomes the port name
          stacked in torch's i, f, g, o order. flax has one bias per gate, on
          the h projection; torch adds bias_ih and bias_hh, so bias_ih_l0 is 0.
 
+The rules are by leaf, not by model, so one bridge carries every model the
+port builds: the STDiff LDM, the AttentionBlock UNets (`qkv` and `proj_out`
+are Dense), VQ-f4/f8, and `AutoencoderKL`, whose `quant_conv` maps
+2 * z_channels to 2 * embed_dim and `post_quant_conv` embed_dim back.
+
 `load_flax_params` raises on any port parameter left unfilled, any flax
 leaf left unused, and any shape that disagrees; so does `load_flax_ema`,
 which fills an `EmaState` from the shadow tree of a JAX `EmaState` (the

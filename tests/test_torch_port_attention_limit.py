@@ -1,7 +1,7 @@
 """The bfloat16 flash-attention limits, checked where there is no card.
 
 The bfloat16 kernels (`ealdm_torch/kernels/csrc/flash_attention.cu`) run the
-online softmax over key tiles (64 keys at d=32, 32 at d=512) in float32, in
+online softmax over key tiles (64 keys up to d=128, 32 above) in float32, in
 base 2 (p = 2^(s*c - m*c), c = scale * log2(e)), round P to bfloat16 before
 P*V and accumulate in float32; the row sums use the unrounded P. `emulate`
 repeats that arithmetic in torch. The card checks hold the kernels to the
@@ -13,7 +13,11 @@ error against that of P's rounding (see its docstring for the derivation).
 Here the emulation is held to both limits, shown to agree with the JAX
 Pallas kernel (interpret mode) when the rounding is off, and shown to break
 them when the online softmax is wrong or P is rounded more coarsely, so that
-the limits would catch a kernel with those faults.
+the limits would catch a kernel with those faults. At the head dims the
+repo's other configurations reach (24, 40, 48, 80: not multiples of the
+mma k-step, or off the two that the first kernels took), the plain versions
+the card holds the kernels to are checked against the JAX kernels in
+interpret mode, split and packed.
 """
 import math
 
@@ -22,11 +26,22 @@ import numpy as np
 import pytest
 import torch
 
+from ealdm_tpu.ops import attention as j_attention
 from ealdm_tpu.ops.attention import _flash_packed_forward
-from ealdm_torch.ops.attention import bf16_attention_shares, flash_attention_plain
+from ealdm_torch.ops.attention import (
+    _split_heads, bf16_attention_shares, flash_attention_packed, flash_attention_plain)
 
 LOG2E = 1.4426950408889634
-BLOCK_K = {32: 64, 512: 32}  # keys a tile in the bfloat16 kernels
+
+
+class _BlockK(dict):
+    """Keys a tile in the bfloat16 kernels: 64 up to d=128, 32 above."""
+
+    def __missing__(self, d):
+        return 64 if d <= 128 else 32
+
+
+BLOCK_K = _BlockK()
 
 
 def round_significand(x, bits):
@@ -79,7 +94,12 @@ def _bf16(rng, *shape):
 # (B, H, Nq, Nk): equal counts on whole tiles, and ragged counts whose last
 # key tile is partly filled
 SHAPES = {32: [(2, 2, 128, 128), (2, 3, 100, 104), (1, 2, 65, 1)],
-          512: [(1, 1, 64, 64), (2, 1, 70, 45), (1, 1, 1, 33)]}
+          512: [(1, 1, 64, 64), (2, 1, 70, 45), (1, 1, 1, 33)],
+          24: [(2, 2, 128, 128), (1, 2, 65, 70)],
+          40: [(2, 2, 128, 128), (1, 2, 65, 70)],
+          48: [(2, 2, 128, 128), (1, 2, 65, 70)],
+          80: [(2, 2, 128, 128), (1, 2, 65, 70)],
+          576: [(1, 1, 64, 64), (1, 1, 33, 45)]}
 
 
 @pytest.mark.parametrize("d,shape", [(d, s) for d in SHAPES for s in SHAPES[d]])
@@ -158,3 +178,43 @@ def test_p_rounding_needs_the_2_to_minus_8_term():
     got = emulate(q, k, v, BLOCK_K[d], scale=1.0).to(torch.bfloat16)
     assert 0.9 < bf16_attention_shares(got, q, k, v, want, scale=1.0)[0] <= 1
     assert bf16_attention_shares(got, q, k, v, want, scale=1.0, p_rounding=2**-9)[0] > 1.5
+
+
+NEW_DIMS = (24, 40, 48, 80)
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    orig = j_attention.pl.pallas_call
+    monkeypatch.setattr(j_attention.pl, "pallas_call",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+
+
+@pytest.mark.parametrize("d", NEW_DIMS)
+def test_plain_matches_pallas_at_new_head_dims(interpret_pallas, d):
+    """flash_attention_plain, the card's reference at these head dims,
+    against JAX's `flash_attention` (the Pallas kernel in interpret mode) on
+    [B, H, N, D] float32, N = 256 (the smallest flash-eligible count):
+    1e-5, float32 sums in another order."""
+    b, h, n = 2, 3, 256
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(3))
+    want = j_attention.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = flash_attention_plain(*(torch.from_numpy(t) for t in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", NEW_DIMS)
+def test_packed_plain_matches_pallas_at_new_head_dims(d):
+    """The packed entry point's CPU form against JAX's packed kernel in
+    interpret mode, [B, N, H*D] float32: 1e-5."""
+    b, n, heads = 2, 256, 2
+    rng = np.random.default_rng(100 + d)
+    q, k, v = (rng.standard_normal((b, n, heads * d)).astype(np.float32) for _ in range(3))
+    want = _flash_packed_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads,
+                                 interpret=True)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = flash_attention_packed(tq, tk, tv, heads)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    split = flash_attention_plain(*(_split_heads(t, heads) for t in (tq, tk, tv)))
+    torch.testing.assert_close(got, split.transpose(1, 2).reshape(b, n, heads * d))

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from ealdm_torch import config as t_config
 from ealdm_torch.config import FLAGSHIP, TINY, model_kwargs
 from ealdm_torch.models.ddpm import LatentDiffusion as TorchLDM
 from ealdm_torch.utils import flax_import
@@ -124,6 +125,15 @@ def test_entry_points_default_to_cuda():
         sample_images(tm, 1, (8, 8, 4), steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         flax_import.load_flax_params(tm, {})
+    from ealdm_torch.models.ddpm import DDPM as TorchDDPM
+    from ealdm_torch.models.vae import AutoencoderKL as TorchKL
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchDDPM(kw["unet_config"])
+    kl = t_config.vae_kwargs(t_config.KL_F4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchKL(**kl)
+    assert next(TorchKL(**kl, device="meta").parameters()).device.type == "meta"
 
 
 @pytest.mark.parametrize("where,key,value", [
@@ -132,7 +142,7 @@ def test_entry_points_default_to_cuda():
     ("unet_config", "legacy", False),
     ("ddconfig", "double_z", True),
     ("ddconfig", "attn_type", "linear"),
-    ("model", "parameterization", "x0"),
+    ("model", "parameterization", "v"),
 ])
 def test_unported_options_raise(where, key, value):
     """An option no ported configuration sets is refused, not half-run."""
@@ -176,3 +186,64 @@ def test_configs_mirror_the_yaml_and_bench():
                 "linear_start", "linear_end", "conditioning_key", "cond_stage_key",
                 "unconditional_guidance_scale"):
         assert getattr(jm, key) == tiny[key], key
+
+
+@pytest.mark.parametrize("name", ["INPAINT", "UNCOND", "PIXEL", "KL_F4"])
+def test_unconditional_trees_map_one_to_one(name):
+    """The full-width flax trees (shapes only) of the unconditional
+    configurations map onto the port built on the meta device: the
+    AttentionBlock UNets, VQ-f4, the identity first stage, and
+    AutoencoderKL's 2 * embed_dim quant_conv and post_quant_conv."""
+    from ealdm_torch.models.ddpm import DDPM as TorchDDPM
+    from ealdm_torch.models.vae import AutoencoderKL as TorchKL
+    from ealdm_tpu.models.vae import AutoencoderKL as JaxKL
+
+    cfg = getattr(t_config, name)
+    x = jnp.zeros((1, cfg["res"], cfg["res"], 3))
+    if name == "KL_F4":
+        kw = t_config.vae_kwargs(cfg)
+        jm = JaxKL(**kw, dtype=jnp.bfloat16)
+        shapes = jax.eval_shape(lambda r: jm.init({"params": r}, x, r), jax.random.PRNGKey(0))
+        tm = TorchKL(**kw, dtype=torch.bfloat16, device="meta")
+    else:
+        kw = model_kwargs(cfg)
+        jm = JaxLDM(**kw, dtype=jnp.bfloat16)
+        shapes = jax.eval_shape(
+            lambda r: jm.init({"params": r, "dropout": r}, {"img": x}, r, method=jm.full_init),
+            jax.random.PRNGKey(0))
+        tm = (TorchDDPM if name == "PIXEL" else TorchLDM)(**kw, dtype=torch.bfloat16,
+                                                          device="meta")
+    tree = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.float32(0), s.shape), shapes)
+    sd = flax_import.flax_to_state_dict(tree)
+    flax_import.check_state_dict(tm, sd)
+    assert len(sd) == len(jax.tree_util.tree_leaves(tree)) == len(dict(tm.named_parameters()))
+
+
+@pytest.mark.parametrize("name,path", [
+    ("UNCOND", "latent-diffusion/uncond_cin-ldm-vq-f8.yaml"),
+    ("PIXEL", "latent-diffusion/uncond_stdiff_cin-ldm-vq-f8.yaml"),
+    ("KL_F4", "autoencoder/autoencoder_kl_64x64x3.yaml"),
+])
+def test_unconditional_configs_mirror_the_yaml(name, path):
+    """UNCOND, PIXEL and KL_F4 have the widths and diffusion settings of
+    their YAML's model.params, uncut."""
+    import yaml
+
+    params = yaml.safe_load((REPO / "configs" / path).read_text())["model"]["params"]
+    cfg = getattr(t_config, name)
+    if name == "KL_F4":
+        kw = t_config.vae_kwargs(cfg)
+        assert kw == {"embed_dim": params["embed_dim"], "ddconfig": params["ddconfig"]}
+        return
+    kw = model_kwargs(cfg)
+    assert kw["unet_config"] == params["unet_config"]["params"]
+    assert kw["cond_stage_config"] == params["cond_stage_config"]
+    fs = params["first_stage_config"]
+    assert kw["first_stage_config"]["target"] == fs["target"]
+    assert kw["first_stage_config"].get("params", {}) == {
+        k: v for k, v in fs.get("params", {}).items() if k != "lossconfig"}
+    for key in ("timesteps", "linear_start", "linear_end", "num_timesteps_cond",
+                "first_stage_key"):
+        assert kw[key] == params[key], key
+    assert cfg["res"] == (kw["unet_config"]["image_size"] if name == "PIXEL"
+                          else fs["params"]["ddconfig"]["resolution"])

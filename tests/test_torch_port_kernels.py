@@ -14,6 +14,7 @@ from ealdm_torch.ops.attention import (
     _split_heads,
     bf16_attention_shares,
     flash_attention,
+    flash_counter,
     flash_attention_packed,
     flash_attention_plain,
     sdpa,
@@ -72,11 +73,11 @@ def test_flash_attention(dev, dtype, shape_q, shape_kv):
     q = _randn(*shape_q, dtype=dtype, dev=dev, seed=1)
     k = _randn(*shape_kv, dtype=dtype, dev=dev, seed=2)
     v = _randn(*shape_kv, dtype=dtype, dev=dev, seed=3)
-    before = dict(kernels.launches)
+    name = flash_counter(shape_q[-1])
+    before = kernels.launches[name]
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    d = shape_q[-1]
-    assert kernels.launches[f"flash_attention_d{d}"] == before[f"flash_attention_d{d}"] + 1
+    assert kernels.launches[name] == before + 1
     assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
 
 
@@ -87,9 +88,9 @@ def test_flash_attention_packed(dev, dtype, n, heads):
     q, k, v = (_randn(b, n, heads * d, dtype=dtype, dev=dev, seed=s) for s in (1, 2, 3))
     want = flash_attention_plain(*(_split_heads(t, heads) for t in (q, k, v)))
     want = want.transpose(1, 2).reshape(q.shape)
-    before = kernels.launches["flash_attention_packed"]
+    before = kernels.launches[flash_counter(d, packed=True)]
     got = flash_attention_packed(q, k, v, heads)
-    assert kernels.launches["flash_attention_packed"] == before + 1
+    assert kernels.launches[flash_counter(d, packed=True)] == before + 1
     assert _attention_ok(got, q, k, v, want, heads)
 
 
@@ -103,7 +104,7 @@ def test_flash_attention_bf16_tile_edges(dev, d, nq, nk):
     q = _randn(2, 2, nq, d, dtype=bf, dev=dev, seed=1)
     k = _randn(2, 2, nk, d, dtype=bf, dev=dev, seed=2)
     v = _randn(2, 2, nk, d, dtype=bf, dev=dev, seed=3)
-    name = f"flash_attention_d{d}"
+    name = flash_counter(d)
     before = kernels.launches[name]
     before_rows = kernels.launch_details.get((name, nq), 0)
     got = flash_attention(q, k, v)
@@ -142,16 +143,46 @@ def test_flash_attention_bf16_rejects_misalignment(dev, d):
         flash_attention(wide, k, k)
 
 
-def test_flash_attention_rejects_unsupported_head_dim(dev):
-    q = _randn(1, 1, 16, 64, dtype=torch.float32, dev=dev)
-    with pytest.raises(ValueError):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 24, 40, 48, 80, 128, 136, 384, 576, 640])
+def test_flash_attention_head_dims(dev, dtype, d):
+    """The head dims the repo's other configurations reach: 24 and 40 are
+    not multiples of the mma k-step (zero-padded to 32 and 48), 384 and 576
+    take the wide kernel (576 at 32 rows a block); and the ends of each
+    kernel's range (8, 128; 136 padded to 192; 640). Ragged query and key
+    counts, the split entry point with its per-head-dim counter, and the
+    packed one."""
+    heads = 2
+    q = _randn(2, heads, 130, d, dtype=dtype, dev=dev, seed=1)
+    k = _randn(2, heads, 97, d, dtype=dtype, dev=dev, seed=2)
+    v = _randn(2, heads, 97, d, dtype=dtype, dev=dev, seed=3)
+    before = kernels.launches[flash_counter(d)]
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches[flash_counter(d)] == before + 1
+    assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
+    pq, pk, pv = (t.transpose(1, 2).reshape(2, t.shape[2], heads * d).contiguous()
+                  for t in (q, k, v))
+    got = flash_attention_packed(pq, pk, pv, heads)
+    want = flash_attention_plain(q, k, v).transpose(1, 2).reshape(got.shape)
+    assert _attention_ok(got, pq, pk, pv, want, heads)
+
+
+@pytest.mark.parametrize("d", [4, 20, 648])
+def test_flash_attention_rejects_head_dim_out_of_range(dev, d):
+    """A head dim that is not a multiple of 8, or above 640, raises with the
+    range named (no configuration of the repo reaches one)."""
+    q = _randn(1, 1, 16, d, dtype=torch.float32, dev=dev)
+    with pytest.raises(ValueError, match="multiples of 8 from 8 to 640"):
         flash_attention(q, q, q)
 
 
 # id: ([N, C, H, W], rows of the pre-bias, offset of x). 32 groups. The
 # channels_last cases cover C/G = 4 (a bfloat16 vector spans two groups), 8,
-# 48 and 64, the largest UNet sample (1.5 MiB in bfloat16, the one-read
-# limit) and one row past it, a single sample, a broadcast pre-bias, and
+# 48 and 64, the pixel UNet's 7 and 14 (groups that do not align with a
+# vector), 21 and 49 (C/V without a multiple of 32 within 512 threads: the
+# block has idle threads, one read and two), the largest UNet sample (1.5
+# MiB in bfloat16, the one-read limit) and one row past it, a single sample, a broadcast pre-bias, and
 # data far from 0 (1000 + N(0, 1): an unshifted E[v^2] - mean^2 loses the
 # variance).
 _GN_CASES = {
@@ -161,6 +192,11 @@ _GN_CASES = {
     "cg8": ((2, 256, 8, 8), "n", 0.0),
     "cg48": ((2, 1536, 8, 8), "n", 0.0),
     "cg64": ((2, 2048, 4, 4), "n", 0.0),
+    "cg7": ((2, 224, 16, 16), "n", 0.0),
+    "cg14": ((2, 448, 8, 8), "n", 0.0),
+    "cg21_work_threads": ((2, 672, 8, 8), "n", 0.0),
+    "cg49_work_threads": ((2, 1568, 4, 4), "n", 0.0),
+    "cg21_two_read": ((1, 672, 40, 40), "n", 0.0),
     "unet_largest": ((2, 768, 32, 32), "n", 0.0),
     "past_one_read": ((2, 768, 25, 41), "n", 0.0),
     "n1": ((1, 128, 16, 16), "1", 0.0),
