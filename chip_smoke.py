@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernels    # phases 1-2b only: a new kernel's first call
     python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
     python3 chip_smoke.py --train      # the build and phase 6 (training) only
-    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-10 only
+    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-12 only
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc, and
@@ -19,9 +19,10 @@ Phases, each of which raises (non-zero exit) on failure:
      GroupNorm in both layouts it takes, timed at the main path's
      (channels_last) on inputs that do not fit the L2;
   2c. flash attention at the head dims of the repo's other configurations
-     (24, 40, 48, 80 at 1024 and 256 tokens; 384 and 576 at 1024), split
-     and packed, both dtypes, timed like phase 2; the gradients through
-     FlashAttention at d = 48;
+     (24, 40, 48, 80 at 1024 and 256 tokens; 384 and 576 at 1024; and the
+     conditional paths' wide sites [12,1,256,576], [12,1,1024,384],
+     [8,1,1024,512]), split and packed, both dtypes, timed like phase 2; the
+     gradients through FlashAttention at d = 48;
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -61,13 +62,24 @@ Phases, each of which raises (non-zero exit) on failure:
      steps, launches checked (GroupNorm C/G = 7 to 56);
   10. the KL-f4 autoencoder (`config.KL_F4`) round trip at batch 16, 256^2:
      bfloat16 timed, launches checked, the PSNR of bfloat16 against float32.
-  Each of phases 7-10 also holds every kernel launch of one bfloat16 pass
-  (7: encode, one UNet call, decode; 8: one UNet call and a decode; 9: one
-  UNet call; 10: one round trip) against its plain version on the same
-  inputs, at the shapes and strides the path gives it (`hold_sites`).
-  Phases 7-10 run after phase 5 and before phase 6.
+  11. txt2img (`config.TXT2IMG`, `txt2img-1p4B-eval`, scripts/txt2img.py's
+     run) at full width: batch 8 of one prompt against the empty prompt
+     through the port's tokenizer and the 32-layer BERT, DDIM-50 at eta 0
+     with CFG 5, hoisted, the KL-f8 decode; launches against the module
+     tree (flash d=40 / d=80 / d=512, GroupNorm by path), three timed runs,
+     the two BERT passes timed, a profile, the C = 2,560 GroupNorm sites
+     among the held ones, float32 card vs CPU over 2 steps at batch 1;
+  12. class-conditional ImageNet (`config.CIN256`, cin256-v2, the sampling
+     notebook's settings): classes 25, 187, 448, 992, 6 samples each,
+     DDIM-20 at eta 0, scale 3 against the null class 1000, VQ-f4 decode;
+     the same checks and numbers.
+  Each of phases 7-12 also holds every kernel launch of one bfloat16 pass
+  (7: encode, one UNet call, decode; 8, 11, 12: one UNet call and a
+  decode; 9: one UNet call; 10: one round trip) against its plain version
+  on the same inputs, at the shapes and strides the path gives it
+  (`hold_sites`). Phases 7-12 run after phase 5 and before phase 6.
 
-The last lines of output are a `[paths]` JSON line with phases 7-10's
+The last lines of output are a `[paths]` JSON line with phases 7-12's
 numbers, a `[train]` JSON line with phase 6's numbers,
 the card's name and power limit, a JSON line with every kernel's numbers
 (not with --train), and {"ok": true, "device": {...}}.
@@ -103,6 +115,9 @@ MMA_KERNELS = ("flash_mma_narrow_kernel", "flash_mma_wide_kernel")
 # cin256-v2's wide heads
 NARROW_HEAD_DIMS = (24, 40, 48, 80)
 WIDE_HEAD_DIMS = (384, 576)
+# [B, H, N, D] of the conditional paths' wide flash sites: cin256-v2's CFG
+# batch of 12 at ds 4 and ds 2, and txt2img's KL-f8 mid attention at batch 8
+PATH_WIDE_SHAPES = ((12, 1, 256, 576), (12, 1, 1024, 384), (8, 1, 1024, 512))
 # the channels_last GroupNorm kernels (group_norm.cu): the two that stage
 # rows in shared memory by asynchronous copies, and the streaming one; and
 # the NCHW kernels kept from PR 1
@@ -622,6 +637,7 @@ def phase_head_dims():
 
     cases = [(16, 8, n, d) for d in NARROW_HEAD_DIMS for n in (1024, 256)]
     cases += [(16, 1, 1024, d) for d in WIDE_HEAD_DIMS]
+    cases += list(PATH_WIDE_SHAPES)
     for shape in cases:
         name = flash_counter(shape[3])
         for dtype in (f32, bf):
@@ -638,7 +654,10 @@ def phase_head_dims():
     res = {}
     for shape in cases:
         b, h, n, d = shape
-        row = f"flash_attention_d{d}_n{n}" if d in NARROW_HEAD_DIMS else flash_counter(d)
+        if shape in PATH_WIDE_SHAPES:
+            row = f"flash_attention_d{d}_b{b}_n{n}"
+        else:
+            row = f"flash_attention_d{d}_n{n}" if d in NARROW_HEAD_DIMS else flash_counter(d)
         qkv = [randn(*shape, dtype=bf) for _ in range(3)]
         attention_row(res, errs, row, flash_counter(d), shape, "contiguous [B,H,N,D]",
                       flash_attention, flash_attention_plain, F.scaled_dot_product_attention,
@@ -1198,8 +1217,10 @@ def check_image(label, img, shape):
 def profile_groups(fn, label, unprofiled_s, top=20):
     """One run of fn under torch.profiler: device busy, the idle share
     against `unprofiled_s` (a run without the profiler, which slows the
-    host), device time by group and the `top` kernels. Each kernel counts in
-    the first group whose name it contains."""
+    host), device time by group, by flash kernel instance and of the `top`
+    kernels. Each kernel counts in the first group whose name it contains."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1231,8 +1252,16 @@ def profile_groups(fn, label, unprofiled_s, top=20):
         log(f"[{label}] {tag:16s} {t:.4f} s = {t / busy:.3f} of device time")
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"[{label}] {t * 1e3:9.2f} ms {t / busy:6.3f} x{n:<6d} {key[:110]}")
+    # each flash kernel instance (the template's padded head dim) on its own
+    flash = {}
+    for key, t, n in rows:
+        m = re.search(r"(flash_\w+(?:<[^>]*>)?)\(", key)
+        if m:
+            flash[m.group(1)] = flash.get(m.group(1), 0.0) + t
+    log(f"[{label}] flash by instance: " + ", ".join(
+        f"{k} {t * 1e3:.2f} ms = {t / busy:.4f}" for k, t in sorted(flash.items())))
     return dict(device_busy_s=busy, idle_share=1 - busy / unprofiled_s, profiled_wall_s=wall_s,
-                device_s_by_group=totals)
+                device_s_by_group=totals, device_s_by_flash_instance=flash)
 
 
 def inpaint_inputs(batch, res, seed):
@@ -1531,13 +1560,238 @@ def phase_kl(cfg_module):
                          held_worst_share=max(held.values()))
 
 
+# ------------------------------------------------------------------ phases 11-12
+TXT2IMG_PROMPT = "a painting of a lighthouse on a cliff at dusk, oil on canvas"
+CIN256_CLASSES = (25, 187, 448, 992)  # scripts/latent_imagenet_diffusion.ipynb
+CIN256_NULL = 1000
+
+
+def conditional_reference(label, cfg_module, cfg, bf16_model, cond_input, uncond_input,
+                          scale, seed):
+    """Batch 1, 2 DDIM steps at eta 0 with guidance, float32: the card (its
+    kernels) against the CPU (the plain versions), same weights, inputs and
+    x_T; the conditioning too. 1e-3 of the latent's scale each (TF32 off,
+    as phase 5)."""
+    import torch
+
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.models.ddpm import LatentDiffusion
+
+    kw = cfg_module.model_kwargs(cfg)
+    sd = {k: v.float() for k, v in bf16_model.state_dict().items()}
+    latent = (cfg["zres"], cfg["zres"], cfg["zch"])
+    x_T = torch.randn(1, *latent, generator=torch.Generator().manual_seed(seed))
+    ctx, z = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = LatentDiffusion(**kw, dtype=torch.float32, device=dev).eval()
+        m.load_state_dict(sd)
+        with torch.no_grad():
+            c = m.get_learned_conditioning(cond_input.to(dev))
+            uc = m.get_learned_conditioning(uncond_input.to(dev))
+        ctx[dev] = c.float().cpu()
+        z[dev] = sample_images(m, 1, latent, steps=2, eta=0.0, guidance_scale=scale, cond=c,
+                               uncond=uc, x_T=x_T.to(dev), decode=False,
+                               device=dev).float().cpu()
+        del m
+    ctx_rel, rel = rel_err_to_max(ctx["cuda"], ctx["cpu"]), rel_err_to_max(z["cuda"], z["cpu"])
+    log(f"[{label}] float32 card vs CPU: conditioning max diff / max {ctx_rel:.3g}, 2-step "
+        f"latent {rel:.3g} of max|z| {z['cpu'].abs().max().item():.3g} (tolerance 1e-3 each)")
+    if not (ctx_rel <= 1e-3 and rel <= 1e-3):
+        raise RuntimeError(f"{label}: the card's float32 result disagrees with the CPU")
+    return dict(conditioning_rel=ctx_rel, latent_rel=rel)
+
+
+def conditional_path(label, run, census, batch_images, hold_fn, widest_c=None):
+    """The shared half of phases 11 and 12: a warm-up, a run with its launches
+    checked against `census` and its peak, two more timed runs (img/s of the
+    median), one profiled run, every kernel launch of `hold_fn` held against
+    its plain version; with `widest_c`, the GroupNorm sites of that many
+    channels must be among the held ones. Returns (launch details, numbers)."""
+    import torch
+
+    from ealdm_torch import kernels
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls = timed_runs(run, 1)
+    details = check_launches(label, census)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walls += timed_runs(run, 2)
+    dt = sorted(walls)[1]
+    by_rows = {f"{name}@{n}": c for (name, n), c in sorted(details.items())
+               if name.startswith("flash")}
+    gn = {}
+    for (name, _), c in details.items():
+        if name.startswith("group_norm"):
+            gn[name] = gn.get(name, 0) + c
+    log(f"[{label}] {dt:.4f} s = {batch_images / dt:.4f} img/s, the median of "
+        f"{[round(w, 4) for w in walls]} s (warm-up {warm_s:.1f} s), peak {peak:.2f} GiB; "
+        f"flash launches by counter and rows {by_rows}; GroupNorm launches by path {gn}")
+    prof = profile_groups(run, f"{label}-profile", dt, top=12)
+    held = hold_sites(f"{label}-held", hold_fn)
+    out = dict(img_per_s=batch_images / dt, seconds=dt, walls_s=walls, warmup_s=warm_s,
+               peak_gib=peak, flash_launches_by_rows=by_rows, group_norm_launches=gn, **prof,
+               held_sites=len(held), held_worst_share=max(held.values()))
+    if widest_c is not None:
+        wide = {k: v for k, v in held.items() if k[2].startswith("C/G") and k[1][1] == widest_c}
+        if not wide:
+            raise RuntimeError(f"{label}: no GroupNorm site at C = {widest_c} was held")
+        log(f"[{label}] GroupNorm at C = {widest_c}: {len(wide)} sites "
+            f"{sorted(k[1] for k in wide)}, worst {max(wide.values()):.3g} of the limit")
+        out[f"group_norm_c{widest_c}_worst_share"] = max(wide.values())
+    return details, out
+
+
+def phase_txt2img(cfg_module):
+    """Phase 11: `txt2img-1p4B-eval` (TXT2IMG) as scripts/txt2img.py runs
+    it, at full width in bfloat16: batch 8 of one prompt against the empty
+    prompt through the port's tokenizer, both through the 32-layer BERT,
+    `sample_images(cond=, uncond=)` with DDIM-50 at eta 0 and CFG 5,
+    hoisted, and the KL-f8 decode to [8, 256, 256, 3]."""
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.models.ddpm import LatentDiffusion
+
+    cfg = cfg_module.TXT2IMG
+    batch, steps, scale = 8, 50, 5.0
+    latent = (cfg["zres"], cfg["zres"], cfg["zch"])
+    ealdm_torch.enable_inference_optimizations()
+    t0 = time.perf_counter()
+    model = LatentDiffusion(**cfg_module.model_kwargs(cfg), dtype=torch.bfloat16,
+                            device="cuda").eval()
+    random_init_(model, seed=80)
+    parts = {k: sum(p.numel() for p in getattr(model, k).parameters())
+             for k in ("cond_stage_model", "model", "first_stage_model")}
+    log(f"[txt2img] TXT2IMG {sum(parts.values()) / 1e6:.1f} M parameters (BERT "
+        f"{parts['cond_stage_model'] / 1e6:.1f} M, UNet {parts['model'] / 1e6:.1f} M, KL-f8 "
+        f"{parts['first_stage_model'] / 1e6:.1f} M), built in {time.perf_counter() - t0:.1f} s; "
+        f"batch {batch}, DDIM-{steps}, eta 0, CFG {scale}")
+    bert = model.cond_stage_model
+    tokens_c = bert.tokenize([TXT2IMG_PROMPT] * batch)
+    tokens_uc = bert.tokenize([""] * batch)
+    tokens = (tokens_c.cuda(), tokens_uc.cuda())
+    out = {}
+
+    def encode():
+        with torch.no_grad():
+            return tuple(model.get_learned_conditioning(t) for t in tokens)
+
+    def run():
+        c, uc = encode()
+        g = torch.Generator(device="cuda").manual_seed(81)
+        out["img"], out["z"] = sample_images(model, batch, latent, steps=steps, eta=0.0,
+                                             guidance_scale=scale, cond=c, uncond=uc,
+                                             generator=g)
+
+    fs, unet = model.first_stage_model, model.model.diffusion_model
+    census = path_census([(unet, 2 * batch, cfg["zres"], steps),
+                          (fs.decoder, batch, cfg["zres"], 1)])
+    c, uc = encode()
+    if c.dtype != torch.float32 or tuple(c.shape) != (batch, 77, 1280):
+        raise RuntimeError(f"txt2img: BERT context {c.dtype} {tuple(c.shape)}")
+    bert_ms = cuda_ms(encode, iters=5)
+    t_mid = torch.full((2 * batch,), 500, dtype=torch.int64, device="cuda")
+    z = torch.randn(2 * batch, *latent, generator=torch.Generator().manual_seed(82)).cuda()
+
+    def one_pass():  # one UNet call on the CFG batch, then the decode
+        model.apply_model(z, t_mid, torch.cat([uc, c]))
+        model.decode_first_stage(z[:batch])
+
+    details, numbers = conditional_path("txt2img", run, census, batch, one_pass, widest_c=2560)
+    check_image("txt2img", out["img"], (batch, cfg["res"], cfg["res"], 3))
+    log(f"[txt2img] the two BERT passes (prompt and empty prompt, batch {batch} each) "
+        f"{bert_ms:.3f} ms; output std {float(out['img'].float().std()):.4f}")
+    ref = conditional_reference("txt2img-reference", cfg_module, cfg, model, tokens_c[:1],
+                                tokens_uc[:1], scale, seed=83)
+    del model
+    torch.cuda.empty_cache()
+    return details, dict(batch=batch, steps=steps, guidance_scale=scale,
+                         params_m={k: v / 1e6 for k, v in parts.items()},
+                         bert_two_passes_ms=bert_ms, **numbers, reference=ref)
+
+
+def phase_cin256(cfg_module):
+    """Phase 12: the class-conditional ImageNet LDM (CIN256) as
+    scripts/latent_imagenet_diffusion.ipynb samples it, in bfloat16: classes
+    25, 187, 448 and 992, 6 samples each, DDIM-20 at eta 0 with scale 3
+    against the null class 1000, hoisted, and the VQ-f4 decode."""
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.models.ddpm import LatentDiffusion
+
+    cfg = cfg_module.CIN256
+    n, steps, scale = 6, 20, 3.0
+    latent = (cfg["zres"], cfg["zres"], cfg["zch"])
+    ealdm_torch.enable_inference_optimizations()
+    model = LatentDiffusion(**cfg_module.model_kwargs(cfg), dtype=torch.bfloat16,
+                            device="cuda").eval()
+    random_init_(model, seed=90)
+    parts = {k: sum(p.numel() for p in getattr(model, k).parameters())
+             for k in ("cond_stage_model", "model", "first_stage_model")}
+    log(f"[cin256] CIN256 {sum(parts.values()) / 1e6:.1f} M parameters (ClassEmbedder "
+        f"{parts['cond_stage_model'] / 1e6:.1f} M, UNet {parts['model'] / 1e6:.1f} M, VQ-f4 "
+        f"{parts['first_stage_model'] / 1e6:.1f} M); classes {list(CIN256_CLASSES)}, {n} "
+        f"samples each, DDIM-{steps}, eta 0, scale {scale}, null class {CIN256_NULL}")
+    null = torch.full((n,), CIN256_NULL, dtype=torch.int64, device="cuda")
+    out = {}
+
+    def run():
+        imgs = []
+        with torch.no_grad():
+            uc = model.get_learned_conditioning(null)
+            for k, cls in enumerate(CIN256_CLASSES):
+                c = model.get_learned_conditioning(torch.full_like(null, cls))
+                g = torch.Generator(device="cuda").manual_seed(91 + k)
+                img, _ = sample_images(model, n, latent, steps=steps, eta=0.0,
+                                       guidance_scale=scale, cond=c, uncond=uc, generator=g)
+                imgs.append(img)
+        out["img"] = torch.cat(imgs)
+
+    fs, unet = model.first_stage_model, model.model.diffusion_model
+    k = len(CIN256_CLASSES)
+    census = path_census([(unet, 2 * n, cfg["zres"], steps * k),
+                          (fs.decoder, n, cfg["zres"], k)])
+    with torch.no_grad():
+        uc = model.get_learned_conditioning(null)
+        c = model.get_learned_conditioning(torch.full_like(null, CIN256_CLASSES[0]))
+    if c.dtype != torch.float32 or tuple(c.shape) != (n, 1, 512):
+        raise RuntimeError(f"cin256: class context {c.dtype} {tuple(c.shape)}")
+    t_mid = torch.full((2 * n,), 500, dtype=torch.int64, device="cuda")
+    z = torch.randn(2 * n, *latent, generator=torch.Generator().manual_seed(92)).cuda()
+
+    def one_pass():  # one UNet call on the CFG batch, then the decode
+        model.apply_model(z, t_mid, torch.cat([uc, c]))
+        model.decode_first_stage(z[:n])
+
+    details, numbers = conditional_path("cin256", run, census, n * k, one_pass)
+    check_image("cin256", out["img"], (n * k, cfg["res"], cfg["res"], 3))
+    ref = conditional_reference("cin256-reference", cfg_module, cfg, model,
+                                torch.tensor([CIN256_CLASSES[1]]), torch.tensor([CIN256_NULL]),
+                                scale, seed=93)
+    del model
+    torch.cuda.empty_cache()
+    return details, dict(classes=list(CIN256_CLASSES), samples_per_class=n, steps=steps,
+                         guidance_scale=scale, params_m={k: v / 1e6 for k, v in parts.items()},
+                         **numbers, reference=ref)
+
+
 def phases_paths(cfg_module):
-    """Phases 7-10. Returns ({path: launch details}, the [paths] line)."""
+    """Phases 7-12. Returns ({path: launch details}, the [paths] line)."""
     details, out = {}, {}
     details["inpaint"], out["inpaint"] = phase_inpaint(cfg_module)
     details["uncond"], out["uncond"] = phase_uncond(cfg_module)
     details["pixel"], out["pixel"] = phase_pixel(cfg_module)
     details["kl"], out["kl"] = phase_kl(cfg_module)
+    details["txt2img"], out["txt2img"] = phase_txt2img(cfg_module)
+    details["cin256"], out["cin256"] = phase_cin256(cfg_module)
     return details, out
 
 
@@ -2082,15 +2336,15 @@ def main(argv):
         paths["flash_d48_grad_worst"] = head_dim_grads
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
-        # shape's row); a row the flagship does not reach reads the
-        # inpainting path's
+        # shape's row); a row the flagship does not reach reads the first
+        # path that launches it (phases 7-12 in order), else 0
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {
             path: (d.get(counter, 0) if isinstance(counter, tuple)
                    else sum(n for (name, _), n in d.items() if name == counter))
             for path, d in launches_by_path.items()}
-        if row["launches"] is None and "inpaint" in launches_by_path:
-            row["launches"] = row["launches_by_path"]["inpaint"]
+        if row["launches"] is None and launches_by_path:
+            row["launches"] = next((c for c in row["launches_by_path"].values() if c), 0)
     train = None
     if not {"--kernels", "--groupnorm", "--paths"} & set(argv):
         train = phases_train(cfg_module)

@@ -12,6 +12,13 @@ The unconditional paths, each at its source's full width:
            128^2 pixel-space DDPM (identity first stage);
   KL_F4    `configs/autoencoder/autoencoder_kl_64x64x3.yaml`, the
            AutoencoderKL alone (`vae_kwargs`).
+The text- and class-conditional models, at full width:
+  TXT2IMG  `configs/latent-diffusion/txt2img-1p4B-eval.yaml`: the 32-layer
+           BERT cond stage, a legacy=False UNet of 320 channels with
+           8-head SpatialTransformers, KL-f8 (scale factor 0.18215);
+  CIN256   `configs/latent-diffusion/cin256-v2.yaml`: the ClassEmbedder of
+           1001 classes (1000 is the null class of guidance), a 1-head
+           UNet of 192 channels, VQ-f4.
 """
 from __future__ import annotations
 
@@ -171,6 +178,60 @@ KL_F4 = dict(
             ch=128, ch_mult=[1, 2, 4], num_res_blocks=2, attn_resolutions=[],
             dropout=0.0,
         ),
+    ),
+)
+
+
+# 256^2 images, 32^2 x 4 latents (txt2img-1p4B-eval.yaml model.params, the
+# keys the JAX package's model_from_config passes on, without the loss)
+TXT2IMG = dict(
+    res=256, zres=32, zch=4,
+    model=dict(
+        unet_config=dict(
+            image_size=32, in_channels=4, out_channels=4, model_channels=320,
+            attention_resolutions=[4, 2, 1], num_res_blocks=2, channel_mult=[1, 2, 4, 4],
+            num_heads=8, use_spatial_transformer=True, transformer_depth=1,
+            context_dim=1280, use_checkpoint=True, legacy=False,
+        ),
+        first_stage_config={
+            "target": "ldm.models.autoencoder.AutoencoderKL",
+            "params": {
+                "embed_dim": 4,
+                "ddconfig": dict(
+                    double_z=True, z_channels=4, resolution=256, in_channels=3, out_ch=3,
+                    ch=128, ch_mult=[1, 2, 4, 4], num_res_blocks=2, attn_resolutions=[],
+                    dropout=0.0,
+                ),
+            },
+        },
+        cond_stage_config={
+            "target": "ldm.modules.encoders.modules.BERTEmbedder",
+            "params": {"n_embed": 1280, "n_layer": 32},
+        },
+        timesteps=1000, linear_start=0.00085, linear_end=0.012,
+        first_stage_key="image", cond_stage_key="caption", cond_stage_trainable=True,
+        conditioning_key="crossattn", scale_factor=0.18215,
+    ),
+)
+
+# 256^2 images, 64^2 x 3 latents (cin256-v2.yaml model.params, as TXT2IMG)
+CIN256 = dict(
+    res=256, zres=64, zch=3,
+    model=dict(
+        unet_config=dict(
+            image_size=64, in_channels=3, out_channels=3, model_channels=192,
+            attention_resolutions=[8, 4, 2], num_res_blocks=2, channel_mult=[1, 2, 3, 5],
+            num_heads=1, use_spatial_transformer=True, transformer_depth=1,
+            context_dim=512,
+        ),
+        first_stage_config=_VQ_F4,
+        cond_stage_config={
+            "target": "ldm.modules.encoders.modules.ClassEmbedder",
+            "params": {"n_classes": 1001, "embed_dim": 512, "key": "class_label"},
+        },
+        timesteps=1000, linear_start=0.0015, linear_end=0.0195,
+        first_stage_key="image", cond_stage_key="class_label", cond_stage_trainable=True,
+        conditioning_key="crossattn",
     ),
 )
 

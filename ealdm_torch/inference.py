@@ -1,9 +1,10 @@
 """Sampling pipeline: conditioning -> DDIM or PLMS loop -> first-stage
 decode (counterpart of `ealdm_tpu/inference.py`).
 
-`sample_images` is the port's main path, conditional (the STDiff pair with
-CFG) or unconditional, with the inpainting composite when given a mask and
-x0. It runs on the card unless the caller passes device="cpu" (and built the
+`sample_images` is the port's main path: conditional (the STDiff pair with
+CFG, or an encoded `cond` / `uncond` pair such as text or class contexts)
+or unconditional, with the inpainting composite when given a mask and x0.
+It runs on the card unless the caller passes device="cpu" (and built the
 model there).
 """
 from __future__ import annotations
@@ -56,8 +57,13 @@ def hoist_invariants(model: LatentDiffusion, ddim: DDIMSchedule, cond=None,
     timestep MLP + every ResBlock's emb projection for all S timesteps.
     Returns (eps_fn, cond', uncond', extra_tables) for `ddim_sample`.
     want_emb_tables=False (PLMS, which evaluates off the per-step grid)
-    skips the tables; extra_tables is then None."""
+    skips the tables; extra_tables is then None. Where hoisting does not
+    apply (a conditioning_key other than None and crossattn, or a
+    class-conditional UNet) it returns the plain eps_fn with cond and
+    uncond unchanged and no tables."""
     unet = model.model.diffusion_model
+    if model.conditioning_key not in (None, "crossattn") or unet.num_classes is not None:
+        return make_eps_fn(model), cond, uncond, None
     emb_tables = precompute_emb_tables(unet, ddim.timesteps) if want_emb_tables else None
     kv = model.conditioning_key == "crossattn" and unet.use_spatial_transformer
     if kv:
@@ -82,7 +88,8 @@ def encode_cfg_conditioning(model: LatentDiffusion, mixed: Dict):
 def sample_images(model: LatentDiffusion, batch_size: int, latent_shape,
                   steps: int = 50, eta: float = 1.0,
                   guidance_scale: Optional[float] = None,
-                  mixed: Optional[Dict] = None, sampler: str = "ddim",
+                  mixed: Optional[Dict] = None, cond=None, uncond=None,
+                  sampler: str = "ddim",
                   quantize_denoised: bool = False, decode: bool = True,
                   x_T=None, mask=None, x0=None, hoist: bool = True,
                   generator: Optional[torch.Generator] = None, noise_fn=None,
@@ -90,6 +97,10 @@ def sample_images(model: LatentDiffusion, batch_size: int, latent_shape,
     """The full pipeline. Returns (images [N, H, W, 3], latents [N, h, w, c])
     or, with decode=False, the latents.
 
+    mixed: the STDiff conditioning dict, encoded into (uncond, cond) by
+    `encode_cfg_conditioning` unless `cond` is given. cond / uncond: encoded
+    contexts (`model.get_learned_conditioning` of tokens, class ids, ...);
+    guidance runs when uncond is given and guidance_scale is not 1.
     sampler: "ddim" or "plms" (eta 0). mask / x0: inpainting, [N, h, w, 1]
     (1 keeps x0) and the known latent [N, h, w, c], both float32.
     device: where to run, "cuda" unless given; the model must live there.
@@ -107,8 +118,7 @@ def sample_images(model: LatentDiffusion, batch_size: int, latent_shape,
         guidance_scale = model.unconditional_guidance_scale
     cfg = DDIMConfig(num_steps=steps, eta=eta, unconditional_guidance_scale=guidance_scale,
                      parameterization=model.parameterization)
-    uncond = cond = None
-    if mixed is not None:
+    if mixed is not None and cond is None:
         mixed = {k: v.to(dev) for k, v in mixed.items()}
         uncond, cond = encode_cfg_conditioning(model, mixed)
     if hoist:

@@ -1,10 +1,12 @@
 """LatentDiffusion and DDPM (counterpart of `ealdm_tpu/models/ddpm.py`).
 
 Builders for the UNet, the first stages (VQ, KL, the pixel-space identity)
-and the cond stages (the STDiff UnetCond tower, or none for the
-unconditional models), DiffusionWrapper with None and crossattn
-conditioning, the CFG conditioning pair, apply_model with the hoisted step
-invariants, the first-stage encode and decode, and the training objective:
+and the cond stages (the STDiff UnetCond tower, the class and text encoders
+of `encoders.py`, or the `__is_unconditional__` / `__is_first_stage__`
+sentinels), DiffusionWrapper with every conditioning key (None, concat,
+crossattn, hybrid, adm), the learned conditioning of any cond_stage_key and
+the STDiff CFG pair, apply_model with the hoisted step invariants, the
+first-stage encode and decode, and the training objective:
 q_sample and the posterior algebra, the eps or x0 loss with training-time
 CFG (one 2N-batched UNet call, [c_neg, c_pos] order), the logvar table, the
 VLB weighting and the shortened conditioning schedule. `DDPM` is the
@@ -22,6 +24,7 @@ from torch import nn
 from ..ops.schedules import DiffusionSchedule, extract
 from ..utils.device import resolve_device
 from .distributions import normal_kl
+from .encoders import build_encoder
 from .stdiff import UnetCond
 from .unet import UNetModel
 from .vae import AutoencoderKL, IdentityFirstStage, VQModel
@@ -54,18 +57,22 @@ def build_first_stage(config: Optional[Dict[str, Any]], dtype=torch.float32,
     raise NotImplementedError(f"first stage {target!r} is not ported yet")
 
 
-def build_cond_stage(config, feat_hw: Optional[int],
-                     dtype=torch.float32) -> Optional[UnetCond]:
-    """The STDiff UnetCond tower (feat_hw is the side of the first-stage
-    feature map it reads), or None for "__is_unconditional__"."""
-    if config in ("__is_unconditional__", None):
-        return None
+SENTINELS = ("__is_unconditional__", "__is_first_stage__")
+
+
+def build_cond_stage(config, feat_hw: Optional[int], dtype=torch.float32):
+    """The cond-stage module of a cond_stage_config: the STDiff UnetCond tower
+    (feat_hw is the side of the first-stage feature map it reads), or an
+    encoder of `build_encoder` (None for `torch.nn.Identity`). A sentinel
+    string (or None) comes back as it is."""
+    if config is None or config in SENTINELS:
+        return config
     if isinstance(config, str):
-        raise NotImplementedError(f"cond stage {config!r} is not ported yet")
+        raise ValueError(f"unknown cond stage {config!r}")
     target = config.get("target", "")
-    if not target.endswith("UnetCond"):
-        raise NotImplementedError(f"cond stage {target!r} is not ported yet")
     params = dict(config.get("params", {}))
+    if not target.endswith("UnetCond"):
+        return build_encoder(target, params, dtype)
     cond_args = dict(params.pop("cond_args", {}))
     if cond_args.get("noise_f_int"):
         cond_args["noise_f_int"] = [t for t in cond_args["noise_f_int"] if t]
@@ -77,21 +84,36 @@ def build_cond_stage(config, feat_hw: Optional[int],
     return UnetCond(cond_args=cond_args, feat_hw=feat_hw, dtype=dtype, **kwargs)
 
 
+CONDITIONING_KEYS = (None, "concat", "crossattn", "hybrid", "adm")
+
+
 class DiffusionWrapper(nn.Module):
-    """conditioning_key dispatch around the UNet (None and crossattn)."""
+    """conditioning_key dispatch around the UNet: None; "concat" (the maps of
+    c_concat joined to x's channels); "crossattn" (c_crossattn joined along
+    the tokens as the context); "hybrid" (both); "adm" (c_crossattn[0] as
+    the class ids y)."""
 
     def __init__(self, unet_config, conditioning_key=None, dtype=torch.float32):
         super().__init__()
-        if conditioning_key not in (None, "crossattn"):
-            raise NotImplementedError(
-                f"conditioning_key {conditioning_key!r} is not ported yet")
+        if conditioning_key not in CONDITIONING_KEYS:
+            raise ValueError(f"unknown conditioning_key {conditioning_key!r}")
         self.conditioning_key = conditioning_key
         self.diffusion_model = build_unet(unet_config, dtype)
 
-    def forward(self, x, t, c_crossattn=None, context_kv=None, emb_tables=None):
+    def forward(self, x, t, c_concat=None, c_crossattn=None, context_kv=None,
+                emb_tables=None):
+        key = self.conditioning_key
         hoist = dict(context_kv=context_kv, emb_tables=emb_tables)
-        if self.conditioning_key is None:
+        if key is None:
             return self.diffusion_model(x, t, **hoist)
+        if key in ("concat", "hybrid"):
+            x = torch.cat([x, *[c.to(x.dtype) for c in c_concat]], dim=-1)
+        if key == "concat":
+            return self.diffusion_model(x, t, **hoist)
+        if key == "adm":
+            if emb_tables is not None:
+                raise ValueError("a class embedding precludes the emb_tables hoisting")
+            return self.diffusion_model(x, t, y=c_crossattn[0])
         if c_crossattn is None and context_kv is None:
             # attn2 would silently run as self-attention (context = x)
             raise ValueError("crossattn conditioning requires c_crossattn or context_kv")
@@ -100,7 +122,7 @@ class DiffusionWrapper(nn.Module):
 
 
 class LatentDiffusion(nn.Module):
-    """Latent diffusion with a frozen VQ first stage and the STDiff cond stage.
+    """Latent diffusion with a frozen first stage and a cond stage.
 
     The keyword arguments are `model.params` of the JAX package's configs
     (see `ealdm_torch.config`). The module is built on `device` ("cuda"
@@ -143,18 +165,23 @@ class LatentDiffusion(nn.Module):
         self.unet_config = dict(unet_config)
         self.dtype = dtype
         feat_hw = None
-        if isinstance(cond_stage_config, dict):  # UnetCond reads the encoder's features
+        if (isinstance(cond_stage_config, dict)
+                and cond_stage_config.get("target", "").endswith("UnetCond")):
+            # the tower reads the first-stage encoder's features
             dd = first_stage_config["params"]["ddconfig"]
             feat_hw = dd["resolution"] // 2 ** (len(dd["ch_mult"]) - 1)
         with torch.device(dev):
             self.model = DiffusionWrapper(unet_config, conditioning_key, dtype)
             self.first_stage_model = build_first_stage(first_stage_config, dtype, dev)
-            self.cond_stage_model = build_cond_stage(cond_stage_config, feat_hw, dtype)
+            cond = build_cond_stage(cond_stage_config, feat_hw, dtype)
             logvar = torch.full((timesteps,), float(logvar_init))
             if learn_logvar:
                 self.logvar = nn.Parameter(logvar)
             else:
                 self.register_buffer("logvar", logvar, persistent=False)
+        # a sentinel string stands in for a cond-stage module
+        self.cond_stage_sentinel = cond if isinstance(cond, str) else None
+        self.cond_stage_model = None if isinstance(cond, str) else cond
         self.first_stage_model.requires_grad_(False)
         if not cond_stage_trainable and self.cond_stage_model is not None:
             self.cond_stage_model.requires_grad_(False)
@@ -213,14 +240,24 @@ class LatentDiffusion(nn.Module):
 
     def _check_mixed(self):
         if self.cond_stage_key != "mixed":
-            raise NotImplementedError("only the 'mixed' STDiff conditioning is ported")
+            raise NotImplementedError("the CFG pair and training take only the 'mixed' "
+                                      "STDiff conditioning")
 
     def get_learned_conditioning(self, cond, fuse_env: bool = True, generator=None,
                                  features=None):
-        """`mixed` conditioning dict (img, flow, weather, time) -> context.
-        features: the first-stage features of cond["img"], if already
-        computed; generator: the dropout source (train() mode)."""
-        self._check_mixed()
+        """The context of a conditioning input. With no cond-stage module:
+        under `__is_first_stage__` the first stage's encoding of the image
+        cond (a KL posterior's mode), else cond unchanged. `mixed`: the dict
+        (img, flow, weather, time) through the STDiff tower, where features
+        are the first-stage features of cond["img"] if already computed and
+        generator the dropout source (train() mode). Any other key: cond
+        (class ids, token ids) through the cond-stage module."""
+        if self.cond_stage_model is None:
+            if self.cond_stage_sentinel == "__is_first_stage__":
+                return self.encode_first_stage(cond, sample_posterior=False)
+            return cond
+        if self.cond_stage_key != "mixed":
+            return self.cond_stage_model(cond)
         feat = self._mixed_image_features(cond["img"]) if features is None else features
         return self.cond_stage_model(feat, cond["flow"], cond["weather"], cond["time"],
                                      fuse_env=fuse_env, generator=generator)
@@ -247,8 +284,26 @@ class LatentDiffusion(nn.Module):
         hoist = dict(context_kv=context_kv, emb_tables=emb_tables)
         if self.conditioning_key is None or cond_context is None:
             return self.model(x_noisy, t, **hoist)
-        ca = list(cond_context) if isinstance(cond_context, (list, tuple)) else [cond_context]
-        return self.model(x_noisy, t, c_crossattn=ca, **hoist)
+        cc, ca = self._split_context(cond_context)
+        return self.model(x_noisy, t, c_concat=cc, c_crossattn=ca, **hoist)
+
+    def _split_context(self, cond_context):
+        """(c_concat, c_crossattn) lists of a context: "hybrid" takes a dict
+        {"c_concat": ..., "c_crossattn": ...} (each a tensor or a list); a
+        single tensor or list routes by conditioning_key."""
+        def aslist(v):
+            if v is None:
+                return None
+            return list(v) if isinstance(v, (list, tuple)) else [v]
+
+        if isinstance(cond_context, dict):
+            return aslist(cond_context.get("c_concat")), aslist(cond_context.get("c_crossattn"))
+        if self.conditioning_key == "hybrid":
+            raise ValueError('hybrid conditioning needs a dict context '
+                             '{"c_concat": ..., "c_crossattn": ...}')
+        if self.conditioning_key in ("crossattn", "adm"):
+            return None, aslist(cond_context)
+        return aslist(cond_context), None
 
     # ------------------------------------------------------------- diffusion math
     def q_sample(self, x_start, t, noise):

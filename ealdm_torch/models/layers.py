@@ -46,6 +46,17 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
+class Embed(nn.Module):
+    """flax nn.Embed: a float32 `embedding` table [num, dim] looked up by id."""
+
+    def __init__(self, num, dim):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(num, dim))
+
+    def forward(self, ids):
+        return self.embedding[ids.long()]
+
+
 class Conv2D(nn.Module):
     """2-D convolution on NCHW input with symmetric integer padding."""
 

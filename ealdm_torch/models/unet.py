@@ -19,6 +19,7 @@ from .layers import (
     AttentionBlock,
     Dense,
     Downsample,
+    Embed,
     GroupNorm32,
     ResBlock,
     SpatialTransformer,
@@ -29,16 +30,21 @@ from .layers import (
 # Options of the JAX UNetModel that no ported configuration changes. They are
 # accepted at these values only; each other branch comes with the
 # configuration that needs it.
-_FIXED_OPTIONS = dict(dropout=0.0, conv_resample=True, num_classes=None,
-                      num_heads_upsample=-1, use_scale_shift_norm=False,
-                      resblock_updown=False, legacy=True)
+_FIXED_OPTIONS = dict(dropout=0.0, conv_resample=True, num_heads_upsample=-1,
+                      use_scale_shift_norm=False, resblock_updown=False)
 
 
-def _head_config(ch, num_heads, num_head_channels,
-                 use_spatial_transformer) -> Tuple[int, int]:
-    """(heads, dim_head) following the reference's rules with legacy=True."""
-    heads = num_heads if num_head_channels == -1 else ch // num_head_channels
-    dim_head = ch // heads if use_spatial_transformer else num_head_channels
+def _head_config(ch, num_heads, num_head_channels, use_spatial_transformer,
+                 legacy) -> Tuple[int, int]:
+    """(heads, dim_head) following the reference's rules, including the
+    `legacy` quirk that recomputes a SpatialTransformer's head dim as
+    ch // heads."""
+    if num_head_channels == -1:
+        heads, dim_head = num_heads, ch // num_heads
+    else:
+        heads, dim_head = ch // num_head_channels, num_head_channels
+    if legacy:
+        dim_head = ch // heads if use_spatial_transformer else num_head_channels
     return heads, dim_head
 
 
@@ -61,6 +67,8 @@ class UNetModel(nn.Module):
         use_spatial_transformer: bool = False,
         transformer_depth: int = 1,
         context_dim: Optional[int] = None,
+        num_classes: Optional[int] = None,
+        legacy: bool = True,
         dtype=torch.float32,
         **options,
     ):
@@ -75,6 +83,7 @@ class UNetModel(nn.Module):
         if num_heads == -1 and num_head_channels == -1:
             raise ValueError("set num_heads or num_head_channels")
         self.model_channels = model_channels
+        self.num_classes = num_classes
         self.use_spatial_transformer = use_spatial_transformer
         self.transformer_depth = transformer_depth
         self.dtype = dtype
@@ -84,6 +93,8 @@ class UNetModel(nn.Module):
         emb_dim = model_channels * 4
         self.time_embed_0 = Dense(model_channels, emb_dim, dtype=dtype)
         self.time_embed_2 = Dense(emb_dim, emb_dim, dtype=dtype)
+        if num_classes is not None:
+            self.label_emb = Embed(num_classes, emb_dim)
 
         def add(kind, name, module):
             self.add_module(name, module)
@@ -94,7 +105,7 @@ class UNetModel(nn.Module):
 
         def attn(name, ch, ds):
             heads, dim_head = _head_config(ch, num_heads, num_head_channels,
-                                           use_spatial_transformer)
+                                           use_spatial_transformer, legacy)
             if use_spatial_transformer:
                 add("attn", name, SpatialTransformer(
                     ch, heads, dim_head, transformer_depth, context_dim,
@@ -140,17 +151,26 @@ class UNetModel(nn.Module):
         self.out_norm = GroupNorm32(ch)
         self.out_conv = conv3x3(ch, out_channels, dtype)
 
-    def forward(self, x, timesteps, context=None, context_kv=None, emb_tables=None):
-        """x: [N, H, W, C_in]; timesteps: [N]; context: [N, L, context_dim].
+    def forward(self, x, timesteps, context=None, y=None, context_kv=None, emb_tables=None):
+        """x: [N, H, W, C_in]; timesteps: [N]; context: [N, L, context_dim];
+        y: [N] class ids, given exactly when the UNet has `num_classes`.
 
         context_kv: {attn_site: ((k, v), ...)} precomputed cross-attn K/V
         (`precompute_context_kv`); emb_tables: {res_site: [out_ch]} this
-        step's rows of `precompute_emb_tables`."""
+        step's rows of `precompute_emb_tables` (not with `num_classes`: the
+        class embedding enters emb before its nonlinear projection)."""
+        if (y is None) != (self.num_classes is None):
+            raise ValueError("pass y exactly when the UNet has num_classes")
         if emb_tables is not None:
+            if self.num_classes is not None:
+                raise ValueError("emb_tables hoisting is t-only; a class-conditional "
+                                 "UNet mixes its class embedding into emb")
             emb = None
         else:
             t_emb = timestep_embedding(timesteps, self.model_channels)
             emb = self.time_embed_2(silu(self.time_embed_0(t_emb)))
+            if self.num_classes is not None:
+                emb = emb + self.label_emb(y)
 
         def block(fn, *args, **kwargs):
             return apply_remat(fn, self.remat)(*args, **kwargs)

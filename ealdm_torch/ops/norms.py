@@ -20,9 +20,9 @@ from .. import kernels
 from ..kernels import build
 
 __all__ = [
-    "GroupNormKernel", "group_norm", "group_norm_path", "group_norm_plain",
-    "group_norm_vjp", "instance_norm_2d", "layer_norm", "resolve_num_groups",
-    "set_norm_stats_precision", "silu",
+    "GroupNormKernel", "group_norm", "group_norm_kernel_layout", "group_norm_path",
+    "group_norm_plain", "group_norm_vjp", "instance_norm_2d", "layer_norm",
+    "resolve_num_groups", "set_norm_stats_precision", "silu",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,6 +38,8 @@ _CHUNK = 8192
 _CLUSTER = 8
 _SLICE_BYTES = 192 * 1024
 _TILE_BYTES = 64 * 1024
+# a channels_last block owns whole rows of 16-byte vectors, at most 512 threads
+_CL_MAX_ROW_VECTORS = 512
 
 
 def silu(x):
@@ -173,13 +175,24 @@ def group_norm_layout(x) -> str:
                      f"[N, C, H, W], not strides {x.stride()} of {tuple(x.shape)}")
 
 
+def group_norm_kernel_layout(shape, dtype, layout="channels_last") -> str:
+    """The layout the kernels run a [N, C, H, W] tensor of `layout` in: its
+    own, except channels_last rows wider than a block's 512 16-byte vectors
+    (float32 C > 2048, bfloat16 C > 4096), which the NCHW kernels take
+    through a layout copy each way."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if layout == "channels_last" and shape[1] * itemsize // 16 > _CL_MAX_ROW_VECTORS:
+        return "nchw"
+    return layout
+
+
 def group_norm_path(shape, dtype, num_groups, layout="channels_last") -> str:
     """The kernel path, and launch counter, a [N, C, H, W] GroupNorm takes:
     "group_norm" (one read of x) or "group_norm_two_pass" (two reads).
     channels_last splits by the sample's bytes, NCHW by the group's
     elements."""
     _, c, h, w = shape
-    if layout == "channels_last":
+    if group_norm_kernel_layout(shape, dtype, layout) == "channels_last":
         itemsize = torch.empty((), dtype=dtype).element_size()
         fits = math.ceil(h * w / _CLUSTER) * c * itemsize <= _SLICE_BYTES
     else:
@@ -206,6 +219,10 @@ def group_norm_kernel(x, scale, bias, num_groups, eps, fuse_silu, pre_bias=None)
                 or t.device != x.device):
             raise ValueError(f"{name} must be a contiguous float32 [C] on {x.device}")
     layout = group_norm_layout(x)
+    if group_norm_kernel_layout(x.shape, x.dtype, layout) != layout:
+        y = group_norm_kernel(x.contiguous(), scale, bias, num_groups, eps, fuse_silu,
+                              pre_bias)
+        return y.contiguous(memory_format=torch.channels_last)
     if layout == "channels_last" and (x.data_ptr() % 16 or c * x.element_size() % 16):
         raise ValueError("the channels_last GroupNorm kernels take 16-byte aligned "
                          "tensors whose rows of C channels are multiples of 16 bytes")

@@ -10,7 +10,9 @@ flax module names, so a flax path `a/b/c/<leaf>` becomes the port name
   Dense kernel [in, out]                 -> weight [out, in]
   norm scale                             -> weight
   bias, embedding, c_to_scales_weight,
-  a learned top-level logvar             -> the same name, unchanged
+  a learned top-level logvar, the text
+  transformer's ScaleNorm / RMSNorm /
+  ReZero gain g                          -> the same name, unchanged
   EqualizedDense weight (already [out, in]),
   FrozenBatchNorm mean and var           -> the same name, unchanged
   OptimizedLSTMCell lstm_<l>/{i,h}{i,f,g,o}
@@ -20,8 +22,10 @@ flax module names, so a flax path `a/b/c/<leaf>` becomes the port name
 
 The rules are by leaf, not by model, so one bridge carries every model the
 port builds: the STDiff LDM, the AttentionBlock UNets (`qkv` and `proj_out`
-are Dense), VQ-f4/f8, and `AutoencoderKL`, whose `quant_conv` maps
-2 * z_channels to 2 * embed_dim and `post_quant_conv` embed_dim back.
+are Dense), VQ-f4/f8, `AutoencoderKL`, whose `quant_conv` maps
+2 * z_channels to 2 * embed_dim and `post_quant_conv` embed_dim back, and
+the text- and class-conditional models (nn.Embed tables, the text
+transformer's LayerNorms and Dense layers, a class UNet's `label_emb`).
 
 `load_flax_params` raises on any port parameter left unfilled, any flax
 leaf left unused, and any shape that disagrees; so does `load_flax_ema`,
@@ -66,7 +70,7 @@ def _leaf(name: str, v: np.ndarray):
     if last == "scale":
         return weight, v
     if last in ("bias", "embedding", "c_to_scales_weight", "weight", "mean", "var",
-                "logvar"):
+                "logvar", "g"):
         return name, v
     raise ValueError(f"{name}: no rule for flax leaf {last!r}")
 

@@ -139,7 +139,7 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize("where,key,value", [
     ("unet_config", "use_scale_shift_norm", True),
     ("unet_config", "resblock_updown", True),
-    ("unet_config", "legacy", False),
+    ("unet_config", "dropout", 0.1),
     ("ddconfig", "double_z", True),
     ("ddconfig", "attn_type", "linear"),
     ("model", "parameterization", "v"),

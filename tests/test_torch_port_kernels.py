@@ -23,6 +23,7 @@ from ealdm_torch.ops.bias_act import activation_funcs, bias_act, bias_act_plain
 from ealdm_torch.ops.norms import (
     group_norm,
     group_norm_kernel,
+    group_norm_kernel_layout,
     group_norm_layout,
     group_norm_path,
     group_norm_plain,
@@ -192,6 +193,7 @@ _GN_CASES = {
     "cg8": ((2, 256, 8, 8), "n", 0.0),
     "cg48": ((2, 1536, 8, 8), "n", 0.0),
     "cg64": ((2, 2048, 4, 4), "n", 0.0),
+    "cg80_txt2img": ((2, 2560, 4, 4), "n", 0.0),
     "cg7": ((2, 224, 16, 16), "n", 0.0),
     "cg14": ((2, 448, 8, 8), "n", 0.0),
     "cg21_work_threads": ((2, 672, 8, 8), "n", 0.0),
@@ -224,7 +226,8 @@ def test_group_norm(dev, dtype, case, channels_last):
     bias = 0.1 * _randn(c, dtype=torch.float32, dev=dev, seed=5)
     pre = _randn(n if pre_rows == "n" else 1, c, dtype=dtype, dev=dev, seed=6)
     name = group_norm_path(shape, dtype, 32, layout)
-    detail = (name, (layout, shape, str(dtype).removeprefix("torch.")))
+    detail = (name, (group_norm_kernel_layout(shape, dtype, layout), shape,
+                     str(dtype).removeprefix("torch.")))
     before, before_detail = dict(kernels.launches), kernels.launch_details.get(detail, 0)
     got = group_norm(x, scale, bias, 32, 1e-6, act=silu, data_format="NCHW", pre_bias=pre)
     torch.cuda.synchronize()

@@ -208,8 +208,19 @@ def test_x0_parameterization_loss_matches():
 
 
 def test_unported_cond_sentinel_raises():
+    """`__is_first_stage__` is ported (the conditioning is the first stage's
+    encoding; tests/test_torch_port_cond.py holds it against JAX); an
+    unknown sentinel string raises, and a cond stage that a later slice
+    ports raises NotImplementedError naming its ROADMAP item."""
     kw, _ = CONFIGS["inpaint"]
     kw = copy.deepcopy(kw)
     kw["cond_stage_config"] = "__is_first_stage__"
-    with pytest.raises(NotImplementedError, match="__is_first_stage__"):
+    tm = TorchLDM(**kw, device="meta")
+    assert tm.cond_stage_model is None and tm.cond_stage_sentinel == "__is_first_stage__"
+    kw["cond_stage_config"] = "__is_last_stage__"
+    with pytest.raises(ValueError, match="__is_last_stage__"):
+        TorchLDM(**kw, device="meta")
+    kw["cond_stage_config"] = {"target": "ldm.modules.encoders.modules.SpatialRescaler",
+                               "params": {"n_stages": 1}}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchLDM(**kw, device="meta")
