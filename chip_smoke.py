@@ -6,23 +6,30 @@
     python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
     python3 chip_smoke.py --train      # the build and phase 6 (training) only
     python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-12 only
+    python3 chip_smoke.py --host       # the build and the flash wrapper's host cost
 
 Phases, each of which raises (non-zero exit) on failure:
-  1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc, and
-     take a census of the bfloat16 flash kernels' and the GroupNorm kernels'
-     machine code (tensor-core, async-copy, ldmatrix and exp instructions;
-     ptxas spills);
+  1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc (the
+     seconds logged), and take a census of the bfloat16 flash kernels' and
+     the GroupNorm kernels' machine code (tensor-core, async-copy, ldmatrix
+     and exp instructions; ptxas registers and spills): the wgmma flash
+     kernel needs HGMMA and UTMALDG, no kernel may spill;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes and layouts, in bfloat16 and float32, show that two planted
      faults break the bfloat16 attention limits, and time kernel / plain /
      one PyTorch library call (a yardstick only; the port never calls it);
+     the d <= 32 routing: the wgmma kernel held and timed beside
+     flash_mma_narrow_kernel at the flagship's d=32 shapes and at d=24;
      GroupNorm in both layouts it takes, timed at the main path's
      (channels_last) on inputs that do not fit the L2;
   2c. flash attention at the head dims of the repo's other configurations
      (24, 40, 48, 80 at 1024 and 256 tokens; 384 and 576 at 1024; and the
      conditional paths' wide sites [12,1,256,576], [12,1,1024,384],
-     [8,1,1024,512]), split and packed, both dtypes, timed like phase 2; the
-     gradients through FlashAttention at d = 48;
+     [8,1,1024,512]), split and packed, both dtypes, timed like phase 2
+     (each row names the kernel the profile saw); d = 24 .. 80 at a ragged
+     Nq = 1000, Nk = 77; the wrapper's host time a call at [16,8,256,80]
+     and [16,8,256,32] (`host_cost`); the gradients through FlashAttention
+     at d = 48;
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -108,8 +115,11 @@ PEAK_BYTES = 3.35e12
 SFU_EXP_PER_CLOCK = 16
 
 # the bfloat16 flash kernels, as named in flash_attention.cu (templates over
-# the padded head dim)
+# the padded head dim; mma.sync, cp.async) and flash_attention_sm90.cu
+# (wgmma, TMA: d = 40 .. 128), and every flash forward kernel
 MMA_KERNELS = ("flash_mma_narrow_kernel", "flash_mma_wide_kernel")
+WGMMA_KERNEL = "flash_wgmma_narrow_kernel"
+FLASH_KERNELS = (*MMA_KERNELS, WGMMA_KERNEL, "flash_wide_kernel")
 # head dims of the repo's configurations other than the flagship's 32 and
 # 512: the UNets' (txt2img 40/80, inpainting 48, lsun_churches 24/48) and
 # cin256-v2's wide heads
@@ -189,14 +199,34 @@ def bound(flops, nbytes, peak_flops, exps=0):
     return times[by] * 1e3, by
 
 
+def kernel_label(key):
+    """A profiler key's kernel as `name<template arguments>`, without
+    namespaces or spaces: "flash_wgmma_narrow_kernel<Config<64,3>>"."""
+    key = key.replace("(anonymous namespace)::", "")
+    depth = 0
+    for i, ch in enumerate(key):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            head = key[:i].rstrip()
+            break
+    else:
+        return key
+    if not head:
+        return key
+    depth = 0
+    for j in range(len(head) - 1, -1, -1):  # the name starts after the last top-level space
+        depth += (head[j] == ">") - (head[j] == "<")
+        if head[j] == " " and depth == 0:
+            return head[j + 1:].replace(" ", "")
+    return head.replace(" ", "")
+
+
 def device_ms_by_kernel(fn, iters=20, warmup=2):
     """{kernel: device time per call in ms} of the CUDA kernels `fn` runs,
     under torch.profiler over `iters` calls; a kernel is named by its
-    function (the profiler's key up to the template arguments). A kernel's
+    function (`kernel_label` up to the template arguments). A kernel's
     time per call is its mean time a launch times its launches a call, so a
     launch the profiler misses does not pull the mean down."""
-    import re
-
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -211,25 +241,26 @@ def device_ms_by_kernel(fn, iters=20, warmup=2):
     out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            m = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
-            name = m.group(1) if m else e.key
+            name = kernel_label(e.key).split("<")[0].split("::")[-1]
             per_call = max(1, round(e.count / iters))
             out[name] = (out.get(name, 0.0)
                          + e.self_device_time_total / e.count * per_call / 1e3)
     return out
 
 
-def device_ms(fn, iters=20, warmup=2):
+def device_ms(fn, iters=20, warmup=2, names=False):
     """Device time per call: the sum of every CUDA kernel's time under
     torch.profiler over `iters` calls. Unlike `cuda_ms` it leaves out the
     gaps where the device waits for the host, which dominate a call of a
     few microseconds. A profile that records no kernel at all (it happens
     now and then, after many profiles in one process) is taken again, up to
-    three times; then it raises, so a row's time is always device time."""
+    three times; then it raises, so a row's time is always device time.
+    With `names`, returns (ms, the kernels' names joined by "+")."""
     for _ in range(3):
-        ms = sum(device_ms_by_kernel(fn, iters, warmup).values())
+        by_kernel = device_ms_by_kernel(fn, iters, warmup)
+        ms = sum(by_kernel.values())
         if ms > 0:
-            return ms
+            return (ms, "+".join(sorted(by_kernel))) if names else ms
     raise RuntimeError("the profiler recorded no kernel in three profiles")
 
 
@@ -339,16 +370,20 @@ def sass_census(source, names):
 
 def phase_sass():
     """Machine-code census: the bfloat16 flash kernels need tensor-core
-    (HMMA/HGMMA) and asynchronous-copy instructions, the GroupNorm kernels
-    that stage rows in shared memory asynchronous copies (LDGSTS, UTMALDG or
-    the bulk copy UBLKCP); no kernel of either may spill. Raises otherwise,
-    or if a kernel is missing from the machine code or the nvcc report."""
+    (HMMA/HGMMA) and asynchronous-copy instructions, the wgmma one HGMMA and
+    TMA loads (UTMALDG), the GroupNorm kernels that stage rows in shared
+    memory asynchronous copies (LDGSTS, UTMALDG or the bulk copy UBLKCP); no
+    kernel of any may spill. Raises otherwise, or if a kernel is missing
+    from the machine code or the nvcc report."""
     flash = sass_census("flash_attention", MMA_KERNELS)
+    flash.update(sass_census("flash_attention_sm90", (WGMMA_KERNEL,)))
     for name, c in flash.items():
         if c["HMMA"] + c["HGMMA"] == 0:
             raise RuntimeError(f"{name} has no tensor-core instruction")
         if not any(c[op] for op in ASYNC_COPY_OPS):
             raise RuntimeError(f"{name} has no asynchronous copy")
+    if not (flash[WGMMA_KERNEL]["HGMMA"] and flash[WGMMA_KERNEL]["UTMALDG"]):
+        raise RuntimeError(f"{WGMMA_KERNEL} needs HGMMA and UTMALDG: {flash[WGMMA_KERNEL]}")
     gn = sass_census("group_norm", GN_KERNELS)
     for name in GN_STAGING_KERNELS:
         if not any(gn[name][op] for op in ASYNC_COPY_OPS):
@@ -459,8 +494,57 @@ def phase_kernels():
                   lambda q, k, v: flash_attention_packed(q, k, v, heads),
                   packed(flash_attention_plain, heads), packed(sdpa_lib, heads),
                   "ealdm_tpu/ops/attention.py:272", qkv)
+    route_small_heads(res, errs, randn, flash_replaces)
     log_rows(res)
     return res
+
+
+def route_small_heads(res, errs, randn, replaces):
+    """d <= 32 runs flash_mma_narrow_kernel unless the wgmma kernel is faster
+    at each of the flagship's three d=32 sites and lsun_churches' d=24: here
+    each shape runs through both in this process (the wgmma kernel routed
+    there for these calls only), held to its limits first. Adds a row for
+    the wgmma kernel at each shape (0 launches on every path; `mma_ms` is
+    flash_mma_narrow_kernel's time) and logs the verdict."""
+    import torch
+    import torch.nn.functional as F
+
+    from ealdm_torch.ops import attention
+    from ealdm_torch.ops.attention import (
+        _split_heads, flash_attention, flash_attention_plain)
+
+    bf = torch.bfloat16
+    cases = (("flash_wgmma_d32_n1024", (48, 8, 1024, 32), None),
+             ("flash_wgmma_d32_split_n1024", (48, 8, 1024, 32), 8),
+             ("flash_wgmma_d32_split_n256", (48, 16, 256, 32), 16),
+             ("flash_wgmma_d24_n1024", (16, 8, 1024, 24), None))
+    routed = attention.WGMMA_HEAD_DIMS
+    wins = []
+    for row, shape, heads in cases:
+        b, h, n, d = shape
+        if heads is None:
+            layout = "contiguous [B,H,N,D]"
+            qkv = [randn(*shape, dtype=bf) for _ in range(3)]
+        else:
+            layout = f"head-strided view of [{b},{n},{heads * d}]"
+            qkv = [_split_heads(randn(b, n, heads * d, dtype=bf), heads) for _ in range(3)]
+        mma_ms = device_ms(lambda: flash_attention(*qkv))
+        attention.WGMMA_HEAD_DIMS = range(8, 129, 8)
+        try:
+            compare(errs, row, bf, flash_attention(*qkv), flash_attention_plain(*qkv), layout,
+                    attn=(*qkv, None))
+            attention_row(res, errs, row, row, shape, layout, flash_attention,
+                          flash_attention_plain, F.scaled_dot_product_attention, replaces, qkv,
+                          counter=(f"{row} (not routed)", n))
+        finally:
+            attention.WGMMA_HEAD_DIMS = routed
+        res[row]["mma_ms"] = mma_ms
+        wins.append(res[row]["ms"] < mma_ms)
+        log(f"[route] d={d} {layout} {list(shape)}: flash_mma_narrow_kernel {mma_ms:.4f} ms, "
+            f"{res[row]['kernel']} {res[row]['ms']:.4f} ms")
+    verdict = "route d <= 32 to it" if all(wins) else "d <= 32 stays on flash_mma_narrow_kernel"
+    log(f"[route] the wgmma kernel is faster at {sum(wins)} of {len(wins)} d <= 32 shapes: "
+        f"{verdict}")
 
 
 def attention_row(res, errs, row, kernel, shape, layout, kernel_fn, plain_fn, lib_fn,
@@ -476,13 +560,16 @@ def attention_row(res, errs, row, kernel, shape, layout, kernel_fn, plain_fn, li
     # `bound_kind` says which limit it is. Times are device time
     # (torch.profiler), which leaves out the wrapper's host time; the
     # CUDA-event time per call (`event_ms`) is kept beside the kernel's.
+    # `kernel` names the kernel the profile saw, and `source` its file.
+    ms, port_kernel = device_ms(lambda: kernel_fn(*qkv), names=True)
+    source = "flash_attention_sm90.cu" if port_kernel == WGMMA_KERNEL else "flash_attention.cu"
     res[row] = dict(
-        name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention.cu",
+        name=row, route="cuda", source=f"ealdm_torch/kernels/csrc/{source}",
         replaces=replaces, launches=None, max_abs_err=errs[kernel],
-        ms=device_ms(lambda: kernel_fn(*qkv)), plain_ms=device_ms(lambda: plain_fn(*qkv)),
+        ms=ms, plain_ms=device_ms(lambda: plain_fn(*qkv)),
         bound_ms=bms, bound_by="bytes" if by == "bytes" else "operations",
         bound_kind=by, library_ms=device_ms(lambda: lib_fn(*qkv)),
-        event_ms=cuda_ms(lambda: kernel_fn(*qkv)),
+        event_ms=cuda_ms(lambda: kernel_fn(*qkv)), kernel=port_kernel,
         shape=list(shape), layout=layout, dtype="bfloat16", counter=counter or kernel)
 
 
@@ -491,7 +578,7 @@ def log_rows(rows):
         event = f" (event_ms {r['event_ms']:.4f})" if "event_ms" in r else ""
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         split = "".join(f" {k} {v:.4f}" for k, v in r.get("kernel_ms", {}).items())
-        log(f"[time] {r['name']:32s} {r['shape']} kernel_ms {r['ms']:.4f}{event} "
+        log(f"[time] {r['name']:32s} {r['shape']} {r.get('kernel', '')} kernel_ms {r['ms']:.4f}{event} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {lib} "
             f"bound_ms {r['bound_ms']:.4f} ({r.get('bound_kind', r['bound_by'])})"
             + (f"; by kernel:{split}" if len(r.get("kernel_ms", {})) > 1 else ""))
@@ -664,6 +751,15 @@ def phase_head_dims():
                       "ealdm_tpu/ops/attention.py:77", qkv, counter=(flash_counter(d), n))
         del qkv
 
+    # the wgmma kernel's ragged edges at the paths' head dims: a partial
+    # query block and a partial key tile
+    for d in NARROW_HEAD_DIMS:
+        q = randn(2, 3, 1000, d, dtype=bf)
+        k, v = randn(2, 3, 77, d, dtype=bf), randn(2, 3, 77, d, dtype=bf)
+        compare(errs, flash_counter(d), bf, flash_attention(q, k, v),
+                flash_attention_plain(q, k, v), "ragged Nq=1000 Nk=77", attn=(q, k, v, None))
+    host = host_cost()
+
     worst = 0.0
     for dtype in (f32, bf):
         qkv = [randn(16, 8, 256, 48, dtype=dtype) for _ in range(3)]
@@ -682,8 +778,48 @@ def phase_head_dims():
             f"errors / max {[f'{e:.2g}' for e in rel]} (tolerance 1e-5)")
         if not all(math.isfinite(e) and e <= 1e-5 for e in rel):
             raise RuntimeError("flash d=48 gradients disagree with the plain version")
+    for (d, n), us in host.items():
+        row = res.get(f"flash_attention_d{d}_n{n}")
+        if row is not None:
+            row["host_us"] = us
     log_rows(res)
     return res, worst
+
+
+def host_cost(calls=1000):
+    """The bfloat16 flash wrapper's host time per call, in microseconds: wall
+    time of `calls` back-to-back `flash_attention` calls without a
+    synchronize, divided by the calls, at [16,8,256,80] (d=80: the wgmma
+    kernel, three tensor maps encoded a call, where the kernel has them) and
+    [16,8,256,32] (d=32: the mma.sync kernel, none). The device finishes a
+    call faster than the host issues one (checked), so the launch queue
+    never fills and the wall is host time. Runs in older trees too (`--host`).
+    Returns {(d, rows): us}."""
+    import torch
+
+    from ealdm_torch.ops.attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for shape in ((16, 8, 256, 80), (16, 8, 256, 32)):
+        qkv = [torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3)]
+        for _ in range(20):
+            flash_attention(*qkv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            flash_attention(*qkv)
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        dev_us = device_ms(lambda: flash_attention(*qkv)) * 1e3
+        if dev_us >= us:
+            raise RuntimeError(f"host cost at {shape}: the device ({dev_us:.1f} us a call) "
+                               f"is slower than the host ({us:.1f} us): the queue fills")
+        log(f"[host] flash_attention {list(shape)} bf16: {us:.2f} us of host time a call "
+            f"over {calls} calls (device {dev_us:.2f} us a call)")
+        out[(shape[3], shape[2])] = us
+    return out
 
 
 # ------------------------------------------------------------------ phase 2b
@@ -1219,8 +1355,6 @@ def profile_groups(fn, label, unprofiled_s, top=20):
     against `unprofiled_s` (a run without the profiler, which slows the
     host), device time by group, by flash kernel instance and of the `top`
     kernels. Each kernel counts in the first group whose name it contains."""
-    import re
-
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1236,7 +1370,7 @@ def profile_groups(fn, label, unprofiled_s, top=20):
     busy = sum(r[1] for r in rows)
     if busy <= 0:
         raise RuntimeError(f"{label}: the profiler saw no device time")
-    groups = {"flash attention": (*MMA_KERNELS, "flash_wide_kernel"),
+    groups = {"flash attention": FLASH_KERNELS,
               "group_norm": GN_KERNELS,
               "convolution": ("fprop", "conv", "nchw", "nhwc"),
               "matmul": ("gemm", "nvjet", "cutlass"),
@@ -1255,9 +1389,9 @@ def profile_groups(fn, label, unprofiled_s, top=20):
     # each flash kernel instance (the template's padded head dim) on its own
     flash = {}
     for key, t, n in rows:
-        m = re.search(r"(flash_\w+(?:<[^>]*>)?)\(", key)
-        if m:
-            flash[m.group(1)] = flash.get(m.group(1), 0.0) + t
+        instance = kernel_label(key)
+        if instance.startswith("flash_"):
+            flash[instance] = flash.get(instance, 0.0) + t
     log(f"[{label}] flash by instance: " + ", ".join(
         f"{k} {t * 1e3:.2f} ms = {t / busy:.4f}" for k, t in sorted(flash.items())))
     return dict(device_busy_s=busy, idle_share=1 - busy / unprofiled_s, profiled_wall_s=wall_s,
@@ -1921,7 +2055,7 @@ def train_profile_groups(prof):
               "ealdm::flash_attention_vjp": "attention backward (plain)",
               "ealdm::adamw": "AdamW and EMA", "ealdm::ema": "AdamW and EMA"}
     by_name = {"GroupNorm forward kernel": GN_KERNELS,
-               "flash forward kernel": (*MMA_KERNELS, "flash_wide_kernel"),
+               "flash forward kernel": FLASH_KERNELS,
                "convolutions": ("fprop", "dgrad", "wgrad", "conv", "nchw", "nhwc"),
                "matmuls": ("gemm", "nvjet", "cutlass"),
                "copies and casts": ("copy_kernel",),
@@ -2295,6 +2429,13 @@ def main(argv):
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.perf_counter()
     phase_build()
+    if "--host" in argv:  # the build and the wrapper's host cost only
+        host_cost()
+        log(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     train_only = "--train" in argv
     paths_only = "--paths" in argv
     rows, head_dim_grads = {}, None

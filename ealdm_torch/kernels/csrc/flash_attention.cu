@@ -14,8 +14,10 @@
 // rows >= Nq are not stored. Every key tile holds at least one valid key, so
 // the running max is finite after the first tile.
 //
-// bfloat16, the main path (`flash_mma_narrow_kernel` for D <= 128,
-// `flash_mma_wide_kernel` above): both products on the tensor cores with
+// bfloat16 (`flash_mma_narrow_kernel` for D <= 32, `flash_mma_wide_kernel`
+// for D > 128; D = 40 .. 128 runs `flash_wgmma_narrow_kernel` in
+// flash_attention_sm90.cu, which ops/attention.py calls instead): both
+// products on the tensor cores with
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate). The scale is applied to the
 // fp32 scores, folded with log2(e) into one FMA before ex2.approx; P is
 // rounded to bf16 for P*V (as the TPU's MXU rounds it), the row sums use the
@@ -24,18 +26,20 @@
 // overlaps this tile's math. Shared-memory rows are padded by 16 bytes, so
 // the 8 rows an ldmatrix phase reads fall in 8 distinct 16-byte bank groups.
 //
-// Any D that is a multiple of 8 from 8 to 640 (every head dim the repo's
-// configurations reach: 24 ... 576). Each kernel is a template over a padded
-// width DP >= D: D = 24 and 40 are not multiples of mma's k-step of 16, and
+// Any D that is a multiple of 8: in bfloat16 from 8 to 32 and 136 to 640
+// (the repo's configurations run 24, 32 and 384 ... 576 here), in float32
+// from 8 to 640. Each bfloat16 kernel is a template over a padded
+// width DP >= D: D = 24 is not a multiple of mma's k-step of 16, and
 // the wide kernel's warps own equal column strips. The pad columns of the
 // Q, K and V tiles are zero-filled by the same cp.async (src-size 0) and the
 // Q fragments read zeros there, so q.k^T is unchanged; output columns past D
 // are never written. D is a multiple of 8, so a 16-byte chunk is all data or
 // all pad.
 //
-//  * D <= 128, DP = round_up(D, 16) (the UNet's heads: 32 in the flagship,
-//    48 in the inpainting model, 24/40/80 in other configurations). Bound on
-//    this card at d = 32: the softmax's exponentials, not the tensor cores.
+//  * D <= 32, DP = round_up(D, 16) (the UNet's heads: 32 in the flagship
+//    and the inpainting model, 24 in lsun_churches; the wgmma kernel is
+//    slower at 256 query rows, PERF.md). Bound on this card at d = 32: the
+//    softmax's exponentials, not the tensor cores.
 //    A score costs 4*D tensor-core operations but one ex2 on the SFU, which
 //    issues 16 a clock per SM: 4.18e12/s at the H100 SXM's 1980 MHz maximum
 //    SM clock against 989e12 op/s, so below D = 59 exp time exceeds the
@@ -48,10 +52,9 @@
 //    over its quad (shfl_xor 1, 2), packs P to bf16 A-fragments in registers
 //    (the m16n8 C layout is the m16n8k16 A layout) and runs O += P*V (V from
 //    ldmatrix.trans) into DP/2 fp32 registers. 4 * 64 * (DP + 8) * 2 bytes
-//    of shared memory a block (20 KiB at DP = 32, 68 KiB at 128). At
-//    DP = 32 a thread takes 83 registers, so 5 blocks share an SM where the
-//    earlier kernel written for d = 32 alone took 78 and 6: about 4% slower
-//    (PERF.md).
+//    of shared memory a block (20 KiB at DP = 32). At DP = 32 a thread
+//    takes 83 registers, so 5 blocks share an SM where the earlier kernel
+//    written for d = 32 alone took 78 and 6: about 4% slower (PERF.md).
 //  * 128 < D <= 640, DP = round_up(D, 64) (the VAE's single head, 512; 384
 //    and 576 in cin256-v2). Bound: operations (its exps take an eighth of
 //    the operation time at D = 512). Design: 8 warps, 64 query rows a block
@@ -321,7 +324,7 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// ---------------------------------------------------------------- D <= 128
+// ---------------------------------------------------------------- D <= 32
 constexpr int kNRows = 64;     // query rows a block: 4 warps x 16
 constexpr int kNKeys = 64;     // keys a tile
 constexpr int kNThreads = 128;
@@ -341,7 +344,7 @@ flash_mma_narrow_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                         int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
                         Strides os, float scale_log2) {
-  static_assert(DP % 16 == 0 && DP <= 128, "DP: a multiple of 16 up to 128");
+  static_assert(DP == 16 || DP == 32, "DP: 16 or 32");
   constexpr int LD = DP + 8;      // smem row: DP/8 + 1 chunks of 16 bytes (odd)
   constexpr int KSTEPS = DP / 16;  // k-steps of Q*K^T
   constexpr int CHUNKS = DP / 8;   // 16-byte chunks a padded row
@@ -808,7 +811,8 @@ cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, in
 }
 
 // The caller guarantees 16-byte aligned bases and strides that are
-// multiples of 8 elements (the cp.async and 4-byte fragment accesses).
+// multiples of 8 elements (the cp.async and 4-byte fragment accesses), and
+// routes D = 40 .. 128 to flash_attention_sm90.cu.
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                         int B, int H, int Nq, int Nk, int D, Strides qs,
                         Strides ks, Strides vs, Strides os, float scale,
@@ -819,12 +823,6 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   switch (D <= 128 ? (D + 15) / 16 * 16 : (D + 63) / 64 * 64) {
     case 16: e = launch_narrow<16>(EALDM_FLASH_ARGS); break;
     case 32: e = launch_narrow<32>(EALDM_FLASH_ARGS); break;
-    case 48: e = launch_narrow<48>(EALDM_FLASH_ARGS); break;
-    case 64: e = launch_narrow<64>(EALDM_FLASH_ARGS); break;
-    case 80: e = launch_narrow<80>(EALDM_FLASH_ARGS); break;
-    case 96: e = launch_narrow<96>(EALDM_FLASH_ARGS); break;
-    case 112: e = launch_narrow<112>(EALDM_FLASH_ARGS); break;
-    case 128: e = launch_narrow<128>(EALDM_FLASH_ARGS); break;
     case 192: e = launch_wide<192>(EALDM_FLASH_ARGS); break;
     case 256: e = launch_wide<256>(EALDM_FLASH_ARGS); break;
     case 320: e = launch_wide<320>(EALDM_FLASH_ARGS); break;

@@ -1,0 +1,126 @@
+"""What paces the wgmma flash-attention kernel, timed on copies of it.
+
+    python -m ealdm_torch.kernels.probe_flash
+
+Builds `csrc/flash_attention_sm90.cu` into `build/kernels/probe/` once for
+each variant below (the file's FLASH_PROBE_* macros; all nvcc processes at
+once) and times each in device time (torch.profiler) at the shapes the
+paths give it, bfloat16, contiguous [B, H, N, D]: the kernel as built;
+without the softmax; without the softmax and the products (the copies,
+barriers and waits alone); the same with K copied and V not, and the whole
+kernel without V's copies (half the bytes); with 1 consumer warpgroup
+(64-row blocks, two an SM), 2 and 3; with
+tiles stored as strips of 16 or 32 columns (TMA rows of 32 or 64 bytes,
+against 128 bytes as built at D = 40 .. 64); and with rings of 6 and 8
+K/V stages (4 as built). A variant that leaves work out computes garbage:
+only its time is read. Prints one line per shape, and the card's name and
+power limit; `chip_smoke.py` phase 2c times the same shapes beside the
+library call.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import subprocess
+
+import torch
+
+from . import build
+
+VARIANTS = {
+    "as built": [],
+    "no softmax": ["-DFLASH_PROBE_SKIP=1"],
+    "copies only": ["-DFLASH_PROBE_SKIP=3"],
+    "K copies only": ["-DFLASH_PROBE_SKIP=7"],
+    "no V copies": ["-DFLASH_PROBE_SKIP=4"],
+    "1 consumer, 2 blocks an SM": ["-DFLASH_PROBE_CONSUMERS=1"],
+    "2 consumers": ["-DFLASH_PROBE_CONSUMERS=2"],
+    "3 consumers": ["-DFLASH_PROBE_CONSUMERS=3"],
+    "16-col strips": ["-DFLASH_PROBE_STRIP=16"],
+    "16-col strips, copies only": ["-DFLASH_PROBE_STRIP=16", "-DFLASH_PROBE_SKIP=3"],
+    "32-col strips": ["-DFLASH_PROBE_STRIP=32"],
+    "6 stages": ["-DFLASH_PROBE_STAGES=6"],
+    "8 stages": ["-DFLASH_PROBE_STAGES=8"],
+    "8 stages, copies only": ["-DFLASH_PROBE_STAGES=8", "-DFLASH_PROBE_SKIP=3"],
+}
+# txt2img's d=40 at 1,024 rows and d=80 at 256, inpainting's d=48 at 256;
+# d=80 and d=128 at 1,024 rows
+SHAPES = ((16, 8, 1024, 40), (16, 8, 256, 80), (16, 8, 256, 48), (16, 8, 1024, 80),
+          (16, 8, 1024, 128))
+
+
+def _libraries() -> dict:
+    out_dir = build.BUILD_ROOT / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = str(build.CSRC / "flash_attention_sm90.cu")
+    procs = {}
+    for i, (name, flags) in enumerate(VARIANTS.items()):
+        lib = out_dir / f"libflash_probe{i}.so"
+        procs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, *flags, "-o",
+                                         str(lib), src], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    for name, (proc, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"probe build {name!r} failed:\n{out}")
+        so = ctypes.CDLL(str(lib))
+        so.ealdm_flash_attention_sm90.argtypes = [P, P, P, P] + [I] * 5 + [L] * 12 + [F, P]
+        so.ealdm_flash_attention_sm90.restype = I
+        libs[name] = so
+    return libs
+
+
+def _device_ms(fn, iters=20):
+    """Device time a call (torch.profiler), taken again, up to three times,
+    when a profile records no kernel (as chip_smoke.py's `device_ms`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / iters / 1e3
+        if ms > 0:
+            return ms
+    raise RuntimeError("the profiler recorded no kernel in three profiles")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_flash needs a CUDA card")
+    libs = _libraries()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape in SHAPES:
+        b, h, n, d = shape
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        o = torch.empty_like(q)
+        strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
+        times = {}
+        for name, so in libs.items():
+            if d > 64 and name in ("3 consumers", "1 consumer, 2 blocks an SM"):
+                continue  # their 128 registers do not hold the fragments: spills
+
+            def run(so=so):
+                err = so.ealdm_flash_attention_sm90(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, n, n, d,
+                    *strides, 1 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+                build.check(err, f"probe {name}")
+
+            times[name] = _device_ms(run)
+        print(f"[probe] {list(shape)} " + "; ".join(f"{name} {ms:.4f}"
+                                                     for name, ms in times.items()), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

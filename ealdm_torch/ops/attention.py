@@ -6,8 +6,11 @@ tensors and run `flash_attention_plain`, the same math in torch, on CPU
 tensors. The kernels take any head dim that is a multiple of 8 from 8 to
 640 (`FLASH_HEAD_DIMS`; the JAX kernel takes any) and raise for others.
 bfloat16 runs on the tensor cores and rounds P to bfloat16 before P*V (as
-the TPU's MXU does); it needs 16-byte aligned tensors with strides in
-multiples of 8 elements and raises otherwise. float32 runs on FMA. Each
+the TPU's MXU does): `WGMMA_HEAD_DIMS` on the wgmma/TMA kernel
+(`kernels/csrc/flash_attention_sm90.cu`), the others on `mma.sync`
+(`kernels/csrc/flash_attention.cu`); it needs 16-byte aligned tensors with
+strides in multiples of 8 elements and raises otherwise. float32 runs on
+FMA. Each
 launch counts under `flash_counter(d)` (per head dim and entry point).
 On the card both run inside autograd Functions whose backward is the vjp of
 the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
@@ -27,7 +30,7 @@ from ..kernels import build
 
 __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
            "flash_attention_plain", "flash_counter", "FLASH_HEAD_DIMS",
-           "flash_attention_vjp", "bf16_attention_shares",
+           "flash_attention_vjp", "bf16_attention_shares", "WGMMA_HEAD_DIMS",
            "tiny_ctx_attention_packed", "set_attention_impl", "attention_impl"]
 
 # "dense" (default), "flash" (the kernel at eligible self-attention sites) or
@@ -38,6 +41,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernels take: multiples of 8 (16-byte rows in bfloat16) up
 # to 640 (a wide block's Q and K/V tiles in shared memory)
 FLASH_HEAD_DIMS = range(8, 641, 8)
+# bfloat16 head dims that run `flash_wgmma_narrow_kernel`
+# (`kernels/csrc/flash_attention_sm90.cu`: wgmma, TMA); the others run
+# `flash_attention.cu` (`flash_mma_narrow_kernel` to 32, `flash_mma_wide_kernel`
+# above 128). float32 runs `flash_wide_kernel` at every d.
+WGMMA_HEAD_DIMS = range(40, 129, 8)
 
 
 def flash_counter(d: int, packed: bool = False) -> str:
@@ -242,12 +250,15 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     flat = [s for triple in strides for s in triple]
-    lib = build.library("flash_attention")
-    err = lib.ealdm_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, h, nq, nk, d, *flat, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        err = build.library("flash_attention_sm90").ealdm_flash_attention_sm90(
+            *ptrs, b, h, nq, nk, d, *flat, float(scale), stream)
+        build.check(err, "flash_attention_sm90")
+        return
+    err = build.library("flash_attention").ealdm_flash_attention(
+        *ptrs, _DTYPE_CODE[q.dtype], b, h, nq, nk, d, *flat, float(scale), stream)
     build.check(err, "flash_attention")
 
 
