@@ -12,8 +12,9 @@ Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc (the
      seconds logged), and take a census of the bfloat16 flash kernels' and
      the GroupNorm kernels' machine code (tensor-core, async-copy, ldmatrix
-     and exp instructions; ptxas registers and spills): the wgmma flash
-     kernel needs HGMMA and UTMALDG, no kernel may spill;
+     and exp instructions; ptxas registers and spills): the two wgmma flash
+     kernels need HGMMA and UTMALDG and unserialized products, no kernel
+     may spill;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes and layouts, in bfloat16 and float32, show that two planted
      faults break the bfloat16 attention limits, and time kernel / plain /
@@ -26,10 +27,13 @@ Phases, each of which raises (non-zero exit) on failure:
      (24, 40, 48, 80 at 1024 and 256 tokens; 384 and 576 at 1024; and the
      conditional paths' wide sites [12,1,256,576], [12,1,1024,384],
      [8,1,1024,512]), split and packed, both dtypes, timed like phase 2
-     (each row names the kernel the profile saw); d = 24 .. 80 at a ragged
-     Nq = 1000, Nk = 77; the wrapper's host time a call at [16,8,256,80]
-     and [16,8,256,32] (`host_cost`); the gradients through FlashAttention
-     at d = 48;
+     (each row names the kernel the profile saw); the wide routing
+     (`route_wide_heads`: flash_wgmma_wide_kernel and flash_mma_wide_kernel
+     held and timed in the same process at those sites, [24,1,1024,512]
+     and cin256-v2's VQ-f4 decode [6,1,4096,512], `[route]` lines); d = 24
+     .. 80, 384, 512 and 576 at a ragged Nq = 1000, Nk = 77; the wrapper's
+     host time a call at [16,8,256,80] and [16,8,256,32] (`host_cost`);
+     the gradients through FlashAttention at d = 48 and d = 384;
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -94,6 +98,7 @@ the card's name and power limit, a JSON line with every kernel's numbers
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import math
 import os
@@ -115,11 +120,15 @@ PEAK_BYTES = 3.35e12
 SFU_EXP_PER_CLOCK = 16
 
 # the bfloat16 flash kernels, as named in flash_attention.cu (templates over
-# the padded head dim; mma.sync, cp.async) and flash_attention_sm90.cu
-# (wgmma, TMA: d = 40 .. 128), and every flash forward kernel
+# the padded head dim; mma.sync, cp.async), flash_attention_sm90.cu (wgmma,
+# TMA: d = 40 .. 128) and flash_attention_sm90_wide.cu (wgmma, TMA: d = 136
+# .. 576), and every flash forward kernel
 MMA_KERNELS = ("flash_mma_narrow_kernel", "flash_mma_wide_kernel")
 WGMMA_KERNEL = "flash_wgmma_narrow_kernel"
-FLASH_KERNELS = (*MMA_KERNELS, WGMMA_KERNEL, "flash_wide_kernel")
+WIDE_WGMMA_KERNEL = "flash_wgmma_wide_kernel"
+FLASH_KERNELS = (*MMA_KERNELS, WGMMA_KERNEL, WIDE_WGMMA_KERNEL, "flash_wide_kernel")
+KERNEL_SOURCES = {WGMMA_KERNEL: "flash_attention_sm90.cu",
+                  WIDE_WGMMA_KERNEL: "flash_attention_sm90_wide.cu"}
 # head dims of the repo's configurations other than the flagship's 32 and
 # 512: the UNets' (txt2img 40/80, inpainting 48, lsun_churches 24/48) and
 # cin256-v2's wide heads
@@ -128,6 +137,9 @@ WIDE_HEAD_DIMS = (384, 576)
 # [B, H, N, D] of the conditional paths' wide flash sites: cin256-v2's CFG
 # batch of 12 at ds 4 and ds 2, and txt2img's KL-f8 mid attention at batch 8
 PATH_WIDE_SHAPES = ((12, 1, 256, 576), (12, 1, 1024, 384), (8, 1, 1024, 512))
+# the wide routing's shapes: those, the flagship's VQ-f8 mid attention at
+# batch 24 and cin256-v2's VQ-f4 decode (6 images a call, 64^2 tokens)
+WIDE_ROUTE_SHAPES = (*PATH_WIDE_SHAPES, (24, 1, 1024, 512), (6, 1, 4096, 512))
 # the channels_last GroupNorm kernels (group_norm.cu): the two that stage
 # rows in shared memory by asynchronous copies, and the streaming one; and
 # the NCHW kernels kept from PR 1
@@ -370,20 +382,29 @@ def sass_census(source, names):
 
 def phase_sass():
     """Machine-code census: the bfloat16 flash kernels need tensor-core
-    (HMMA/HGMMA) and asynchronous-copy instructions, the wgmma one HGMMA and
-    TMA loads (UTMALDG), the GroupNorm kernels that stage rows in shared
-    memory asynchronous copies (LDGSTS, UTMALDG or the bulk copy UBLKCP); no
-    kernel of any may spill. Raises otherwise, or if a kernel is missing
-    from the machine code or the nvcc report."""
+    (HMMA/HGMMA) and asynchronous-copy instructions, the two wgmma ones
+    HGMMA and TMA loads (UTMALDG), the GroupNorm kernels that stage rows in
+    shared memory asynchronous copies (LDGSTS, UTMALDG or the bulk copy
+    UBLKCP); no kernel of any may spill, and ptxas may not serialize a
+    wgmma kernel's products (its "Potential Performance Loss" notes). Raises otherwise, or if a
+    kernel is missing from the machine code or the nvcc report."""
+    from ealdm_torch.kernels import build
+
     flash = sass_census("flash_attention", MMA_KERNELS)
-    flash.update(sass_census("flash_attention_sm90", (WGMMA_KERNEL,)))
+    for kernel, source in KERNEL_SOURCES.items():
+        flash.update(sass_census(source.removesuffix(".cu"), (kernel,)))
+        serialized = [line for line in build.build_report(source.removesuffix(".cu")).splitlines()
+                      if "Potential Performance Loss" in line and "wgmma" in line]
+        if serialized:
+            raise RuntimeError(f"ptxas serializes the wgmma products: {serialized[0]}")
     for name, c in flash.items():
         if c["HMMA"] + c["HGMMA"] == 0:
             raise RuntimeError(f"{name} has no tensor-core instruction")
         if not any(c[op] for op in ASYNC_COPY_OPS):
             raise RuntimeError(f"{name} has no asynchronous copy")
-    if not (flash[WGMMA_KERNEL]["HGMMA"] and flash[WGMMA_KERNEL]["UTMALDG"]):
-        raise RuntimeError(f"{WGMMA_KERNEL} needs HGMMA and UTMALDG: {flash[WGMMA_KERNEL]}")
+    for kernel in KERNEL_SOURCES:
+        if not (flash[kernel]["HGMMA"] and flash[kernel]["UTMALDG"]):
+            raise RuntimeError(f"{kernel} needs HGMMA and UTMALDG: {flash[kernel]}")
     gn = sass_census("group_norm", GN_KERNELS)
     for name in GN_STAGING_KERNELS:
         if not any(gn[name][op] for op in ASYNC_COPY_OPS):
@@ -562,7 +583,7 @@ def attention_row(res, errs, row, kernel, shape, layout, kernel_fn, plain_fn, li
     # CUDA-event time per call (`event_ms`) is kept beside the kernel's.
     # `kernel` names the kernel the profile saw, and `source` its file.
     ms, port_kernel = device_ms(lambda: kernel_fn(*qkv), names=True)
-    source = "flash_attention_sm90.cu" if port_kernel == WGMMA_KERNEL else "flash_attention.cu"
+    source = KERNEL_SOURCES.get(port_kernel, "flash_attention.cu")
     res[row] = dict(
         name=row, route="cuda", source=f"ealdm_torch/kernels/csrc/{source}",
         replaces=replaces, launches=None, max_abs_err=errs[kernel],
@@ -591,8 +612,6 @@ def phase_group_norm():
     SiLU; then bfloat16 timings. Each row names the counter its launches
     moved: "group_norm" (one read of x) or "group_norm_two_pass" (two),
     suffixed "_nchw" for the NCHW kernels. Returns the JSON line's rows."""
-    import itertools
-
     import torch
     import torch.nn.functional as F
 
@@ -751,9 +770,10 @@ def phase_head_dims():
                       "ealdm_tpu/ops/attention.py:77", qkv, counter=(flash_counter(d), n))
         del qkv
 
-    # the wgmma kernel's ragged edges at the paths' head dims: a partial
+    route_times = route_wide_heads(res, errs, randn)
+    # the wgmma kernels' ragged edges at the paths' head dims: a partial
     # query block and a partial key tile
-    for d in NARROW_HEAD_DIMS:
+    for d in (*NARROW_HEAD_DIMS, 384, 512, 576):
         q = randn(2, 3, 1000, d, dtype=bf)
         k, v = randn(2, 3, 77, d, dtype=bf), randn(2, 3, 77, d, dtype=bf)
         compare(errs, flash_counter(d), bf, flash_attention(q, k, v),
@@ -761,9 +781,10 @@ def phase_head_dims():
     host = host_cost()
 
     worst = 0.0
-    for dtype in (f32, bf):
-        qkv = [randn(16, 8, 256, 48, dtype=dtype) for _ in range(3)]
-        g = randn(16, 8, 256, 48, dtype=dtype)
+    for shape, dtype in itertools.product(((16, 8, 256, 48), (4, 1, 1024, 384)), (f32, bf)):
+        d = shape[3]
+        qkv = [randn(*shape, dtype=dtype) for _ in range(3)]
+        g = randn(*shape, dtype=dtype)
         outs = {}
         for how, fn in (("kernel", flash_attention), ("plain", sdpa)):
             inputs = [t.detach().requires_grad_() for t in qkv]
@@ -771,19 +792,76 @@ def phase_head_dims():
             outs[how] = (y, torch.autograd.grad(y, inputs, g))
         y, grads = outs["kernel"]
         if y.grad_fn is None or type(y.grad_fn).__name__ != "FlashAttentionBackward":
-            raise RuntimeError(f"flash d=48 output grad_fn {y.grad_fn}")
+            raise RuntimeError(f"flash d={d} output grad_fn {y.grad_fn}")
         rel = [rel_err_to_max(a, b) for a, b in zip(grads, outs["plain"][1])]
         worst = max(worst, *rel)
-        log(f"  flash_attention_d48 gradients [16,8,256,48] {str(dtype)[6:]}: dq, dk, dv "
+        log(f"  flash_attention_d{d} gradients {list(shape)} {str(dtype)[6:]}: dq, dk, dv "
             f"errors / max {[f'{e:.2g}' for e in rel]} (tolerance 1e-5)")
         if not all(math.isfinite(e) and e <= 1e-5 for e in rel):
-            raise RuntimeError("flash d=48 gradients disagree with the plain version")
+            raise RuntimeError(f"flash d={d} gradients disagree with the plain version")
     for (d, n), us in host.items():
         row = res.get(f"flash_attention_d{d}_n{n}")
         if row is not None:
             row["host_us"] = us
     log_rows(res)
-    return res, worst
+    return res, worst, route_times
+
+
+def route_wide_heads(res, errs, randn):
+    """bfloat16 d = 136 .. 576 run flash_wgmma_wide_kernel
+    (`ops.attention.WIDE_WGMMA_HEAD_DIMS`) where it is faster than
+    flash_mma_wide_kernel at the paths' wide sites: here each shape of
+    WIDE_ROUTE_SHAPES runs through both in this process (the mma.sync
+    kernel routed there for these calls only), each held to both bf16
+    limits and checked to be the kernel the profile sees, then timed in
+    device time beside the library call. Logs a [route] line a shape and a
+    verdict a head dim, adds the mma.sync kernel's time (`mma_ms`) to the
+    rows of this phase at those shapes, and returns {shape: (wgmma ms, mma
+    ms, library ms, bound ms)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from ealdm_torch.ops import attention
+    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
+
+    bf = torch.bfloat16
+    routed = attention.WIDE_WGMMA_HEAD_DIMS
+    out, wins = {}, {}
+    for shape in WIDE_ROUTE_SHAPES:
+        b, h, n, d = shape
+        qkv = [randn(*shape, dtype=bf) for _ in range(3)]
+        want = flash_attention_plain(*qkv)
+        times = {}
+        for kernel, dims in ((WIDE_WGMMA_KERNEL, range(136, 577, 8)),
+                             ("flash_mma_wide_kernel", range(0))):
+            attention.WIDE_WGMMA_HEAD_DIMS = dims
+            try:
+                compare(errs, flash_counter(d), bf, flash_attention(*qkv), want,
+                        f"{list(shape)} on {kernel}", attn=(*qkv, None))
+                ms, seen = device_ms(lambda: flash_attention(*qkv), names=True)
+            finally:
+                attention.WIDE_WGMMA_HEAD_DIMS = routed
+            if seen != kernel:
+                raise RuntimeError(f"{list(shape)}: the profile saw {seen}, not {kernel}")
+            times[kernel] = ms
+        lib = device_ms(lambda: F.scaled_dot_product_attention(*qkv))
+        bms, by = bound(4 * b * h * n * n * d, 4 * b * h * n * d * 2, PEAK_BF16, exps=b * h * n * n)
+        new, old = times[WIDE_WGMMA_KERNEL], times["flash_mma_wide_kernel"]
+        out[shape] = (new, old, lib, bms)
+        wins.setdefault(d, []).append(new < old)
+        log(f"[route] d={d} {list(shape)}: flash_mma_wide_kernel {old:.4f} ms, "
+            f"flash_wgmma_wide_kernel {new:.4f} ms, library {lib:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        row = res.get(f"flash_attention_d{d}_b{b}_n{n}")
+        if row is not None:
+            row["mma_ms"] = old
+        del qkv, want
+    for d, w in wins.items():
+        verdict = ("flash_wgmma_wide_kernel" if all(w) else "flash_mma_wide_kernel")
+        log(f"[route] d={d}: the wgmma kernel is faster at {sum(w)} of {len(w)} shapes: "
+            f"{verdict} is the faster; routed to "
+            f"{'flash_wgmma_wide_kernel' if d in routed else 'flash_mma_wide_kernel'}")
+    return out
 
 
 def host_cost(calls=1000):
@@ -2447,8 +2525,12 @@ def main(argv):
             rows = phase_kernels()
             rows.update(phase_group_norm())
             rows["bias_act"] = phase_ops()
-        head_dim_rows, head_dim_grads = phase_head_dims()
+        head_dim_rows, head_dim_grads, route_times = phase_head_dims()
         rows.update(head_dim_rows)
+        for row in rows.values():  # phase 2's d=512 row: the parent kernel's time too
+            times = route_times.get(tuple(row.get("shape", ())))
+            if times is not None and row.get("layout", "").startswith("contiguous"):
+                row["mma_ms"] = times[1]
     launches_by_path = {}
     if not {"--kernels", "--groupnorm", "--train", "--paths"} & set(argv):
         steps, batch = 50, 24
@@ -2474,7 +2556,7 @@ def main(argv):
     if not {"--kernels", "--groupnorm", "--train"} & set(argv):
         path_details, paths = phases_paths(cfg_module)
         launches_by_path.update(path_details)
-        paths["flash_d48_grad_worst"] = head_dim_grads
+        paths["flash_grad_worst"] = head_dim_grads
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row); a row the flagship does not reach reads the first

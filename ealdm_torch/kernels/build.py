@@ -114,9 +114,10 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fa = libs["flash_attention"].ealdm_flash_attention
     fa.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [F, P]
     fa.restype = I
-    fw = libs["flash_attention_sm90"].ealdm_flash_attention_sm90
-    fw.argtypes = [P, P, P, P, I, I, I, I, I] + [L] * 12 + [F, P]
-    fw.restype = I
+    for name in ("flash_attention_sm90", "flash_attention_sm90_wide"):
+        fw = getattr(libs[name], f"ealdm_{name}")
+        fw.argtypes = [P, P, P, P, I, I, I, I, I] + [L] * 12 + [F, P]
+        fw.restype = I
     gn = libs["group_norm"]
     ptrs = [P] * 5  # x, y, scale, bias, pre
     args = [I] * 5 + [L, L, F, I]  # dtype, N, C, HW, G, psn, psc, eps, silu

@@ -15,8 +15,10 @@
 // the running max is finite after the first tile.
 //
 // bfloat16 (`flash_mma_narrow_kernel` for D <= 32, `flash_mma_wide_kernel`
-// for D > 128; D = 40 .. 128 runs `flash_wgmma_narrow_kernel` in
-// flash_attention_sm90.cu, which ops/attention.py calls instead): both
+// for D > 576; D = 40 .. 128 runs `flash_wgmma_narrow_kernel` in
+// flash_attention_sm90.cu and D = 136 .. 576 `flash_wgmma_wide_kernel` in
+// flash_attention_sm90_wide.cu, which ops/attention.py calls instead; the
+// wide kernel here keeps every DP for chip_smoke.py's timing beside them): both
 // products on the tensor cores with
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate). The scale is applied to the
 // fp32 scores, folded with log2(e) into one FMA before ex2.approx; P is
@@ -55,8 +57,9 @@
 //    of shared memory a block (20 KiB at DP = 32). At DP = 32 a thread
 //    takes 83 registers, so 5 blocks share an SM where the earlier kernel
 //    written for d = 32 alone took 78 and 6: about 4% slower (PERF.md).
-//  * 128 < D <= 640, DP = round_up(D, 64) (the VAE's single head, 512; 384
-//    and 576 in cin256-v2). Bound: operations (its exps take an eighth of
+//  * 128 < D <= 640, DP = round_up(D, 64) (routed: 584 .. 640, which no
+//    configuration reaches; timed beside the wgmma kernel at the VAE's 512
+//    and cin256-v2's 384 and 576). Bound: operations (its exps take an eighth of
 //    the operation time at D = 512). Design: 8 warps, 64 query rows a block
 //    for DP <= 512 and 32 above (so that the accumulators fit the register
 //    file and Q plus two K/V buffers the 227 KB of shared memory: 215,552

@@ -1,18 +1,24 @@
-"""What paces the wgmma flash-attention kernel, timed on copies of it.
+"""What paces the wgmma flash-attention kernels, timed on copies of them.
 
-    python -m ealdm_torch.kernels.probe_flash
+    python -m ealdm_torch.kernels.probe_flash          # both kernels
+    python -m ealdm_torch.kernels.probe_flash narrow   # flash_attention_sm90.cu only
+    python -m ealdm_torch.kernels.probe_flash wide     # flash_attention_sm90_wide.cu only
 
-Builds `csrc/flash_attention_sm90.cu` into `build/kernels/probe/` once for
-each variant below (the file's FLASH_PROBE_* macros; all nvcc processes at
-once) and times each in device time (torch.profiler) at the shapes the
-paths give it, bfloat16, contiguous [B, H, N, D]: the kernel as built;
-without the softmax; without the softmax and the products (the copies,
-barriers and waits alone); the same with K copied and V not, and the whole
-kernel without V's copies (half the bytes); with 1 consumer warpgroup
-(64-row blocks, two an SM), 2 and 3; with
-tiles stored as strips of 16 or 32 columns (TMA rows of 32 or 64 bytes,
-against 128 bytes as built at D = 40 .. 64); and with rings of 6 and 8
-K/V stages (4 as built). A variant that leaves work out computes garbage:
+Builds each source into `build/kernels/probe/` once for each of its
+variants below (the file's FLASH_PROBE_* macros; all nvcc processes at once)
+and times each in device time (torch.profiler) at the shapes the paths give
+it, bfloat16, contiguous [B, H, N, D]. The narrow kernel (d = 40 .. 128): as
+built; without the softmax; without the softmax and the products (the
+copies, barriers and waits alone); the same with K copied and V not, and the
+whole kernel without V's copies (half the bytes); with 1 consumer
+warpgroup (64-row blocks, two an SM), 2 and 3; with tiles stored as strips
+of 16 or 32 columns (TMA rows of 32 or 64 bytes, against 128 bytes as built
+at D = 40 .. 64); and with rings of 6 and 8 K/V stages (4 as built). The
+wide kernel (d = 136 .. 576) at cin256-v2's and the VAEs' shapes: as built;
+without the softmax; the copies alone; without V's copies; 3 PV
+warpgroups at d = 384 (2 as built); the key split over a cluster of two
+blocks nowhere and everywhere (as built where twice the blocks fill the
+SMs' waves better). A variant that leaves work out computes garbage:
 only its time is read. Prints one line per shape, and the card's name and
 power limit; `chip_smoke.py` phase 2c times the same shapes beside the
 library call.
@@ -21,13 +27,14 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 import subprocess
 
 import torch
 
 from . import build
 
-VARIANTS = {
+NARROW_VARIANTS = {
     "as built": [],
     "no softmax": ["-DFLASH_PROBE_SKIP=1"],
     "copies only": ["-DFLASH_PROBE_SKIP=3"],
@@ -45,17 +52,39 @@ VARIANTS = {
 }
 # txt2img's d=40 at 1,024 rows and d=80 at 256, inpainting's d=48 at 256;
 # d=80 and d=128 at 1,024 rows
-SHAPES = ((16, 8, 1024, 40), (16, 8, 256, 80), (16, 8, 256, 48), (16, 8, 1024, 80),
-          (16, 8, 1024, 128))
+NARROW_SHAPES = ((16, 8, 1024, 40), (16, 8, 256, 80), (16, 8, 256, 48), (16, 8, 1024, 80),
+                 (16, 8, 1024, 128))
+WIDE_VARIANTS = {
+    "as built": [],
+    "no softmax": ["-DFLASH_PROBE_SKIP=1"],
+    "copies only": ["-DFLASH_PROBE_SKIP=3"],
+    "no V copies": ["-DFLASH_PROBE_SKIP=4"],
+    "3 PV warpgroups at d=384": ["-DFLASH_PROBE_PV_GROUPS=3"],
+    "no key split": ["-DFLASH_PROBE_SPLIT=0"],
+    "key split everywhere": ["-DFLASH_PROBE_SPLIT=1"],
+}
+# cin256-v2's CFG batch at ds 4 and 2, txt2img's KL-f8 and the flagship's
+# VQ-f8 mid attention, cin256-v2's VQ-f4 decode
+WIDE_SHAPES = ((12, 1, 1024, 384), (12, 1, 256, 576), (8, 1, 1024, 512), (24, 1, 1024, 512),
+               (6, 1, 4096, 512))
+# source: (its variants, its shapes, the variants not run at a head dim)
+PROBES = {
+    "flash_attention_sm90": (NARROW_VARIANTS, NARROW_SHAPES,
+                             # their 128 registers do not hold the fragments: spills
+                             lambda name, d: d > 64 and name in (
+                                 "3 consumers", "1 consumer, 2 blocks an SM")),
+    "flash_attention_sm90_wide": (WIDE_VARIANTS, WIDE_SHAPES,
+                                  lambda name, d: name == "3 PV warpgroups at d=384" and d != 384),
+}
 
 
-def _libraries() -> dict:
+def _libraries(source: str, variants: dict) -> dict:
     out_dir = build.BUILD_ROOT / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = str(build.CSRC / "flash_attention_sm90.cu")
+    src = str(build.CSRC / f"{source}.cu")
     procs = {}
-    for i, (name, flags) in enumerate(VARIANTS.items()):
-        lib = out_dir / f"libflash_probe{i}.so"
+    for i, (name, flags) in enumerate(variants.items()):
+        lib = out_dir / f"lib{source}_probe{i}.so"
         procs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, *flags, "-o",
                                          str(lib), src], stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
@@ -64,11 +93,15 @@ def _libraries() -> dict:
     for name, (proc, lib) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"probe build {name!r} failed:\n{out}")
-        so = ctypes.CDLL(str(lib))
-        so.ealdm_flash_attention_sm90.argtypes = [P, P, P, P] + [I] * 5 + [L] * 12 + [F, P]
-        so.ealdm_flash_attention_sm90.restype = I
-        libs[name] = so
+            raise RuntimeError(f"probe build {source} {name!r} failed:\n{out}")
+        spills = sorted({int(x) for x in re.findall(r"(\d+) bytes spill stores", out)})
+        print(f"[probe] build {source} {name}: spill stores {spills} bytes"
+              + "".join(f"; {line.strip()[:160]}" for line in out.splitlines()
+                        if "Performance Loss" in line), flush=True)
+        fn = getattr(ctypes.CDLL(str(lib)), f"ealdm_{source}")
+        fn.argtypes = [P, P, P, P] + [I] * 5 + [L] * 12 + [F, P]
+        fn.restype = I
+        libs[name] = fn
     return libs
 
 
@@ -93,34 +126,41 @@ def _device_ms(fn, iters=20):
     raise RuntimeError("the profiler recorded no kernel in three profiles")
 
 
-def main():
+def main(argv=()):
     if not torch.cuda.is_available():
         raise SystemExit("probe_flash needs a CUDA card")
-    libs = _libraries()
+    which = {"narrow": ["flash_attention_sm90"], "wide": ["flash_attention_sm90_wide"]}.get(
+        argv[0] if argv else "", list(PROBES))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for shape in SHAPES:
-        b, h, n, d = shape
-        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        o = torch.empty_like(q)
-        strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
-        times = {}
-        for name, so in libs.items():
-            if d > 64 and name in ("3 consumers", "1 consumer, 2 blocks an SM"):
-                continue  # their 128 registers do not hold the fragments: spills
+    for source in which:
+        variants, shapes, skip = PROBES[source]
+        libs = _libraries(source, variants)
+        for shape in shapes:
+            b, h, n, d = shape
+            q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(3))
+            o = torch.empty_like(q)
+            strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
+            times = {}
+            for name, fn in libs.items():
+                if skip(name, d):
+                    continue
 
-            def run(so=so):
-                err = so.ealdm_flash_attention_sm90(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, n, n, d,
-                    *strides, 1 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
-                build.check(err, f"probe {name}")
+                def run(fn=fn):
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, n, n,
+                             d, *strides, 1 / math.sqrt(d),
+                             torch.cuda.current_stream().cuda_stream)
+                    build.check(err, f"probe {source} {name}")
 
-            times[name] = _device_ms(run)
-        print(f"[probe] {list(shape)} " + "; ".join(f"{name} {ms:.4f}"
-                                                     for name, ms in times.items()), flush=True)
+                times[name] = _device_ms(run)
+            print(f"[probe] {list(shape)} " + "; ".join(f"{name} {ms:.4f}"
+                                                         for name, ms in times.items()),
+                  flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    main(sys.argv[1:])

@@ -1,17 +1,19 @@
 """Scaled-dot-product attention (counterpart of `ealdm_tpu/ops/attention.py`).
 
 `flash_attention` ([B, H, N, D]) and `flash_attention_packed` ([B, N, H*D])
-launch the hand-written kernel (`kernels/csrc/flash_attention.cu`) on CUDA
-tensors and run `flash_attention_plain`, the same math in torch, on CPU
-tensors. The kernels take any head dim that is a multiple of 8 from 8 to
-640 (`FLASH_HEAD_DIMS`; the JAX kernel takes any) and raise for others.
-bfloat16 runs on the tensor cores and rounds P to bfloat16 before P*V (as
-the TPU's MXU does): `WGMMA_HEAD_DIMS` on the wgmma/TMA kernel
-(`kernels/csrc/flash_attention_sm90.cu`), the others on `mma.sync`
+launch a hand-written kernel on CUDA tensors and run `flash_attention_plain`,
+the same math in torch, on CPU tensors. The kernels run head dims that are
+multiples of 8 from 8 to 640 (`FLASH_HEAD_DIMS`); the wrappers run any other
+d up to 640 zero-padded to the next multiple of 8 (the JAX kernel takes any
+d) and raise above 640. bfloat16 runs on the tensor cores and rounds P to
+bfloat16 before P*V (as the TPU's MXU does): `WGMMA_HEAD_DIMS` on the
+narrow wgmma/TMA kernel (`kernels/csrc/flash_attention_sm90.cu`),
+`WIDE_WGMMA_HEAD_DIMS` on the wide one
+(`kernels/csrc/flash_attention_sm90_wide.cu`), the others on `mma.sync`
 (`kernels/csrc/flash_attention.cu`); it needs 16-byte aligned tensors with
 strides in multiples of 8 elements and raises otherwise. float32 runs on
-FMA. Each
-launch counts under `flash_counter(d)` (per head dim and entry point).
+FMA. Each launch counts under `flash_counter(d)` (per head dim and entry
+point).
 On the card both run inside autograd Functions whose backward is the vjp of
 the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
 do. `bf16_attention_shares` states the limits a bfloat16 kernel is held to
@@ -24,6 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import kernels
 from ..kernels import build
@@ -31,6 +34,7 @@ from ..kernels import build
 __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
            "flash_attention_plain", "flash_counter", "FLASH_HEAD_DIMS",
            "flash_attention_vjp", "bf16_attention_shares", "WGMMA_HEAD_DIMS",
+           "WIDE_WGMMA_HEAD_DIMS",
            "tiny_ctx_attention_packed", "set_attention_impl", "attention_impl"]
 
 # "dense" (default), "flash" (the kernel at eligible self-attention sites) or
@@ -38,14 +42,18 @@ __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
 # the block-diagonal tiny-context cross-attention), as in the JAX package.
 _ATTN_IMPL = "dense"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernels take: multiples of 8 (16-byte rows in bfloat16) up
-# to 640 (a wide block's Q and K/V tiles in shared memory)
+# head dims the kernels run: multiples of 8 (16-byte rows in bfloat16) up
+# to 640 (a wide block's Q and K/V tiles in shared memory); the wrappers pad
+# any other d up to 640 to the next of them
 FLASH_HEAD_DIMS = range(8, 641, 8)
 # bfloat16 head dims that run `flash_wgmma_narrow_kernel`
-# (`kernels/csrc/flash_attention_sm90.cu`: wgmma, TMA); the others run
-# `flash_attention.cu` (`flash_mma_narrow_kernel` to 32, `flash_mma_wide_kernel`
-# above 128). float32 runs `flash_wide_kernel` at every d.
+# (`kernels/csrc/flash_attention_sm90.cu`) and `flash_wgmma_wide_kernel`
+# (`kernels/csrc/flash_attention_sm90_wide.cu`), both wgmma and TMA; the
+# others run `flash_attention.cu` (`flash_mma_narrow_kernel` to 32,
+# `flash_mma_wide_kernel` above 576). float32 runs `flash_wide_kernel` at
+# every d.
 WGMMA_HEAD_DIMS = range(40, 129, 8)
+WIDE_WGMMA_HEAD_DIMS = range(136, 577, 8)
 
 
 def flash_counter(d: int, packed: bool = False) -> str:
@@ -207,12 +215,17 @@ def flash_attention_kernel(q, k, v, scale=None):
         raise ValueError("flash_attention takes [B, H, N, D] q/k/v")
     if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    o = torch.empty_like(q)
     d = q.shape[3]
-    _launch(q, k, v, o, q.shape[0], q.shape[1], q.shape[2], k.shape[2], d,
+    _check_head_dim(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if d % 8:
+        q, k, v = _pad_last(q, k, v)
+    o = torch.empty_like(q)
+    _launch(q, k, v, o, q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3],
             [t.stride()[:3] for t in (q, k, v, o)], scale)
     kernels.count_launch(flash_counter(d), q.shape[2])
-    return o
+    return o[..., :d] if d % 8 else o
 
 
 def flash_attention_packed_kernel(q, k, v, heads, scale=None):
@@ -224,12 +237,35 @@ def flash_attention_packed_kernel(q, k, v, heads, scale=None):
     if hd % heads or k.shape[0] != b or k.shape[2] != hd:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, heads {heads}")
     d = hd // heads
+    _check_head_dim(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if d % 8:  # pad each head's columns: [B, N, H, d] -> [B, N, H * dp]
+        q, k, v = (t.reshape(-1, heads, d) for t in (q, k, v))
+        q, k, v = (t.reshape(b, -1, t.shape[1] * t.shape[2]) for t in _pad_last(q, k, v))
+    dp = q.shape[2] // heads
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    # (batch, head, row) strides of the packed view: heads are d-column strips
-    strides = [(t.stride(0), d * t.stride(2), t.stride(1)) for t in (q, k, v, o)]
-    _launch(q, k, v, o, b, heads, nq, k.shape[1], d, strides, scale)
+    # (batch, head, row) strides of the packed view: heads are dp-column strips
+    strides = [(t.stride(0), dp * t.stride(2), t.stride(1)) for t in (q, k, v, o)]
+    _launch(q, k, v, o, b, heads, nq, k.shape[1], dp, strides, scale)
     kernels.count_launch(flash_counter(d, packed=True), nq)
+    if d % 8:
+        return o.reshape(b, nq, heads, dp)[..., :d].reshape(b, nq, hd)
     return o
+
+
+def _check_head_dim(d):
+    if not 1 <= d <= FLASH_HEAD_DIMS[-1]:
+        raise ValueError(f"the flash kernels take head dims from 1 to 640 (those that "
+                         f"are not multiples of 8 zero-padded), not {d}")
+
+
+def _pad_last(*tensors):
+    """Zero columns up to the next multiple of 8 of the last dim: they leave
+    q k^T, and so the softmax, unchanged (the scale is the real d's), and
+    the output's extra columns are zeros the caller drops."""
+    d = tensors[0].shape[-1]
+    return [F.pad(t, (0, -d % 8)) for t in tensors]
 
 
 def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
@@ -239,7 +275,7 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
         raise TypeError(f"flash kernel takes float32/bfloat16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head dims that are multiples of 8 "
+        raise ValueError(f"the flash kernels run head dims that are multiples of 8 "
                          f"from 8 to 640, not {d}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k, v must be on one device")
@@ -252,10 +288,11 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
     flat = [s for triple in strides for s in triple]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    if q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
-        err = build.library("flash_attention_sm90").ealdm_flash_attention_sm90(
+    if q.dtype == torch.bfloat16 and (d in WGMMA_HEAD_DIMS or d in WIDE_WGMMA_HEAD_DIMS):
+        name = "flash_attention_sm90" if d in WGMMA_HEAD_DIMS else "flash_attention_sm90_wide"
+        err = getattr(build.library(name), f"ealdm_{name}")(
             *ptrs, b, h, nq, nk, d, *flat, float(scale), stream)
-        build.check(err, "flash_attention_sm90")
+        build.check(err, name)
         return
     err = build.library("flash_attention").ealdm_flash_attention(
         *ptrs, _DTYPE_CODE[q.dtype], b, h, nq, nk, d, *flat, float(scale), stream)

@@ -13,7 +13,11 @@ error against that of P's rounding (see its docstring for the derivation).
 Here the emulation is held to both limits, shown to agree with the JAX
 Pallas kernel (interpret mode) when the rounding is off, and shown to break
 them when the online softmax is wrong or P is rounded more coarsely, so that
-the limits would catch a kernel with those faults. At the head dims the
+the limits would catch a kernel with those faults. `emulate_wide` does the
+same for the wide wgmma kernel (`flash_attention_sm90_wide.cu`, d = 136 ..
+576), whose order differs: O's rescale reaches the warpgroups that hold O
+through a double buffer, and with the key split two blocks combine (O,
+max, sum) at the end. At the head dims the
 repo's other configurations reach (24, 40, 48, 80: not multiples of the
 mma k-step, or off the two that the first kernels took), the plain versions
 the card holds the kernels to are checked against the JAX kernels in
@@ -218,3 +222,105 @@ def test_packed_plain_matches_pallas_at_new_head_dims(d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     split = flash_attention_plain(*(_split_heads(t, heads) for t in (tq, tk, tv)))
     torch.testing.assert_close(got, split.transpose(1, 2).reshape(b, n, heads * d))
+
+
+# keys a tile of the wide wgmma kernel (`flash_attention_sm90_wide.cu`
+# `route`) at the paths' head dims; its key split over two blocks runs at
+# [12,1,256,576] and wherever one block per 64 rows leaves half the card idle
+WIDE_BLOCK_K = {384: 32, 512: 32, 576: 32}
+
+
+def emulate_wide(q, k, v, d, key_split=1, scale=None, p_bits=8, stale_alpha=False,
+                 combine=True):
+    """The wide kernel's arithmetic on [B, H, Nq, D] q and [B, H, Nk, D] k/v,
+    in its order: each of `key_split` blocks takes key tiles [t0, t1) of BK
+    keys; its S warpgroup runs the online softmax over each tile and keeps
+    the row sums; its PV warpgroups rescale O by the tile's alpha (read from
+    the tile's buffer) and add P V, each on its own columns, which leaves
+    every element's arithmetic as it is; at the end the blocks' (O, max,
+    sum) combine. Returns the float32 output before its rounding. The
+    faults: `stale_alpha` rescales O by the other buffer's alpha (the
+    previous tile's), `combine=False` adds the second block's O without its
+    rescale."""
+    block_k = WIDE_BLOCK_K[d]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ntiles = -(-k.shape[2] // block_k)
+    blocks = []
+    for r in range(key_split):
+        m = torch.full(q.shape[:3] + (1,), -math.inf)
+        l = torch.zeros(q.shape[:3] + (1,))
+        acc = torch.zeros(qf.shape)
+        alphas = [torch.zeros_like(l)] * 2  # the two buffers
+        for t in range(ntiles * r // key_split, ntiles * (r + 1) // key_split):
+            kt, vt = (x[:, :, t * block_k:(t + 1) * block_k] for x in (kf, vf))
+            s = qf @ kt.transpose(-1, -2)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alphas[t % 2] = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - m_new * c)
+            l = l * alphas[t % 2] + p.sum(dim=-1, keepdim=True)
+            pv = (p if p_bits is None else round_significand(p, p_bits)) @ vt
+            acc = acc * alphas[(t + stale_alpha) % 2] + pv
+            m = m_new
+        blocks.append((acc, m, l))
+    acc, m, l = blocks[0]
+    for acc_b, m_b, l_b in blocks[1:]:
+        mx = torch.maximum(m, m_b)
+        fa, fb = torch.exp2((m - mx) * c), torch.exp2((m_b - mx) * c)
+        acc = acc * fa + (acc_b * fb if combine else acc_b)
+        l = l * fa + l_b * fb
+        m = mx
+    return acc / l
+
+
+# (B, H, Nq, Nk): whole tiles, a ragged last tile, and a key split whose
+# halves hold 4 and 5 tiles (the second ragged)
+WIDE_SHAPES = [(1, 1, 64, 256), (2, 1, 70, 45), (1, 2, 33, 281)]
+
+
+@pytest.mark.parametrize("key_split", [1, 2])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("d", sorted(WIDE_BLOCK_K))
+def test_wide_emulation_within_limit(d, shape, key_split):
+    b, h, nq, nk = shape
+    rng = np.random.default_rng(nq * 1000 + nk + d + key_split)
+    q, k, v = _bf16(rng, b, h, nq, d), _bf16(rng, b, h, nk, d), _bf16(rng, b, h, nk, d)
+    assert max(shares(emulate_wide(q, k, v, d, key_split), q, k, v)) <= 1
+
+
+@pytest.mark.parametrize("d", [384, 576])
+def test_wide_emulation_matches_pallas_without_rounding(d):
+    """float32, P unrounded: the wide order (32-key tiles, alpha through
+    the double buffer, the key split's combine) is the Pallas kernel's
+    online softmax, on the packed [B, N, D] layout of one head: 1e-5."""
+    b, n = 2, 128
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((b, n, d)).astype(np.float32) for _ in range(3))
+    want = _flash_packed_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 1,
+                                 block_k=32, interpret=True)
+
+    def split(x):
+        return torch.from_numpy(x)[:, None]
+
+    for key_split in (1, 2):
+        got = emulate_wide(split(q), split(k), split(v), d, key_split, p_bits=None)
+        np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,fault", [(384, "stale_alpha"), (576, "stale_alpha"),
+                                     (384, "combine"), (576, "combine")])
+def test_broken_wide_emulation_breaks_limit(d, fault):
+    """The faults the wide order can have: PV warpgroups that rescale O by
+    the other P buffer's alpha (the previous tile's), and a key-split
+    combine that adds the second block's O without its rescale. Each is far
+    outside the limit."""
+    b, h, nq, nk = 1, 2, 64, 8 * 32 + 19
+    rng = np.random.default_rng(13)
+    q, k, v = _bf16(rng, b, h, nq, d), _bf16(rng, b, h, nk, d), _bf16(rng, b, h, nk, d)
+    q = q * 2  # spread the scores so the running max and the halves' maxima move
+    assert max(shares(emulate_wide(q, k, v, d, key_split=2), q, k, v)) <= 1
+    broken = emulate_wide(q, k, v, d, key_split=2,
+                          **{fault: fault == "stale_alpha"})
+    assert shares(broken, q, k, v)[0] > 2

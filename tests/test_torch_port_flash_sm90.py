@@ -1,10 +1,15 @@
-"""The wgmma/TMA flash-attention kernel (`flash_attention_sm90.cu`) against
-its plain PyTorch version, on the card.
+"""The wgmma/TMA flash-attention kernels (`flash_attention_sm90.cu`,
+`flash_attention_sm90_wide.cu`) against their plain PyTorch version, on the
+card.
 
-Every bfloat16 head dim that routes to it (`WGMMA_HEAD_DIMS`, d = 40 .. 128),
-at Nq = Nk = 256 and 1,024 and at a ragged pair (Nq = 1,000, Nk = 77: a
-partial query block and a partial key tile), in the contiguous, head-strided
-and packed layouts, each held to both limits of `bf16_attention_shares`.
+Every bfloat16 head dim that routes to the narrow kernel (`WGMMA_HEAD_DIMS`,
+d = 40 .. 128), and the wide kernel's (`WIDE_WGMMA_HEAD_DIMS`) at every
+padded width it runs (DP = 192 .. 576, d = 320 and 448 padded to 384 and
+512) beside d = 640 on the mma.sync kernel, at Nq = Nk = 256 and 1,024 and
+at a ragged pair (Nq = 1,000, Nk = 77: a partial query block and a partial
+key tile), in the contiguous, head-strided and packed layouts, each held to
+both limits of `bf16_attention_shares`; the wide kernel also at the paths'
+shapes, where the key split over a cluster of two blocks runs or does not.
 These tests need an NVIDIA GPU (sm_90a) with nvcc; elsewhere they skip. Run
 them on the card with
     python -m pytest tests/test_torch_port_flash_sm90.py -m cuda -q
@@ -15,6 +20,7 @@ import torch
 from ealdm_torch import kernels
 from ealdm_torch.ops.attention import (
     WGMMA_HEAD_DIMS,
+    WIDE_WGMMA_HEAD_DIMS,
     _split_heads,
     bf16_attention_shares,
     flash_attention,
@@ -46,11 +52,7 @@ def _within_limits(got, q, k, v, want, heads=None):
     assert elem <= 1 and rms <= 1, (elem, rms)
 
 
-@pytest.mark.parametrize("nq,nk", [(256, 256), (1024, 1024), (1000, 77)])
-@pytest.mark.parametrize("d", list(WGMMA_HEAD_DIMS))
-@pytest.mark.parametrize("layout", ["contiguous", "head_strided", "packed"])
-def test_wgmma_flash_attention(dev, layout, d, nq, nk):
-    b, h = 2, 2
+def _check_layout(dev, layout, b, h, d, nq, nk):
     name = flash_counter(d, packed=layout == "packed")
     before = kernels.launches[name]
     if layout == "packed":
@@ -75,12 +77,41 @@ def test_wgmma_flash_attention(dev, layout, d, nq, nk):
     assert kernels.launches[name] == before + 1
 
 
+@pytest.mark.parametrize("nq,nk", [(256, 256), (1024, 1024), (1000, 77)])
+@pytest.mark.parametrize("d", list(WGMMA_HEAD_DIMS))
+@pytest.mark.parametrize("layout", ["contiguous", "head_strided", "packed"])
+def test_wgmma_flash_attention(dev, layout, d, nq, nk):
+    _check_layout(dev, layout, 2, 2, d, nq, nk)
+
+
+@pytest.mark.parametrize("nq,nk", [(256, 256), (1024, 1024), (1000, 77)])
+@pytest.mark.parametrize("d", [136, 192, 256, 320, 384, 448, 512, 576, 640])
+@pytest.mark.parametrize("layout", ["contiguous", "head_strided", "packed"])
+def test_wide_flash_attention(dev, layout, d, nq, nk):
+    """d = 136 .. 576 on the wide wgmma kernel (at 2 x 2 heads the key split
+    runs where a key half holds 4 tiles), 640 on flash_mma_wide_kernel."""
+    _check_layout(dev, layout, 2, 2, d, nq, nk)
+
+
+@pytest.mark.parametrize("shape", [(12, 1, 1024, 384), (12, 1, 256, 576), (8, 1, 1024, 512),
+                                   (24, 1, 1024, 512), (48, 1, 256, 576)])
+def test_wide_flash_attention_path_shapes(dev, shape):
+    """The paths' wide sites (cin256-v2's CFG batch at ds 4 and 2, the VAEs'
+    d=512) and [48,1,256,576], where 192 blocks take no key split."""
+    b, h, n, d = shape
+    q, k, v = (_randn(*shape, dev=dev, seed=s) for s in (1, 2, 3))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    _within_limits(got, q, k, v, flash_attention_plain(q, k, v))
+
+
 def test_wgmma_kernel_is_the_one_launched(dev):
-    """d = 40 runs `flash_wgmma_narrow_kernel` (and d = 32 does not)."""
+    """d = 40 runs `flash_wgmma_narrow_kernel` (and d = 32 does not); d =
+    136, 384 and 576 run `flash_wgmma_wide_kernel`, 640 does not."""
     from torch.profiler import ProfilerActivity, profile
 
     names = {}
-    for d in (40, 32):
+    for d in (40, 32, 136, 384, 576, 640):
         q, k, v = (_randn(2, 2, 256, d, dev=dev, seed=s) for s in (1, 2, 3))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             flash_attention(q, k, v)
@@ -88,13 +119,26 @@ def test_wgmma_kernel_is_the_one_launched(dev):
         names[d] = " ".join(e.key for e in prof.key_averages())
     assert "flash_wgmma_narrow_kernel" in names[40]
     assert "flash_wgmma_narrow_kernel" not in names[32]
+    for d in (136, 384, 576):
+        assert d in WIDE_WGMMA_HEAD_DIMS and "flash_wgmma_wide_kernel" in names[d]
+    assert "flash_wgmma_wide_kernel" not in names[640]
+    assert "flash_mma_wide_kernel" in names[640]
 
 
 def test_wgmma_flash_attention_grad_d48(dev):
     """Gradients through FlashAttention at d = 48 (the inpainting UNet's
     head): the kernel forward, the dense sdpa's vjp as the backward."""
-    qkv = [_randn(2, 4, 256, 48, dev=dev, seed=s).requires_grad_() for s in (1, 2, 3)]
-    g = _randn(2, 4, 256, 48, dev=dev, seed=4)
+    _check_grads(dev, (2, 4, 256, 48))
+
+
+def test_wide_flash_attention_grad_d384(dev):
+    """The same at d = 384 (cin256-v2's head at ds 4), on the wide kernel."""
+    _check_grads(dev, (2, 1, 1024, 384))
+
+
+def _check_grads(dev, shape):
+    qkv = [_randn(*shape, dev=dev, seed=s).requires_grad_() for s in (1, 2, 3)]
+    g = _randn(*shape, dev=dev, seed=4)
     y = flash_attention(*qkv)
     assert type(y.grad_fn).__name__ == "FlashAttentionBackward"
     got = torch.autograd.grad(y, qkv, g)

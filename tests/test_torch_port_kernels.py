@@ -169,13 +169,37 @@ def test_flash_attention_head_dims(dev, dtype, d):
     assert _attention_ok(got, pq, pk, pv, want, heads)
 
 
-@pytest.mark.parametrize("d", [4, 20, 648])
+@pytest.mark.parametrize("d", [648])
 def test_flash_attention_rejects_head_dim_out_of_range(dev, d):
-    """A head dim that is not a multiple of 8, or above 640, raises with the
-    range named (no configuration of the repo reaches one)."""
+    """A head dim above 640 raises with the range named (no configuration of
+    the repo reaches one)."""
     q = _randn(1, 1, 16, d, dtype=torch.float32, dev=dev)
-    with pytest.raises(ValueError, match="multiples of 8 from 8 to 640"):
+    with pytest.raises(ValueError, match="from 1 to 640"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 20])
+def test_flash_attention_pads_head_dims(dev, dtype, d):
+    """A head dim that is not a multiple of 8 runs the kernel on q/k/v
+    zero-padded to the next one (at the real d's scale), split and packed,
+    and keeps the first d columns: it matches the plain version."""
+    heads = 2
+    q = _randn(2, heads, 130, d, dtype=dtype, dev=dev, seed=1)
+    k = _randn(2, heads, 97, d, dtype=dtype, dev=dev, seed=2)
+    v = _randn(2, heads, 97, d, dtype=dtype, dev=dev, seed=3)
+    before = kernels.launches[flash_counter(d)]
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    assert kernels.launches[flash_counter(d)] == before + 1
+    assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
+    pq, pk, pv = (t.transpose(1, 2).reshape(2, t.shape[2], heads * d).contiguous()
+                  for t in (q, k, v))
+    got = flash_attention_packed(pq, pk, pv, heads)
+    assert got.shape == pq.shape
+    want = flash_attention_plain(q, k, v).transpose(1, 2).reshape(got.shape)
+    assert _attention_ok(got, pq, pk, pv, want, heads)
 
 
 # id: ([N, C, H, W], rows of the pre-bias, offset of x). 32 groups. The
