@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernels    # phases 1-2b only: a new kernel's first call
     python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
     python3 chip_smoke.py --train      # the build and phase 6 (training) only
-    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-12 only
+    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-14 only
     python3 chip_smoke.py --host       # the build and the flash wrapper's host cost
 
 Phases, each of which raises (non-zero exit) on failure:
@@ -33,7 +33,10 @@ Phases, each of which raises (non-zero exit) on failure:
      and cin256-v2's VQ-f4 decode [6,1,4096,512], `[route]` lines); d = 24
      .. 80, 384, 512 and 576 at a ragged Nq = 1000, Nk = 77; the wrapper's
      host time a call at [16,8,256,80] and [16,8,256,32] (`host_cost`);
-     the gradients through FlashAttention at d = 48 and d = 384;
+     the gradients through FlashAttention at d = 48 and d = 384; the zoo
+     paths' five flash shapes (ZOO_PATH_SHAPES, a `[route]` line each:
+     kernel, library, bound) and d = 648 and 960 on flash_deep_kernel
+     (held, timed, the profile must see that kernel);
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -84,13 +87,25 @@ Phases, each of which raises (non-zero exit) on failure:
      notebook's settings): classes 25, 187, 448, 992, 6 samples each,
      DDIM-20 at eta 0, scale 3 against the null class 1000, VQ-f4 decode;
      the same checks and numbers.
-  Each of phases 7-12 also holds every kernel launch of one bfloat16 pass
-  (7: encode, one UNet call, decode; 8, 11, 12: one UNet call and a
-  decode; 9: one UNet call; 10: one round trip) against its plain version
-  on the same inputs, at the shapes and strides the path gives it
-  (`hold_sites`). Phases 7-12 run after phase 5 and before phase 6.
+  13. `ldm/lsun_churches256` (`config.CHURCHES`, built by
+     `ealdm_torch.zoo.build`), scripts/sample_diffusion.py's defaults:
+     batch 10, DDIM-50 at eta 1, unconditional, hoisted (scale-shift emb
+     tables), the KL-f8 decode; the GroupNorm sites of 4 and 16 pixels
+     among the held ones; float32 card vs CPU at batch 1, 2 steps.
+  14. `ldm/inpainting_big` (`config.INPAINT_BIG`), upstream
+     scripts/inpaint.py on the two committed data/inpainting_examples as a
+     batch of 2: the attention-free VQ-f4 encoding of the masked image
+     joined to the mask at 64^2, DDIM-50 at eta 0 (concat: the plain step),
+     decode, composite; float32 card vs CPU (conditioning and 2 steps).
+  Each of phases 7-14 also holds every kernel launch of one bfloat16 pass
+  (7, 14: encode, one UNet call, decode; 8, 11, 12, 13: one UNet call
+  and a decode; 9: one UNet call; 10: one round trip) against its plain
+  version on the same inputs, at the shapes and strides the path gives it
+  (`hold_sites`); 11-14 also report img/s (median of three runs), peak
+  GiB and the device's busy time and idle share from one profile. Phases
+  7-14 run after phase 5 and before phase 6.
 
-The last lines of output are a `[paths]` JSON line with phases 7-12's
+The last lines of output are a `[paths]` JSON line with phases 7-14's
 numbers, a `[train]` JSON line with phase 6's numbers,
 the card's name and power limit, a JSON line with every kernel's numbers
 (not with --train), and {"ok": true, "device": {...}}.
@@ -126,7 +141,9 @@ SFU_EXP_PER_CLOCK = 16
 MMA_KERNELS = ("flash_mma_narrow_kernel", "flash_mma_wide_kernel")
 WGMMA_KERNEL = "flash_wgmma_narrow_kernel"
 WIDE_WGMMA_KERNEL = "flash_wgmma_wide_kernel"
-FLASH_KERNELS = (*MMA_KERNELS, WGMMA_KERNEL, WIDE_WGMMA_KERNEL, "flash_wide_kernel")
+# flash_deep_kernel: head dims above 640, and float32 above 512
+DEEP_KERNEL = "flash_deep_kernel"
+FLASH_KERNELS = (*MMA_KERNELS, WGMMA_KERNEL, WIDE_WGMMA_KERNEL, "flash_wide_kernel", DEEP_KERNEL)
 KERNEL_SOURCES = {WGMMA_KERNEL: "flash_attention_sm90.cu",
                   WIDE_WGMMA_KERNEL: "flash_attention_sm90_wide.cu"}
 # head dims of the repo's configurations other than the flagship's 32 and
@@ -140,6 +157,13 @@ PATH_WIDE_SHAPES = ((12, 1, 256, 576), (12, 1, 1024, 384), (8, 1, 1024, 512))
 # the wide routing's shapes: those, the flagship's VQ-f8 mid attention at
 # batch 24 and cin256-v2's VQ-f4 decode (6 images a call, 64^2 tokens)
 WIDE_ROUTE_SHAPES = (*PATH_WIDE_SHAPES, (24, 1, 1024, 512), (6, 1, 4096, 512))
+# [B, H, N, D] of the zoo paths' flash sites (phases 13 and 14):
+# lsun_churches256 at batch 10 (d=24 at 32^2, d=48 at 16^2, the KL-f8 mid
+# attention) and inpainting_big at batch 2 (d=64 at 32^2, d=96 at 16^2)
+ZOO_PATH_SHAPES = ((10, 8, 1024, 24), (10, 8, 256, 48), (10, 1, 1024, 512),
+                   (2, 8, 1024, 64), (2, 8, 256, 96))
+# head dims above the tiled kernels' 640, held and timed on flash_deep_kernel
+DEEP_HEAD_DIMS = (648, 960)
 # the channels_last GroupNorm kernels (group_norm.cu): the two that stage
 # rows in shared memory by asynchronous copies, and the streaming one; and
 # the NCHW kernels kept from PR 1
@@ -391,6 +415,7 @@ def phase_sass():
     from ealdm_torch.kernels import build
 
     flash = sass_census("flash_attention", MMA_KERNELS)
+    sass_census("flash_attention", (DEEP_KERNEL,))  # FMA only: its spills and registers
     for kernel, source in KERNEL_SOURCES.items():
         flash.update(sass_census(source.removesuffix(".cu"), (kernel,)))
         serialized = [line for line in build.build_report(source.removesuffix(".cu")).splitlines()
@@ -717,10 +742,13 @@ def phase_group_norm():
 def phase_head_dims():
     """Flash attention at the head dims of the repo's other configurations:
     NARROW_HEAD_DIMS at [16, 8, N, d] with N = 1024 and 256, WIDE_HEAD_DIMS at
-    [16, 1, 1024, d]. Each against `flash_attention_plain` in bfloat16 (both
-    limits of `bf16_attention_shares`) and float32 (1e-4), through the split
-    and the packed entry point; then bfloat16 timings of the split one (a row
-    each, bound and library call as phase 2's); then the gradients of q, k
+    [16, 1, 1024, d], the paths' shapes PATH_WIDE_SHAPES and ZOO_PATH_SHAPES
+    (a `[route]` line each for the zoo's: kernel, library, bound), and
+    DEEP_HEAD_DIMS at [4, 2, 1024, d] on flash_deep_kernel. Each against
+    `flash_attention_plain` in bfloat16 (both limits of
+    `bf16_attention_shares`) and float32 (1e-4), through the split and the
+    packed entry point; then bfloat16 timings of the split one (a row each,
+    bound and library call as phase 2's); then the gradients of q, k
     and v through FlashAttention at d = 48 against autograd through the
     dense sdpa (1e-5 of each gradient's largest element, as phase 6 (a)).
     Returns (the JSON line's rows, the largest gradient error)."""
@@ -743,7 +771,8 @@ def phase_head_dims():
 
     cases = [(16, 8, n, d) for d in NARROW_HEAD_DIMS for n in (1024, 256)]
     cases += [(16, 1, 1024, d) for d in WIDE_HEAD_DIMS]
-    cases += list(PATH_WIDE_SHAPES)
+    cases += [*PATH_WIDE_SHAPES, *ZOO_PATH_SHAPES]
+    cases += [(4, 2, 1024, d) for d in DEEP_HEAD_DIMS]
     for shape in cases:
         name = flash_counter(shape[3])
         for dtype in (f32, bf):
@@ -760,7 +789,7 @@ def phase_head_dims():
     res = {}
     for shape in cases:
         b, h, n, d = shape
-        if shape in PATH_WIDE_SHAPES:
+        if shape in PATH_WIDE_SHAPES or shape in ZOO_PATH_SHAPES:
             row = f"flash_attention_d{d}_b{b}_n{n}"
         else:
             row = f"flash_attention_d{d}_n{n}" if d in NARROW_HEAD_DIMS else flash_counter(d)
@@ -768,12 +797,19 @@ def phase_head_dims():
         attention_row(res, errs, row, flash_counter(d), shape, "contiguous [B,H,N,D]",
                       flash_attention, flash_attention_plain, F.scaled_dot_product_attention,
                       "ealdm_tpu/ops/attention.py:77", qkv, counter=(flash_counter(d), n))
+        if d in DEEP_HEAD_DIMS and res[row]["kernel"] != DEEP_KERNEL:
+            raise RuntimeError(f"d={d}: the profile saw {res[row]['kernel']}, not {DEEP_KERNEL}")
+        if shape in ZOO_PATH_SHAPES or d in DEEP_HEAD_DIMS:
+            r = res[row]
+            log(f"[route] {'zoo path' if d not in DEEP_HEAD_DIMS else 'deep head'} "
+                f"{list(shape)}: {r['kernel']} {r['ms']:.4f} ms, library {r['library_ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_kind']})")
         del qkv
 
     route_times = route_wide_heads(res, errs, randn)
     # the wgmma kernels' ragged edges at the paths' head dims: a partial
     # query block and a partial key tile
-    for d in (*NARROW_HEAD_DIMS, 384, 512, 576):
+    for d in (*NARROW_HEAD_DIMS, 64, 96, 384, 512, 576, *DEEP_HEAD_DIMS):
         q = randn(2, 3, 1000, d, dtype=bf)
         k, v = randn(2, 3, 77, d, dtype=bf), randn(2, 3, 77, d, dtype=bf)
         compare(errs, flash_counter(d), bf, flash_attention(q, k, v),
@@ -1082,8 +1118,9 @@ def group_norm_sites(module, side):
     """(C, side, groups) of every GroupNorm32 one forward of `module` runs on
     a [N, C, side, side] input, from the module tree: children run in the
     order they were registered, each GroupNorm32 inside a child once, and a
-    resampling child halves or doubles the side for the children after it."""
-    from ealdm_torch.models.layers import Downsample, GroupNorm32, Upsample
+    resampling child (a ResBlock with up / down from its out_norm on)
+    halves or doubles the side for the children after it."""
+    from ealdm_torch.models.layers import Downsample, GroupNorm32, ResBlock, Upsample
     from ealdm_torch.models.vae import VaeDownsample, VaeUpsample
 
     sites = []
@@ -1092,6 +1129,12 @@ def group_norm_sites(module, side):
             side //= 2
         elif isinstance(child, (Upsample, VaeUpsample)):
             side *= 2
+        elif isinstance(child, ResBlock) and child.resample is not None:
+            # in_norm at the input's side, the rest after the resample
+            new = side * 2 if child.resample == "up" else side // 2
+            sites += [(n.weight.numel(), s, n.num_groups)
+                      for n, s in ((child.in_norm, side), (child.out_norm, new))]
+            side = new
         else:
             sites += [(m.weight.numel(), side, m.num_groups) for m in child.modules()
                       if isinstance(m, GroupNorm32)]
@@ -1813,12 +1856,14 @@ def conditional_reference(label, cfg_module, cfg, bf16_model, cond_input, uncond
     return dict(conditioning_rel=ctx_rel, latent_rel=rel)
 
 
-def conditional_path(label, run, census, batch_images, hold_fn, widest_c=None):
-    """The shared half of phases 11 and 12: a warm-up, a run with its launches
+def conditional_path(label, run, census, batch_images, hold_fn, widest_c=None,
+                     small_pixels=None):
+    """The shared half of phases 11-14: a warm-up, a run with its launches
     checked against `census` and its peak, two more timed runs (img/s of the
     median), one profiled run, every kernel launch of `hold_fn` held against
     its plain version; with `widest_c`, the GroupNorm sites of that many
-    channels must be among the held ones. Returns (launch details, numbers)."""
+    channels must be among the held ones, and with `small_pixels` those of
+    at most that many pixels a sample. Returns (launch details, numbers)."""
     import torch
 
     from ealdm_torch import kernels
@@ -1855,6 +1900,14 @@ def conditional_path(label, run, census, batch_images, hold_fn, widest_c=None):
         log(f"[{label}] GroupNorm at C = {widest_c}: {len(wide)} sites "
             f"{sorted(k[1] for k in wide)}, worst {max(wide.values()):.3g} of the limit")
         out[f"group_norm_c{widest_c}_worst_share"] = max(wide.values())
+    if small_pixels is not None:
+        small = {k: v for k, v in held.items()
+                 if k[2].startswith("C/G") and k[1][2] * k[1][3] <= small_pixels}
+        if not small:
+            raise RuntimeError(f"{label}: no GroupNorm site of <= {small_pixels} pixels was held")
+        log(f"[{label}] GroupNorm at <= {small_pixels} pixels a sample: {len(small)} sites "
+            f"{sorted(k[1] for k in small)}, worst {max(small.values()):.3g} of the limit")
+        out["group_norm_small_worst_share"] = max(small.values())
     return details, out
 
 
@@ -1995,8 +2048,201 @@ def phase_cin256(cfg_module):
                          **numbers, reference=ref)
 
 
+# ------------------------------------------------------------------ phases 13-14
+def zoo_reference(label, name, bf16_model, latent, eta, seed, cond_fn=None):
+    """Batch 1, 2 DDIM steps, float32: the zoo entry `name` on the card (its
+    kernels) against the CPU (the plain versions), same weights, x_T and
+    step noise; with `cond_fn(model, device)`, the conditioning too. 1e-3
+    of the latent's (and the conditioning's) scale each, TF32 off, as
+    phase 5."""
+    import torch
+
+    from ealdm_torch import zoo
+    from ealdm_torch.inference import sample_images
+
+    sd = {k: v.float() for k, v in bf16_model.state_dict().items()}
+    g = torch.Generator().manual_seed(seed)
+    x_T = torch.randn(1, *latent, generator=g)
+    draws = [torch.randn(1, *latent, generator=g) for _ in range(2)]
+    ctx, z = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = zoo.build(name, dtype=torch.float32, device=dev).eval()
+        m.load_state_dict(sd)
+        c = None
+        if cond_fn is not None:
+            with torch.no_grad():
+                c = cond_fn(m, dev)
+            ctx[dev] = c.float().cpu()
+        z[dev] = sample_images(m, 1, latent, steps=2, eta=eta, cond=c, x_T=x_T.to(dev),
+                               noise_fn=lambda i, shape: draws[i], decode=False,
+                               device=dev).float().cpu()
+        del m
+    out = dict(latent_rel=rel_err_to_max(z["cuda"], z["cpu"]))
+    if ctx:
+        out["conditioning_rel"] = rel_err_to_max(ctx["cuda"], ctx["cpu"])
+    log(f"[{label}] float32 card vs CPU, batch 1, 2 steps: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in out.items())
+        + f" of max|z| {z['cpu'].abs().max().item():.3g} (tolerance 1e-3 each)")
+    if not all(v <= 1e-3 for v in out.values()):
+        raise RuntimeError(f"{label}: the card's float32 result disagrees with the CPU")
+    return out
+
+
+def zoo_model(label, cfg, seed):
+    """A zoo entry built through `ealdm_torch.zoo.build` in bfloat16 on the
+    card with seeded random weights; logs its parts' sizes."""
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch import zoo
+
+    ealdm_torch.enable_inference_optimizations()
+    t0 = time.perf_counter()
+    model = zoo.build(cfg["zoo"], dtype=torch.bfloat16, device="cuda").eval()
+    random_init_(model, seed=seed)
+    parts = {k: sum(p.numel() for p in getattr(model, k).parameters())
+             for k in ("model", "first_stage_model")}
+    log(f"[{label}] {cfg['zoo']}: UNet {parts['model'] / 1e6:.1f} M, first stage "
+        f"{parts['first_stage_model'] / 1e6:.1f} M parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, {k: v / 1e6 for k, v in parts.items()}
+
+
+def phase_churches(cfg_module):
+    """Phase 13: `ldm/lsun_churches256` (CHURCHES) as scripts/sample_diffusion.py
+    samples it by default, in bfloat16: batch 10, DDIM-50 at eta 1,
+    unconditional, hoisted emb tables (2C scale-shift rows), then the KL-f8
+    decode to [10, 256, 256, 3]. The UNet's ResBlocks resample down to 2^2,
+    so the GroupNorm sites of 4 and 16 pixels (C up to 1,536) must be among
+    the held ones."""
+    import torch
+
+    from ealdm_torch.inference import sample_images
+
+    cfg = cfg_module.CHURCHES
+    batch, steps, zres = 10, 50, cfg["zres"]
+    latent = (zres, zres, cfg["zch"])
+    model, params_m = zoo_model("churches", cfg, seed=100)
+    out = {}
+
+    def run():
+        g = torch.Generator(device="cuda").manual_seed(101)
+        out["img"], out["z"] = sample_images(model, batch, latent, steps=steps, eta=1.0,
+                                             generator=g)
+
+    fs, unet = model.first_stage_model, model.model.diffusion_model
+    census = path_census([(unet, batch, zres, steps), (fs.decoder, batch, zres, 1)])
+    t_mid = torch.full((batch,), 500, dtype=torch.int64, device="cuda")
+    z = torch.randn(batch, *latent, generator=torch.Generator().manual_seed(102)).cuda()
+
+    def one_pass():  # one UNet call, then the decode
+        model.apply_model(z, t_mid, None)
+        model.decode_first_stage(z)
+
+    details, numbers = conditional_path("churches", run, census, batch, one_pass,
+                                        widest_c=1536, small_pixels=16)
+    check_image("churches", out["img"], (batch, cfg["res"], cfg["res"], 3))
+    ref = zoo_reference("churches-reference", cfg["zoo"], model, latent, eta=1.0, seed=103)
+    del model
+    torch.cuda.empty_cache()
+    return details, dict(batch=batch, steps=steps, eta=1.0, params_m=params_m, **numbers,
+                         reference=ref)
+
+
+def inpainting_examples(res):
+    """The two committed `data/inpainting_examples` pairs as one batch, read
+    as scripts/inpaint.py's make_batch reads them: the image in [-1, 1] and
+    the mask (1 = hole, above 0.5 after the resize) at res^2 (bilinear),
+    and the masked image. The PNGs' pixels come from their decoded copy
+    `ealdm_torch/data/inpainting_examples.npz` (the card's machine has no
+    imaging package)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    pixels = np.load(os.path.join(HERE, "ealdm_torch", "data", "inpainting_examples.npz"))
+
+    def load(name):
+        x = torch.from_numpy(pixels[name]).permute(2, 0, 1)[None].float()
+        return F.interpolate(x, size=(res, res), mode="bilinear", align_corners=False)
+
+    imgs, masks = [], []
+    for stem in ("example0", "example1"):
+        imgs.append(load(stem) / 127.5 - 1.0)
+        masks.append((load(f"{stem}_mask") / 255.0 > 0.5).float())
+    img = torch.cat(imgs).permute(0, 2, 3, 1).contiguous()
+    mask = torch.cat(masks).permute(0, 2, 3, 1).contiguous()
+    return img, mask, img * (1.0 - mask)
+
+
+def inpaint_conditioning(model, masked, mask_px):
+    """inpainting_big's concat conditioning (upstream scripts/inpaint.py):
+    the first stage's encoding of the masked image (`__is_first_stage__`:
+    the VQ encoder's pre-quantization latent) joined to the hole mask
+    resized (nearest) to the latent's side."""
+    import torch
+    import torch.nn.functional as F
+
+    c = model.get_learned_conditioning(masked)
+    cc = F.interpolate(mask_px.permute(0, 3, 1, 2), size=tuple(c.shape[1:3]), mode="nearest")
+    return torch.cat([c, cc.permute(0, 2, 3, 1).to(c.dtype)], dim=-1)
+
+
+def phase_inpainting_big(cfg_module):
+    """Phase 14: `ldm/inpainting_big` (INPAINT_BIG) as upstream
+    scripts/inpaint.py runs it on the two committed examples, as one batch of
+    2 in bfloat16: the conditioning (`inpaint_conditioning`), DDIM-50 at eta
+    0 (concat takes the plain step, no hoisting), the decode of the
+    attention-free VQ-f4, and the composite over the known pixels."""
+    import torch
+
+    from ealdm_torch.inference import sample_images
+
+    cfg = cfg_module.INPAINT_BIG
+    steps, res, zres = 50, cfg["res"], cfg["zres"]
+    latent = (zres, zres, cfg["zch"])
+    model, params_m = zoo_model("inpainting_big", cfg, seed=110)
+    img_cpu, mask_cpu, masked_cpu = inpainting_examples(res)
+    img, mask_px, masked = img_cpu.cuda(), mask_cpu.cuda(), masked_cpu.cuda()
+    batch = img.shape[0]
+    log(f"[inpainting_big] batch {batch} (data/inpainting_examples at {res}^2, holes "
+        f"{[round(float(m.mean()), 4) for m in mask_cpu]} of the pixels), DDIM-{steps}, eta 0")
+    out = {}
+
+    def run():
+        with torch.no_grad():
+            cond = inpaint_conditioning(model, masked, mask_px)
+        g = torch.Generator(device="cuda").manual_seed(111)
+        x, _ = sample_images(model, batch, latent, steps=steps, eta=0.0, cond=cond, generator=g)
+        out["img"] = img * (1 - mask_px) + x.float() * mask_px
+
+    fs, unet = model.first_stage_model, model.model.diffusion_model
+    census = path_census([(fs.encoder, batch, res, 1), (unet, batch, zres, steps),
+                          (fs.decoder, batch, zres, 1)])
+    t_mid = torch.full((batch,), 500, dtype=torch.int64, device="cuda")
+    z = torch.randn(batch, *latent, generator=torch.Generator().manual_seed(112)).cuda()
+
+    def one_pass():  # the conditioning, one UNet call, the decode
+        model.apply_model(z, t_mid, inpaint_conditioning(model, masked, mask_px))
+        model.decode_first_stage(z)
+
+    details, numbers = conditional_path("inpainting_big", run, census, batch, one_pass)
+    check_image("inpainting_big", out["img"], (batch, res, res, 3))
+    known = mask_px.expand_as(out["img"]) == 0
+    if not torch.equal(out["img"][known], img.expand_as(out["img"])[known]):
+        raise RuntimeError("inpainting_big: the composite changed the known pixels")
+    ref = zoo_reference(
+        "inpainting_big-reference", cfg["zoo"], model, latent, eta=0.0, seed=113,
+        cond_fn=lambda m, dev: inpaint_conditioning(m, masked_cpu[:1].to(dev),
+                                                    mask_cpu[:1].to(dev)))
+    del model
+    torch.cuda.empty_cache()
+    return details, dict(batch=batch, steps=steps, eta=0.0, params_m=params_m, **numbers,
+                         reference=ref)
+
+
 def phases_paths(cfg_module):
-    """Phases 7-12. Returns ({path: launch details}, the [paths] line)."""
+    """Phases 7-14. Returns ({path: launch details}, the [paths] line)."""
     details, out = {}, {}
     details["inpaint"], out["inpaint"] = phase_inpaint(cfg_module)
     details["uncond"], out["uncond"] = phase_uncond(cfg_module)
@@ -2004,6 +2250,8 @@ def phases_paths(cfg_module):
     details["kl"], out["kl"] = phase_kl(cfg_module)
     details["txt2img"], out["txt2img"] = phase_txt2img(cfg_module)
     details["cin256"], out["cin256"] = phase_cin256(cfg_module)
+    details["churches"], out["churches"] = phase_churches(cfg_module)
+    details["inpainting_big"], out["inpainting_big"] = phase_inpainting_big(cfg_module)
     return details, out
 
 
@@ -2560,7 +2808,7 @@ def main(argv):
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row); a row the flagship does not reach reads the first
-        # path that launches it (phases 7-12 in order), else 0
+        # path that launches it (phases 7-14 in order), else 0
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {
             path: (d.get(counter, 0) if isinstance(counter, tuple)

@@ -8,11 +8,14 @@ layout and names so each counterpart is found under the same path:
              filtered_lrelu, conv2d_resample, grid_sample (plain torch +
              the wrappers of the hand-written CUDA kernels)
   kernels/   CUDA C++ sources for sm_90a and the nvcc/ctypes loader
-  models/    UNet, VQ autoencoder, STDiff conditioning tower, LatentDiffusion
-             (sampling and training surface), distributions, FrozenBatchNorm
-  samplers/  DDIM
+  data/      the WordPiece tokenizer and its vocab, the layout tokens
+  models/    UNet, VQ and KL autoencoders, STDiff conditioning tower, the
+             class, text and spatial cond stages, LatentDiffusion (sampling
+             and training surface), distributions, FrozenBatchNorm
+  samplers/  DDIM, ancestral, PLMS
   training/  the LDM train step (AdamW, EMA, remat), LR schedules, checkpoints
   utils/     the flax-parameter bridge and the device rule
+  zoo.py     the LDM model zoo's architectures (`zoo.build(name)`)
 
 Public tensors are NHWC as in `ealdm_tpu`; convolutional internals are NCHW.
 Entry points run on "cuda" unless the caller passes device="cpu".

@@ -19,10 +19,19 @@ The text- and class-conditional models, at full width:
   CIN256   `configs/latent-diffusion/cin256-v2.yaml`: the ClassEmbedder of
            1001 classes (1000 is the null class of guidance), a 1-head
            UNet of 192 channels, VQ-f4.
+Two entries of the model zoo (`zoo.py`, the published `models/ldm/*`):
+  CHURCHES    `ldm/lsun_churches256`: unconditional, KL-f8, a UNet of 192
+              channels with scale-shift norm and ResBlock resampling down
+              to 2^2 (32^2 x 4 latents);
+  INPAINT_BIG `ldm/inpainting_big`: concat conditioning on the VQ-f4
+              (attention-free) encoding of the masked image and the mask
+              (7 input channels), ResBlock resampling (64^2 x 3 latents).
 """
 from __future__ import annotations
 
 import copy
+
+from . import zoo
 
 _COND = {
     "target": "STDiff.models.UnetCond",
@@ -234,6 +243,13 @@ CIN256 = dict(
         conditioning_key="crossattn",
     ),
 )
+
+
+# 256^2 images through the zoo's own keyword arguments
+CHURCHES = dict(res=256, zres=32, zch=4, zoo="ldm/lsun_churches256",
+                model=zoo.model_kwargs("ldm/lsun_churches256"))
+INPAINT_BIG = dict(res=256, zres=64, zch=3, zoo="ldm/inpainting_big",
+                   model=zoo.model_kwargs("ldm/inpainting_big"))
 
 
 def model_kwargs(cfg: dict) -> dict:

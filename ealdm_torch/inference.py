@@ -4,13 +4,14 @@ decode (counterpart of `ealdm_tpu/inference.py`).
 `sample_images` is the port's main path: conditional (the STDiff pair with
 CFG, or an encoded `cond` / `uncond` pair such as text or class contexts)
 or unconditional, with the inpainting composite when given a mask and x0.
-It runs on the card unless the caller passes device="cpu" (and built the
-model there).
+`log_images` is the image logger's bundle. Both run on the card unless the
+caller passes device="cpu" (and built the model there).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .models.ddpm import LatentDiffusion
@@ -141,3 +142,100 @@ def sample_images(model: LatentDiffusion, batch_size: int, latent_shape,
     if not decode:
         return z
     return model.decode_first_stage(z), z
+
+
+@torch.no_grad()
+def log_images(model: LatentDiffusion, batch: Dict, generator: Optional[torch.Generator] = None,
+               n: int = 8, steps: int = 50, eta: float = 1.0, sample: bool = True,
+               quantize_denoised: bool = True, inpaint: bool = False,
+               plot_progressive_rows: bool = False, device=None) -> Dict[str, torch.Tensor]:
+    """The reference `log_images` bundle as a dict of NHWC tensors, with the
+    JAX package's keys in its order: "inputs" (batch["img"][:n]),
+    "reconstruction", "conditioning" (the STDiff image) or "bbox_image" (the
+    rendered layout), "diffusion_row" (the first min(n, 4) latents noised at
+    6 timesteps from 0 to T - 1, decoded, side by side), then with `sample`:
+    "samples" (DDIM, guidance only for the STDiff pair), with
+    `quantize_denoised` "diff_samples" and "diff_samples_latent" (the
+    samples' VQ-quantized latents and their decode), with `inpaint`
+    "samples_inpainting", "mask" (1 keeps the latent's border, 0 its middle
+    half) and "samples_outpainting", and with `plot_progressive_rows`
+    "progressive_row" (the decoded pred_x0 of 6 evenly spaced steps of a
+    min(n, 4) chain). Every draw (a KL posterior sample, the diffusion
+    row's noise, the samplers' x_T and noise) comes from `generator`, in
+    that order."""
+    from .data.layout import BBoxTokenizer, render_layout
+
+    dev = check_module_device(model, device)
+    out: Dict[str, torch.Tensor] = {}
+    x = batch["img"][:n].to(dev)
+    n = x.shape[0]
+    out["inputs"] = x
+    z = model.scale_factor * model.encode_first_stage(x, generator)
+    out["reconstruction"] = model.decode_first_stage(z)
+    latent_shape = tuple(z.shape[1:])
+
+    mixed = None
+    if model.cond_stage_key == "mixed" and "mixed" in batch:
+        mixed = {k: v[:n].to(dev) for k, v in batch["mixed"].items()}
+        out["conditioning"] = mixed["img"]
+    cond_ctx = None
+    if mixed is None and model.conditioning_key is not None and model.cond_stage_key in batch:
+        # generic conditioning (class ids, caption or bbox tokens)
+        cond_ctx = model.get_learned_conditioning(batch[model.cond_stage_key][:n].to(dev))
+    if model.cond_stage_key == "coordinates_bbox" and "coordinates_bbox" in batch:
+        tok = BBoxTokenizer()
+        out["bbox_image"] = torch.stack([
+            torch.from_numpy(render_layout(tok.decode(ids.tolist()), x.shape[1]))
+            for ids in batch["coordinates_bbox"][:n].cpu()]).to(dev)
+
+    n_row = min(n, 4)
+    ts = np.linspace(0, model.timesteps - 1, 6).astype(np.float32).astype(np.int64)
+    noise = torch.randn(z[:n_row].shape, generator=generator, device=dev)
+    rows = [model.decode_first_stage(model.q_sample(
+        z[:n_row], torch.full((n_row,), int(t), dtype=torch.int64, device=dev), noise))
+        for t in ts]
+    out["diffusion_row"] = torch.cat(rows, dim=2)
+    if not sample:
+        return out
+
+    common = dict(steps=steps, eta=eta, mixed=mixed, cond=cond_ctx,
+                  guidance_scale=None if mixed is not None else 1.0, generator=generator,
+                  device=dev)
+    imgs, zs = sample_images(model, n, latent_shape, **common)
+    out["samples"] = imgs
+    if quantize_denoised:
+        zq = model.quantize_latent(zs)
+        out["diff_samples"] = model.decode_first_stage(zq)
+        out["diff_samples_latent"] = zq
+    if inpaint:
+        h, w = latent_shape[0], latent_shape[1]
+        mask = torch.ones(n, h, w, 1, device=dev)
+        mask[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = 0.0
+        out["samples_inpainting"], _ = sample_images(model, n, latent_shape, mask=mask, x0=z,
+                                                     **common)
+        out["mask"] = mask
+        out["samples_outpainting"], _ = sample_images(model, n, latent_shape, mask=1.0 - mask,
+                                                      x0=z, **common)
+    if plot_progressive_rows:
+        sched = DiffusionSchedule.create(
+            timesteps=model.timesteps, beta_schedule=model.beta_schedule,
+            linear_start=model.linear_start, linear_end=model.linear_end, device=dev)
+        ddim = DDIMSchedule.create(sched, steps, eta=eta)
+        cond = uncond = None
+        ucg = model.unconditional_guidance_scale
+        if mixed is not None:
+            uncond, cond = encode_cfg_conditioning(model, mixed)
+        elif cond_ctx is not None:
+            # condition the chain too, without guidance (no paired negative)
+            cond, ucg = cond_ctx, 1.0
+        _, (_, pred_x0s) = ddim_sample(
+            make_eps_fn(model), (n_row,) + latent_shape, ddim,
+            DDIMConfig(num_steps=steps, eta=eta, unconditional_guidance_scale=ucg,
+                       parameterization=model.parameterization),
+            cond=None if cond is None else cond[:n_row],
+            uncond=None if uncond is None else uncond[:n_row],
+            generator=generator, return_intermediates=True)
+        picks = np.linspace(0, steps - 1, 6).astype(np.float32).astype(np.int64)
+        out["progressive_row"] = torch.cat(
+            [model.decode_first_stage(pred_x0s[int(i)]) for i in picks], dim=2)
+    return out

@@ -3,6 +3,7 @@
     python -m ealdm_torch.kernels.probe_flash          # both kernels
     python -m ealdm_torch.kernels.probe_flash narrow   # flash_attention_sm90.cu only
     python -m ealdm_torch.kernels.probe_flash wide     # flash_attention_sm90_wide.cu only
+    python -m ealdm_torch.kernels.probe_flash f32      # flash_attention.cu's float32 kernels
 
 Builds each source into `build/kernels/probe/` once for each of its
 variants below (the file's FLASH_PROBE_* macros; all nvcc processes at once)
@@ -18,7 +19,10 @@ wide kernel (d = 136 .. 576) at cin256-v2's and the VAEs' shapes: as built;
 without the softmax; the copies alone; without V's copies; 3 PV
 warpgroups at d = 384 (2 as built); the key split over a cluster of two
 blocks nowhere and everywhere (as built where twice the blocks fill the
-SMs' waves better). A variant that leaves work out computes garbage:
+SMs' waves better). The float32 kernels (flash_attention.cu, float32
+inputs): as built (`flash_wide_kernel` up to d = 512, `flash_deep_kernel`
+above), with `flash_deep_kernel` at every d, and with `flash_wide_kernel`
+up to 640 (its 16-row blocks above 512). A variant that leaves work out computes garbage:
 only its time is read. Prints one line per shape, and the card's name and
 power limit; `chip_smoke.py` phase 2c times the same shapes beside the
 library call.
@@ -67,14 +71,28 @@ WIDE_VARIANTS = {
 # VQ-f8 mid attention, cin256-v2's VQ-f4 decode
 WIDE_SHAPES = ((12, 1, 1024, 384), (12, 1, 256, 576), (8, 1, 1024, 512), (24, 1, 1024, 512),
                (6, 1, 4096, 512))
-# source: (its variants, its shapes, the variants not run at a head dim)
+F32_VARIANTS = {
+    "as built": [],
+    "flash_deep_kernel at every d": ["-DFLASH_PROBE_DEEP_ABOVE=0"],
+    "flash_wide_kernel to 640": ["-DFLASH_PROBE_DEEP_ABOVE=640"],
+}
+# the float32 card-vs-CPU passes' heads: the UNets' d = 24 .. 96 and d = 160,
+# the VAEs' 512, cin256-v2's 384 and 576, and 640, the last d below the deep
+# kernel's
+F32_SHAPES = ((2, 8, 1024, 24), (2, 8, 1024, 64), (2, 8, 256, 96), (2, 8, 1024, 160),
+              (1, 1, 1024, 384), (1, 1, 1024, 512), (1, 1, 256, 576), (2, 2, 1024, 640))
+# source: (its variants, its shapes, the variants not run at a head dim, dtype)
 PROBES = {
     "flash_attention_sm90": (NARROW_VARIANTS, NARROW_SHAPES,
                              # their 128 registers do not hold the fragments: spills
                              lambda name, d: d > 64 and name in (
-                                 "3 consumers", "1 consumer, 2 blocks an SM")),
+                                 "3 consumers", "1 consumer, 2 blocks an SM"),
+                             torch.bfloat16),
     "flash_attention_sm90_wide": (WIDE_VARIANTS, WIDE_SHAPES,
-                                  lambda name, d: name == "3 PV warpgroups at d=384" and d != 384),
+                                  lambda name, d: name == "3 PV warpgroups at d=384" and d != 384,
+                                  torch.bfloat16),
+    # its entry takes a dtype code (0: float32) after the output
+    "flash_attention": (F32_VARIANTS, F32_SHAPES, lambda name, d: False, torch.float32),
 }
 
 
@@ -99,7 +117,8 @@ def _libraries(source: str, variants: dict) -> dict:
               + "".join(f"; {line.strip()[:160]}" for line in out.splitlines()
                         if "Performance Loss" in line), flush=True)
         fn = getattr(ctypes.CDLL(str(lib)), f"ealdm_{source}")
-        fn.argtypes = [P, P, P, P] + [I] * 5 + [L] * 12 + [F, P]
+        fn.argtypes = [P, P, P, P] + [I] * (6 if source == "flash_attention" else 5) + [L] * 12 \
+            + [F, P]
         fn.restype = I
         libs[name] = fn
     return libs
@@ -129,32 +148,38 @@ def _device_ms(fn, iters=20):
 def main(argv=()):
     if not torch.cuda.is_available():
         raise SystemExit("probe_flash needs a CUDA card")
-    which = {"narrow": ["flash_attention_sm90"], "wide": ["flash_attention_sm90_wide"]}.get(
-        argv[0] if argv else "", list(PROBES))
+    which = {"narrow": ["flash_attention_sm90"], "wide": ["flash_attention_sm90_wide"],
+             "f32": ["flash_attention"]}.get(argv[0] if argv else "", list(PROBES))
     gen = torch.Generator(device="cuda").manual_seed(0)
     for source in which:
-        variants, shapes, skip = PROBES[source]
+        variants, shapes, skip, dtype = PROBES[source]
         libs = _libraries(source, variants)
+        dtype_arg = [0] if source == "flash_attention" else []
         for shape in shapes:
             b, h, n, d = shape
-            q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+            q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
             o = torch.empty_like(q)
             strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
-            times = {}
+            times, outs = {}, []
             for name, fn in libs.items():
                 if skip(name, d):
                     continue
 
                 def run(fn=fn):
-                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, n, n,
-                             d, *strides, 1 / math.sqrt(d),
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *dtype_arg,
+                             b, h, n, n, d, *strides, 1 / math.sqrt(d),
                              torch.cuda.current_stream().cuda_stream)
                     build.check(err, f"probe {source} {name}")
 
                 times[name] = _device_ms(run)
+                outs.append(o.clone())
+            # the float32 variants compute the same function: how far apart
+            diff = "; max |diff| " + ", ".join(
+                f"{(out - outs[0]).abs().max().item():.3e}" for out in outs[1:]) \
+                if dtype == torch.float32 else ""
             print(f"[probe] {list(shape)} " + "; ".join(f"{name} {ms:.4f}"
-                                                         for name, ms in times.items()),
+                                                         for name, ms in times.items()) + diff,
                   flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())

@@ -1,19 +1,19 @@
 """Conditioning encoders (counterpart of `ealdm_tpu/models/encoders.py`):
-ClassEmbedder, TransformerEmbedder and BERTEmbedder, and `build_encoder`,
-the registry of cond-stage targets.
+ClassEmbedder, TransformerEmbedder, BERTEmbedder and SpatialRescaler, and
+`build_encoder`, the registry of cond-stage targets.
 
-The spatial, hybrid and CLIP encoders are refused with the ROADMAP item
-that ports them: the JAX `SpatialRescaler` resizes with `jax.image.resize`,
-which antialiases when it downsamples (so `F.interpolate` is no
-counterpart), and the CLIP embedders need `models/clip.py`.
+The hybrid and CLIP encoders are refused with the ROADMAP item that ports
+them (the CLIP embedders need `models/clip.py`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from .layers import Conv2D
 from .text_transformer import Embed, SimpleTokenizer, TextTransformer
 
 
@@ -56,10 +56,78 @@ class BERTEmbedder(TransformerEmbedder):
         return self.tokenizer(texts)
 
 
+def linear_resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] float32 weights of `jax.image.resize(method="bilinear")`
+    along one axis (antialias=True, no translation): the triangle kernel
+    max(0, 1 - |x|) at the output samples' centres, widened by n_in / n_out
+    when downsampling (a low-pass filter), each column renormalised to sum
+    to 1 (the borders' cut-off taps), zero where a sample falls outside the
+    input (`jax._src.image.scale.compute_weight_mat`)."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / kernel_scale
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+
+
+def resize_nhwc(x, size, method: str = "bilinear"):
+    """`jax.image.resize` of an NHWC tensor to `size` = (H', W'): "nearest"
+    takes input index floor((i + 0.5) * n_in / n_out); "bilinear" contracts
+    each resized axis with `linear_resize_weights` in float32 (in x's dtype
+    if that is wider)."""
+    _, h, w, _ = x.shape
+    if method == "nearest":
+        for axis, (n_in, n_out) in ((1, (h, size[0])), (2, (w, size[1]))):
+            if n_in != n_out:
+                idx = np.floor(((np.arange(n_out) + 0.5) * n_in / n_out).astype(np.float32))
+                x = x.index_select(axis, torch.from_numpy(idx.astype(np.int64)).to(x.device))
+        return x
+    if not x.is_floating_point():
+        x = x.float()
+    for axis, (n_in, n_out) in ((1, (h, size[0])), (2, (w, size[1]))):
+        if n_in != n_out:
+            wm = torch.from_numpy(linear_resize_weights(n_in, n_out)).to(x.device, x.dtype)
+            x = torch.movedim(torch.tensordot(x, wm, dims=([axis], [0])), -1, axis)
+    return x
+
+
+class SpatialRescaler(nn.Module):
+    """n_stages rescales of NHWC maps by `multiplier` (`resize_nhwc`:
+    bilinear with JAX's antialiasing, or nearest; the JAX module maps every
+    other method name to bilinear), then an optional bias-free 1x1
+    `channel_mapper` to out_channels."""
+
+    _METHODS = ("nearest", "linear", "bilinear", "trilinear", "bicubic", "area")
+
+    def __init__(self, n_stages: int = 1, method: str = "bilinear", multiplier: float = 0.5,
+                 in_channels: int = 3, out_channels: Optional[int] = None,
+                 dtype=torch.float32):
+        super().__init__()
+        if method not in self._METHODS:
+            raise ValueError(f"unknown SpatialRescaler method {method!r}")
+        self.n_stages, self.multiplier = n_stages, multiplier
+        self.method = "nearest" if method == "nearest" else "bilinear"
+        self.channel_mapper = (None if out_channels is None else
+                               Conv2D(in_channels, out_channels, 1, dtype=dtype,
+                                      use_bias=False))
+
+    def forward(self, x):
+        for _ in range(self.n_stages):
+            _, h, w, _ = x.shape
+            size = (max(int(h * self.multiplier), 1), max(int(w * self.multiplier), 1))
+            x = resize_nhwc(x, size, self.method)
+        if self.channel_mapper is not None:
+            x = self.channel_mapper(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return x
+
+
 # cond-stage targets of the JAX registry that a later slice ports
 _NOT_PORTED = {
-    "SpatialRescaler": "ROADMAP queue 1 item 6 (its jax.image.resize antialiases "
-                       "when it downsamples)",
     "HybridConditioner": "ROADMAP queue 1 item 6",
     "FrozenCLIPTextEmbedder": "ROADMAP queue 1 item 6 (needs models/clip.py)",
     "FrozenClipImageEmbedder": "ROADMAP queue 1 item 6 (needs models/clip.py)",
@@ -78,6 +146,8 @@ def build_encoder(target: str, params: Dict[str, Any], dtype=torch.float32):
         return cls(n_embed=params["n_embed"], n_layer=params["n_layer"],
                    vocab_size=params.get("vocab_size", 30522),
                    max_seq_len=params.get("max_seq_len", 77), dtype=dtype)
+    if name == "SpatialRescaler":
+        return SpatialRescaler(**params, dtype=dtype)
     if name == "Identity":
         return None
     if name in _NOT_PORTED:

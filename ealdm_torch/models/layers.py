@@ -61,7 +61,7 @@ class Conv2D(nn.Module):
     """2-D convolution on NCHW input with symmetric integer padding."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 padding=None, dtype=torch.float32):
+                 padding=None, dtype=torch.float32, use_bias=True):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
@@ -69,11 +69,12 @@ class Conv2D(nn.Module):
         self.weight = nn.Parameter(
             torch.zeros(out_channels, in_channels, kernel_size, kernel_size)
         )
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
     def forward(self, x):
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), self.stride, self.padding)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b, self.stride,
+                        self.padding)
 
 
 def conv3x3(cin, cout, dtype=torch.float32):
@@ -140,29 +141,49 @@ class Downsample(nn.Module):
 
 class ResBlock(nn.Module):
     """GroupNorm-SiLU-conv residual block with timestep-embedding injection
-    (the JAX block with its defaults: no scale-shift norm, no resampling,
-    a 1x1 conv on a channel-changing skip)."""
+    (a 1x1 conv on a channel-changing skip). With `up` / `down` both h and
+    the skip input are resampled (nearest x2 / 2x2 average pool) after the
+    in-norm's SiLU; `resample` names which ("up", "down" or None). With
+    `use_scale_shift_norm` the embedding projects to 2 * out_channels, split
+    (scale, shift): out_norm(h) * (1 + scale) + shift, then SiLU; without it
+    the embedding is the out-norm's fused pre-bias."""
 
-    def __init__(self, in_channels, out_channels, emb_channels, dtype=torch.float32):
+    def __init__(self, in_channels, out_channels, emb_channels, dtype=torch.float32,
+                 use_scale_shift_norm=False, up=False, down=False):
         super().__init__()
+        if up and down:
+            raise ValueError("a ResBlock resamples up or down, not both")
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.resample = "up" if up else "down" if down else None
         self.in_norm = GroupNorm32(in_channels)
         self.in_conv = conv3x3(in_channels, out_channels, dtype)
-        self.emb_proj = Dense(emb_channels, out_channels, dtype=dtype)
+        self.emb_proj = Dense(emb_channels, (2 if use_scale_shift_norm else 1) * out_channels,
+                              dtype=dtype)
         self.out_norm = GroupNorm32(out_channels)
         self.out_conv = conv3x3(out_channels, out_channels, dtype)
         self.skip = (conv1x1(in_channels, out_channels, dtype)
                      if out_channels != in_channels else None)
 
     def forward(self, x, emb, emb_out=None):
-        """emb_out: optional precomputed `emb_proj(silu(emb))` [N, C] or a
-        per-step row [C] broadcast over the batch (unet.precompute_emb_tables)."""
-        h = self.in_conv(self.in_norm(x, act=silu))
+        """emb_out: optional precomputed `emb_proj(silu(emb))` [N, (2*)C] or a
+        per-step row [(2*)C] broadcast over the batch
+        (unet.precompute_emb_tables)."""
+        h = self.in_norm(x, act=silu)
+        if self.resample == "up":
+            h, x = upsample_nearest(h), upsample_nearest(x)
+        elif self.resample == "down":
+            h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
+        h = self.in_conv(h)
         if emb_out is None:
             emb_out = self.emb_proj(silu(emb))
         elif emb_out.dim() == 1:
             emb_out = emb_out[None, :]
-        # the embedding add is fused into the norm's statistics pass
-        h = self.out_norm(h, act=silu, pre_bias=emb_out.to(h.dtype))
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out[:, :, None, None].chunk(2, dim=1)
+            h = silu(self.out_norm(h) * (1 + scale) + shift)
+        else:
+            # the embedding add is fused into the norm's statistics pass
+            h = self.out_norm(h, act=silu, pre_bias=emb_out.to(h.dtype))
         h = self.out_conv(h)
         return (x if self.skip is None else self.skip(x)) + h
 

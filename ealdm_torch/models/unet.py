@@ -30,8 +30,7 @@ from .layers import (
 # Options of the JAX UNetModel that no ported configuration changes. They are
 # accepted at these values only; each other branch comes with the
 # configuration that needs it.
-_FIXED_OPTIONS = dict(dropout=0.0, conv_resample=True, num_heads_upsample=-1,
-                      use_scale_shift_norm=False, resblock_updown=False)
+_FIXED_OPTIONS = dict(dropout=0.0, conv_resample=True, num_heads_upsample=-1)
 
 
 def _head_config(ch, num_heads, num_head_channels, use_spatial_transformer,
@@ -51,7 +50,10 @@ def _head_config(ch, num_heads, num_head_channels, use_spatial_transformer,
 class UNetModel(nn.Module):
     """`plan` lists the blocks in execution order as (kind, module name):
     "res", "attn" and "resample" run that module; "push" saves the current
-    features as a skip, "pop" concatenates the last saved skip (name None)."""
+    features as a skip, "pop" concatenates the last saved skip (name None).
+    With `resblock_updown` a ResBlock(down=True) / ResBlock(up=True) of the
+    level's width takes the place of each resample (sites
+    `down_{level}_downres`, `up_{level}_upres`, kind "res")."""
 
     def __init__(
         self,
@@ -69,6 +71,8 @@ class UNetModel(nn.Module):
         context_dim: Optional[int] = None,
         num_classes: Optional[int] = None,
         legacy: bool = True,
+        use_scale_shift_norm: bool = False,
+        resblock_updown: bool = False,
         dtype=torch.float32,
         **options,
     ):
@@ -100,8 +104,9 @@ class UNetModel(nn.Module):
             self.add_module(name, module)
             self.plan.append((kind, name))
 
-        def res(name, cin, cout):
-            add("res", name, ResBlock(cin, cout, emb_dim, dtype=dtype))
+        def res(name, cin, cout, **resample):
+            add("res", name, ResBlock(cin, cout, emb_dim, dtype=dtype,
+                                      use_scale_shift_norm=use_scale_shift_norm, **resample))
 
         def attn(name, ch, ds):
             heads, dim_head = _head_config(ch, num_heads, num_head_channels,
@@ -132,7 +137,10 @@ class UNetModel(nn.Module):
                     attn(f"down_{level}_{i}_attn", ch, ds)
                 push(ch)
             if level != n_levels - 1:
-                add("resample", f"down_{level}_down", Downsample(ch, dtype))
+                if resblock_updown:
+                    res(f"down_{level}_downres", ch, ch, down=True)
+                else:
+                    add("resample", f"down_{level}_down", Downsample(ch, dtype))
                 push(ch)
                 ds *= 2
         res("mid_res1", ch, ch)
@@ -146,7 +154,10 @@ class UNetModel(nn.Module):
                 if ds in attention_resolutions:
                     attn(f"up_{level}_{i}_attn", ch, ds)
                 if level and i == num_res_blocks:
-                    add("resample", f"up_{level}_up", Upsample(ch, dtype))
+                    if resblock_updown:
+                        res(f"up_{level}_upres", ch, ch, up=True)
+                    else:
+                        add("resample", f"up_{level}_up", Upsample(ch, dtype))
                     ds //= 2
         self.out_norm = GroupNorm32(ch)
         self.out_conv = conv3x3(ch, out_channels, dtype)
@@ -156,7 +167,7 @@ class UNetModel(nn.Module):
         y: [N] class ids, given exactly when the UNet has `num_classes`.
 
         context_kv: {attn_site: ((k, v), ...)} precomputed cross-attn K/V
-        (`precompute_context_kv`); emb_tables: {res_site: [out_ch]} this
+        (`precompute_context_kv`); emb_tables: {res_site: [(2*)out_ch]} this
         step's rows of `precompute_emb_tables` (not with `num_classes`: the
         class embedding enters emb before its nonlinear projection)."""
         if (y is None) != (self.num_classes is None):
@@ -234,7 +245,8 @@ def precompute_context_kv(unet: UNetModel, context):
 
 def precompute_emb_tables(unet: UNetModel, timesteps):
     """The timestep MLP and every ResBlock's `emb_proj(silu(emb))` for all
-    sampler timesteps at once: {res_site: [S, out_ch]}."""
+    sampler timesteps at once: {res_site: [S, out_ch]}, [S, 2 * out_ch]
+    (scale, shift) under scale-shift norm."""
     t_emb = timestep_embedding(timesteps, unet.model_channels)
     semb = silu(unet.time_embed_2(silu(unet.time_embed_0(t_emb))))
     res_sites, _ = unet_site_plan(unet)

@@ -2,8 +2,9 @@
 the KL autoencoder and the pixel-space identity.
 
 Encoder, Decoder, VQModel and AutoencoderKL take and return NHWC tensors as
-in the JAX package; their internals run NCHW. The linear-attention block is
-not ported yet.
+in the JAX package; their internals run NCHW. `attn_type` "vanilla" builds
+the single-head attention blocks, "none" builds none (the identity, as the
+reference's nn.Identity); the linear-attention block is not ported yet.
 """
 from __future__ import annotations
 
@@ -90,12 +91,26 @@ class VaeUpsample(nn.Module):
         return self.conv(upsample_nearest(x))
 
 
+def _attn_factory(attn_type: str):
+    """The attention block of `attn_type` (`make_attn`): VaeAttnBlock for
+    "vanilla", the identity for "none"."""
+    if attn_type == "vanilla":
+        return VaeAttnBlock
+    if attn_type == "none":
+        return lambda *args: nn.Identity()
+    if attn_type == "linear":
+        raise NotImplementedError("VaeLinAttnBlock (attn_type 'linear') is not ported yet: "
+                                  "ROADMAP queue 1 item 6")
+    raise ValueError(f"attn_type {attn_type!r} unknown")
+
+
 class Encoder(nn.Module):
     def __init__(self, ch: int, z_channels: int, ch_mult: Sequence[int] = (1, 2, 4, 8),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
                  resolution: int = 256, in_channels: int = 3, double_z: bool = False,
-                 dtype=torch.float32):
+                 attn_type: str = "vanilla", dtype=torch.float32):
         super().__init__()
+        attn = _attn_factory(attn_type)
         self.dtype = dtype
         self.num_levels = len(ch_mult)
         self.num_res_blocks = num_res_blocks
@@ -109,13 +124,13 @@ class Encoder(nn.Module):
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     self.add_module(f"down_{i_level}_attn_{i_block}",
-                                    VaeAttnBlock(block_in, curr_res ** 2, dtype))
+                                    attn(block_in, curr_res ** 2, dtype))
             if i_level != self.num_levels - 1:
                 self.add_module(f"down_{i_level}_downsample",
                                 VaeDownsample(block_in, dtype))
                 curr_res //= 2
         self.mid_block_1 = VaeResnetBlock(block_in, dtype=dtype)
-        self.mid_attn_1 = VaeAttnBlock(block_in, curr_res ** 2, dtype)
+        self.mid_attn_1 = attn(block_in, curr_res ** 2, dtype)
         self.mid_block_2 = VaeResnetBlock(block_in, dtype=dtype)
         self.norm_out = GroupNorm32(block_in, eps=1e-6)
         self.conv_out = conv3x3(block_in, 2 * z_channels if double_z else z_channels, dtype)
@@ -140,8 +155,9 @@ class Decoder(nn.Module):
     def __init__(self, ch: int, out_ch: int, z_channels: int,
                  ch_mult: Sequence[int] = (1, 2, 4, 8), num_res_blocks: int = 2,
                  attn_resolutions: Sequence[int] = (), resolution: int = 256,
-                 dtype=torch.float32):
+                 attn_type: str = "vanilla", dtype=torch.float32):
         super().__init__()
+        attn = _attn_factory(attn_type)
         self.dtype = dtype
         self.num_levels = len(ch_mult)
         self.num_res_blocks = num_res_blocks
@@ -149,7 +165,7 @@ class Decoder(nn.Module):
         curr_res = resolution // 2 ** (self.num_levels - 1)
         self.conv_in = conv3x3(z_channels, block_in, dtype)
         self.mid_block_1 = VaeResnetBlock(block_in, dtype=dtype)
-        self.mid_attn_1 = VaeAttnBlock(block_in, curr_res ** 2, dtype)
+        self.mid_attn_1 = attn(block_in, curr_res ** 2, dtype)
         self.mid_block_2 = VaeResnetBlock(block_in, dtype=dtype)
         for i_level in reversed(range(self.num_levels)):
             block_out = ch * ch_mult[i_level]
@@ -159,7 +175,7 @@ class Decoder(nn.Module):
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     self.add_module(f"up_{i_level}_attn_{i_block}",
-                                    VaeAttnBlock(block_in, curr_res ** 2, dtype))
+                                    attn(block_in, curr_res ** 2, dtype))
             if i_level != 0:
                 self.add_module(f"up_{i_level}_upsample",
                                 VaeUpsample(block_in, dtype))
@@ -185,10 +201,10 @@ class Decoder(nn.Module):
 # ddconfig options that no ported configuration changes, as (the JAX
 # package's default, the one value the port accepts). `double_z` is the
 # model's own: False for VQ, True for KL (the JAX AutoencoderKL asserts it).
+# `attn_type` ("vanilla" or "none"; "linear" raises) is passed on.
 _DD_FIXED = {"dropout": (0.0, 0.0),
              "resamp_with_conv": (True, True), "give_pre_end": (False, False),
-             "tanh_out": (False, False), "attn_type": ("vanilla", "vanilla"),
-             "use_linear_attn": (False, False)}
+             "tanh_out": (False, False), "use_linear_attn": (False, False)}
 
 
 def _ddkwargs(ddconfig: dict, decoder: bool = False, double_z: bool = False,
@@ -199,7 +215,7 @@ def _ddkwargs(ddconfig: dict, decoder: bool = False, double_z: bool = False,
         if value != ported:
             raise NotImplementedError(f"{model} ddconfig {key}={value!r} is not ported yet")
     keys = ["ch", "ch_mult", "num_res_blocks", "attn_resolutions", "resolution",
-            "z_channels"]
+            "z_channels", "attn_type"]
     out = {k: ddconfig[k] for k in keys if k in ddconfig}
     if decoder:
         out["out_ch"] = ddconfig["out_ch"]

@@ -3,17 +3,18 @@
 `flash_attention` ([B, H, N, D]) and `flash_attention_packed` ([B, N, H*D])
 launch a hand-written kernel on CUDA tensors and run `flash_attention_plain`,
 the same math in torch, on CPU tensors. The kernels run head dims that are
-multiples of 8 from 8 to 640 (`FLASH_HEAD_DIMS`); the wrappers run any other
-d up to 640 zero-padded to the next multiple of 8 (the JAX kernel takes any
-d) and raise above 640. bfloat16 runs on the tensor cores and rounds P to
-bfloat16 before P*V (as the TPU's MXU does): `WGMMA_HEAD_DIMS` on the
-narrow wgmma/TMA kernel (`kernels/csrc/flash_attention_sm90.cu`),
-`WIDE_WGMMA_HEAD_DIMS` on the wide one
-(`kernels/csrc/flash_attention_sm90_wide.cu`), the others on `mma.sync`
-(`kernels/csrc/flash_attention.cu`); it needs 16-byte aligned tensors with
-strides in multiples of 8 elements and raises otherwise. float32 runs on
-FMA. Each launch counts under `flash_counter(d)` (per head dim and entry
-point).
+multiples of 8; the wrappers run any other d zero-padded to the next
+multiple of 8, so every d runs, as the JAX kernel takes any d. bfloat16 up
+to 640 runs on the tensor cores and rounds P to bfloat16 before P*V (as
+the TPU's MXU does): `WGMMA_HEAD_DIMS` on the narrow wgmma/TMA kernel
+(`kernels/csrc/flash_attention_sm90.cu`), `WIDE_WGMMA_HEAD_DIMS` on the
+wide one (`kernels/csrc/flash_attention_sm90_wide.cu`), the others on
+`mma.sync` (`kernels/csrc/flash_attention.cu`); it needs 16-byte aligned
+tensors with strides in multiples of 8 elements and raises otherwise.
+float32 runs on FMA, above 512 on `flash_deep_kernel` (FMA, float32 math,
+any d), which also runs bfloat16 above 640 (no configuration's bfloat16
+path reaches such a head). Each launch
+counts under `flash_counter(d)` (per head dim and entry point).
 On the card both run inside autograd Functions whose backward is the vjp of
 the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
 do. `bf16_attention_shares` states the limits a bfloat16 kernel is held to
@@ -32,7 +33,7 @@ from .. import kernels
 from ..kernels import build
 
 __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
-           "flash_attention_plain", "flash_counter", "FLASH_HEAD_DIMS",
+           "flash_attention_plain", "flash_counter",
            "flash_attention_vjp", "bf16_attention_shares", "WGMMA_HEAD_DIMS",
            "WIDE_WGMMA_HEAD_DIMS",
            "tiny_ctx_attention_packed", "set_attention_impl", "attention_impl"]
@@ -42,16 +43,12 @@ __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
 # the block-diagonal tiny-context cross-attention), as in the JAX package.
 _ATTN_IMPL = "dense"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernels run: multiples of 8 (16-byte rows in bfloat16) up
-# to 640 (a wide block's Q and K/V tiles in shared memory); the wrappers pad
-# any other d up to 640 to the next of them
-FLASH_HEAD_DIMS = range(8, 641, 8)
 # bfloat16 head dims that run `flash_wgmma_narrow_kernel`
 # (`kernels/csrc/flash_attention_sm90.cu`) and `flash_wgmma_wide_kernel`
 # (`kernels/csrc/flash_attention_sm90_wide.cu`), both wgmma and TMA; the
 # others run `flash_attention.cu` (`flash_mma_narrow_kernel` to 32,
-# `flash_mma_wide_kernel` above 576). float32 runs `flash_wide_kernel` at
-# every d.
+# `flash_mma_wide_kernel` above 576). float32 runs `flash_wide_kernel` up to
+# d = 512 and `flash_deep_kernel` above.
 WGMMA_HEAD_DIMS = range(40, 129, 8)
 WIDE_WGMMA_HEAD_DIMS = range(136, 577, 8)
 
@@ -255,9 +252,8 @@ def flash_attention_packed_kernel(q, k, v, heads, scale=None):
 
 
 def _check_head_dim(d):
-    if not 1 <= d <= FLASH_HEAD_DIMS[-1]:
-        raise ValueError(f"the flash kernels take head dims from 1 to 640 (those that "
-                         f"are not multiples of 8 zero-padded), not {d}")
+    if d < 1:
+        raise ValueError(f"the flash kernels take head dims from 1, not {d}")
 
 
 def _pad_last(*tensors):
@@ -274,9 +270,8 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32/bfloat16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"the flash kernels run head dims that are multiples of 8 "
-                         f"from 8 to 640, not {d}")
+    if d < 8 or d % 8:
+        raise ValueError(f"the flash kernels run head dims that are multiples of 8, not {d}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k, v must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):

@@ -25,7 +25,12 @@ port builds: the STDiff LDM, the AttentionBlock UNets (`qkv` and `proj_out`
 are Dense), VQ-f4/f8, `AutoencoderKL`, whose `quant_conv` maps
 2 * z_channels to 2 * embed_dim and `post_quant_conv` embed_dim back, and
 the text- and class-conditional models (nn.Embed tables, the text
-transformer's LayerNorms and Dense layers, a class UNet's `label_emb`).
+transformer's LayerNorms and Dense layers, a class UNet's `label_emb`), and
+the zoo's (`zoo.py`): a scale-shift ResBlock's `emb_proj` of 2 * out_ch,
+the ResBlock resample sites `down_<l>_downres` / `up_<l>_upres` (their
+nearest and average-pool resamples have no parameters, in either package),
+the bias-free `channel_mapper` kernel of `SpatialRescaler`, and a VQ model
+whose `attn_type` "none" has no attention leaves.
 
 `load_flax_params` raises on any port parameter left unfilled, any flax
 leaf left unused, and any shape that disagrees; so does `load_flax_ema`,

@@ -137,8 +137,8 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("where,key,value", [
-    ("unet_config", "use_scale_shift_norm", True),
-    ("unet_config", "resblock_updown", True),
+    ("ddconfig", "tanh_out", True),
+    ("ddconfig", "resamp_with_conv", False),
     ("unet_config", "dropout", 0.1),
     ("ddconfig", "double_z", True),
     ("ddconfig", "attn_type", "linear"),

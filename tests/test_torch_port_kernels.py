@@ -169,13 +169,29 @@ def test_flash_attention_head_dims(dev, dtype, d):
     assert _attention_ok(got, pq, pk, pv, want, heads)
 
 
-@pytest.mark.parametrize("d", [648])
-def test_flash_attention_rejects_head_dim_out_of_range(dev, d):
-    """A head dim above 640 raises with the range named (no configuration of
-    the repo reaches one)."""
-    q = _randn(1, 1, 16, d, dtype=torch.float32, dev=dev)
-    with pytest.raises(ValueError, match="from 1 to 640"):
-        flash_attention(q, q, q)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [648, 960, 1100])
+def test_flash_attention_deep_head_dims(dev, dtype, d):
+    """A head dim above 640 runs flash_deep_kernel (column strips of 1,024
+    across blocks, the depth in chunks of 128; 1100 is padded to 1104),
+    counted under its head dim, split and packed, against the plain version
+    with ragged query and key counts. It keeps P in float32, so bfloat16 is
+    held to the same limits as the tensor-core kernels."""
+    heads = 2
+    q = _randn(2, heads, 70, d, dtype=dtype, dev=dev, seed=1)
+    k = _randn(2, heads, 45, d, dtype=dtype, dev=dev, seed=2)
+    v = _randn(2, heads, 45, d, dtype=dtype, dev=dev, seed=3)
+    before = kernels.launches[flash_counter(d)]
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    assert kernels.launches[flash_counter(d)] == before + 1
+    assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
+    pq, pk, pv = (t.transpose(1, 2).reshape(2, t.shape[2], heads * d).contiguous()
+                  for t in (q, k, v))
+    got = flash_attention_packed(pq, pk, pv, heads)
+    want = flash_attention_plain(q, k, v).transpose(1, 2).reshape(got.shape)
+    assert _attention_ok(got, pq, pk, pv, want, heads)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -229,6 +245,10 @@ _GN_CASES = {
     "pre_row_broadcast": ((3, 96, 10, 10), "1", 0.0),
     "offset": ((2, 64, 32, 32), "n", 1000.0),
     "offset_two_read": ((2, 64, 130, 130), "n", 1000.0),
+    # lsun_churches256's two lowest levels: 4 and 16 pixels a sample, so
+    # 4 and 6 of the one-read cluster's 8 CTAs hold no row
+    "churches_2x2": ((2, 1536, 2, 2), "n", 0.0),
+    "churches_4x4": ((2, 768, 4, 4), "n", 0.0),
 }
 
 
@@ -260,6 +280,24 @@ def test_group_norm(dev, dtype, case, channels_last):
     assert got.dtype == dtype and group_norm_layout(got) == layout
     want = group_norm_plain(x, scale, bias, 32, 1e-6, silu, "NCHW", pre,
                             stats_dtype=torch.float64)
+    assert _within_limit(dtype, got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 1536, 2, 2), (3, 768, 4, 4), (2, 192, 32, 32)])
+def test_group_norm_without_act_or_pre_bias(dev, dtype, shape):
+    """The form every scale-shift ResBlock's out_norm runs (no SiLU, no
+    pre-bias), at lsun_churches256's channels_last shapes, against the plain
+    version in float64."""
+    x = (3 * _randn(*shape, dtype=torch.float32, dev=dev) + 1).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    scale = 1 + 0.1 * _randn(c, dtype=torch.float32, dev=dev, seed=4)
+    bias = 0.1 * _randn(c, dtype=torch.float32, dev=dev, seed=5)
+    got = group_norm(x, scale, bias, 32, 1e-5, data_format="NCHW")
+    torch.cuda.synchronize()
+    want = group_norm_plain(x, scale, bias, 32, 1e-5, None, "NCHW", stats_dtype=torch.float64)
+    assert group_norm_layout(got) == "channels_last"
     assert _within_limit(dtype, got, want)
 
 

@@ -220,7 +220,7 @@ def test_unported_cond_sentinel_raises():
     kw["cond_stage_config"] = "__is_last_stage__"
     with pytest.raises(ValueError, match="__is_last_stage__"):
         TorchLDM(**kw, device="meta")
-    kw["cond_stage_config"] = {"target": "ldm.modules.encoders.modules.SpatialRescaler",
-                               "params": {"n_stages": 1}}
+    kw["cond_stage_config"] = {"target": "ldm.modules.diffusionmodules.util.HybridConditioner",
+                               "params": {}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchLDM(**kw, device="meta")
