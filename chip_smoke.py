@@ -12,9 +12,9 @@ Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc (the
      seconds logged), and take a census of the bfloat16 flash kernels' and
      the GroupNorm kernels' machine code (tensor-core, async-copy, ldmatrix
-     and exp instructions; ptxas registers and spills): the two wgmma flash
-     kernels need HGMMA and UTMALDG and unserialized products, no kernel
-     may spill;
+     and exp instructions; ptxas registers and spills): the three wgmma
+     flash kernels need HGMMA and UTMALDG and unserialized products, no
+     kernel may spill;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes and layouts, in bfloat16 and float32, show that two planted
      faults break the bfloat16 attention limits, and time kernel / plain /
@@ -27,16 +27,21 @@ Phases, each of which raises (non-zero exit) on failure:
      (24, 40, 48, 80 at 1024 and 256 tokens; 384 and 576 at 1024; and the
      conditional paths' wide sites [12,1,256,576], [12,1,1024,384],
      [8,1,1024,512]), split and packed, both dtypes, timed like phase 2
-     (each row names the kernel the profile saw); the wide routing
-     (`route_wide_heads`: flash_wgmma_wide_kernel and flash_mma_wide_kernel
-     held and timed in the same process at those sites, [24,1,1024,512]
-     and cin256-v2's VQ-f4 decode [6,1,4096,512], `[route]` lines); d = 24
+     (each row names the kernel the profile saw); the wide sites
+     (`route_wide_heads`: flash_wgmma_wide_kernel held and timed beside the
+     library at those sites, [24,1,1024,512] and cin256-v2's VQ-f4 decode
+     [6,1,4096,512], `[route]` lines); d = 24
      .. 80, 384, 512 and 576 at a ragged Nq = 1000, Nk = 77; the wrapper's
      host time a call at [16,8,256,80] and [16,8,256,32] (`host_cost`);
      the gradients through FlashAttention at d = 48 and d = 384; the zoo
      paths' five flash shapes (ZOO_PATH_SHAPES, a `[route]` line each:
-     kernel, library, bound) and d = 648 and 960 on flash_deep_kernel
-     (held, timed, the profile must see that kernel);
+     kernel, library, bound) and d = 648 and 960 (held, timed; the profile
+     must see flash_wgmma_deep_kernel in bfloat16 and flash_deep_kernel in
+     float32); `route_deep_heads`: the deep wgmma kernel at
+     [4, 2, 1024, 640] too, and a `[route]` line at d = 640, 648 and 960
+     (kernel, library, bound); the float32
+     kernels at the float32 reference passes' widest heads, timed beside
+     the library (`float32_heads`);
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -136,16 +141,20 @@ SFU_EXP_PER_CLOCK = 16
 
 # the bfloat16 flash kernels, as named in flash_attention.cu (templates over
 # the padded head dim; mma.sync, cp.async), flash_attention_sm90.cu (wgmma,
-# TMA: d = 40 .. 128) and flash_attention_sm90_wide.cu (wgmma, TMA: d = 136
-# .. 576), and every flash forward kernel
-MMA_KERNELS = ("flash_mma_narrow_kernel", "flash_mma_wide_kernel")
+# TMA: d = 40 .. 128), flash_attention_sm90_wide.cu (wgmma, TMA: d = 136 ..
+# 576) and flash_attention_sm90_deep.cu (wgmma, TMA, a cluster splitting the
+# head dim: d = 648 .. 1,920), and every flash forward kernel
+MMA_KERNELS = ("flash_mma_narrow_kernel",)
 WGMMA_KERNEL = "flash_wgmma_narrow_kernel"
 WIDE_WGMMA_KERNEL = "flash_wgmma_wide_kernel"
-# flash_deep_kernel: head dims above 640, and float32 above 512
+DEEP_WGMMA_KERNEL = "flash_wgmma_deep_kernel"
+# flash_deep_kernel: float32 above 512, bfloat16 above 1,920
 DEEP_KERNEL = "flash_deep_kernel"
-FLASH_KERNELS = (*MMA_KERNELS, WGMMA_KERNEL, WIDE_WGMMA_KERNEL, "flash_wide_kernel", DEEP_KERNEL)
+FLASH_KERNELS = (*MMA_KERNELS, WGMMA_KERNEL, WIDE_WGMMA_KERNEL, DEEP_WGMMA_KERNEL,
+                 "flash_wide_kernel", DEEP_KERNEL)
 KERNEL_SOURCES = {WGMMA_KERNEL: "flash_attention_sm90.cu",
-                  WIDE_WGMMA_KERNEL: "flash_attention_sm90_wide.cu"}
+                  WIDE_WGMMA_KERNEL: "flash_attention_sm90_wide.cu",
+                  DEEP_WGMMA_KERNEL: "flash_attention_sm90_deep.cu"}
 # head dims of the repo's configurations other than the flagship's 32 and
 # 512: the UNets' (txt2img 40/80, inpainting 48, lsun_churches 24/48) and
 # cin256-v2's wide heads
@@ -162,8 +171,13 @@ WIDE_ROUTE_SHAPES = (*PATH_WIDE_SHAPES, (24, 1, 1024, 512), (6, 1, 4096, 512))
 # attention) and inpainting_big at batch 2 (d=64 at 32^2, d=96 at 16^2)
 ZOO_PATH_SHAPES = ((10, 8, 1024, 24), (10, 8, 256, 48), (10, 1, 1024, 512),
                    (2, 8, 1024, 64), (2, 8, 256, 96))
-# head dims above the tiled kernels' 640, held and timed on flash_deep_kernel
+# head dims above 640, held and timed on flash_wgmma_deep_kernel (bfloat16)
+# and flash_deep_kernel (float32)
 DEEP_HEAD_DIMS = (648, 960)
+# [B, H, N, D] of the float32 reference passes' widest heads (the VAEs'
+# 512, cin256-v2's 576) and of d = 640: flash_wide_kernel to 512,
+# flash_deep_kernel above
+FLOAT32_SHAPES = ((1, 1, 1024, 512), (1, 1, 256, 576), (2, 2, 1024, 640))
 # the channels_last GroupNorm kernels (group_norm.cu): the two that stage
 # rows in shared memory by asynchronous copies, and the streaming one; and
 # the NCHW kernels kept from PR 1
@@ -406,7 +420,7 @@ def sass_census(source, names):
 
 def phase_sass():
     """Machine-code census: the bfloat16 flash kernels need tensor-core
-    (HMMA/HGMMA) and asynchronous-copy instructions, the two wgmma ones
+    (HMMA/HGMMA) and asynchronous-copy instructions, the three wgmma ones
     HGMMA and TMA loads (UTMALDG), the GroupNorm kernels that stage rows in
     shared memory asynchronous copies (LDGSTS, UTMALDG or the bulk copy
     UBLKCP); no kernel of any may spill, and ptxas may not serialize a
@@ -744,7 +758,8 @@ def phase_head_dims():
     NARROW_HEAD_DIMS at [16, 8, N, d] with N = 1024 and 256, WIDE_HEAD_DIMS at
     [16, 1, 1024, d], the paths' shapes PATH_WIDE_SHAPES and ZOO_PATH_SHAPES
     (a `[route]` line each for the zoo's: kernel, library, bound), and
-    DEEP_HEAD_DIMS at [4, 2, 1024, d] on flash_deep_kernel. Each against
+    DEEP_HEAD_DIMS at [4, 2, 1024, d] (flash_wgmma_deep_kernel in bfloat16,
+    flash_deep_kernel in float32, as the profile must see). Each against
     `flash_attention_plain` in bfloat16 (both limits of
     `bf16_attention_shares`) and float32 (1e-4), through the split and the
     packed entry point; then bfloat16 timings of the split one (a row each,
@@ -797,23 +812,36 @@ def phase_head_dims():
         attention_row(res, errs, row, flash_counter(d), shape, "contiguous [B,H,N,D]",
                       flash_attention, flash_attention_plain, F.scaled_dot_product_attention,
                       "ealdm_tpu/ops/attention.py:77", qkv, counter=(flash_counter(d), n))
-        if d in DEEP_HEAD_DIMS and res[row]["kernel"] != DEEP_KERNEL:
-            raise RuntimeError(f"d={d}: the profile saw {res[row]['kernel']}, not {DEEP_KERNEL}")
-        if shape in ZOO_PATH_SHAPES or d in DEEP_HEAD_DIMS:
+        if d in DEEP_HEAD_DIMS:
+            if res[row]["kernel"] != DEEP_WGMMA_KERNEL:
+                raise RuntimeError(f"d={d} bf16: the profile saw {res[row]['kernel']}, "
+                                   f"not {DEEP_WGMMA_KERNEL}")
+            qkv32 = [t.float() for t in qkv]
+            _, seen = device_ms(lambda: flash_attention(*qkv32), iters=2, names=True)
+            if seen != DEEP_KERNEL:
+                raise RuntimeError(f"d={d} float32: the profile saw {seen}, not {DEEP_KERNEL}")
+            del qkv32
+        if shape in ZOO_PATH_SHAPES:
             r = res[row]
-            log(f"[route] {'zoo path' if d not in DEEP_HEAD_DIMS else 'deep head'} "
-                f"{list(shape)}: {r['kernel']} {r['ms']:.4f} ms, library {r['library_ms']:.4f} "
-                f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_kind']})")
+            log(f"[route] zoo path {list(shape)}: {r['kernel']} {r['ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_kind']})")
         del qkv
 
-    route_times = route_wide_heads(res, errs, randn)
+    route_deep_heads(res, errs, randn)
+    float32_heads(res, errs, randn)
+    route_wide_heads(errs, randn)
     # the wgmma kernels' ragged edges at the paths' head dims: a partial
     # query block and a partial key tile
     for d in (*NARROW_HEAD_DIMS, 64, 96, 384, 512, 576, *DEEP_HEAD_DIMS):
         q = randn(2, 3, 1000, d, dtype=bf)
         k, v = randn(2, 3, 77, d, dtype=bf), randn(2, 3, 77, d, dtype=bf)
-        compare(errs, flash_counter(d), bf, flash_attention(q, k, v),
-                flash_attention_plain(q, k, v), "ragged Nq=1000 Nk=77", attn=(q, k, v, None))
+        want = flash_attention_plain(q, k, v)
+        compare(errs, flash_counter(d), bf, flash_attention(q, k, v), want,
+                "ragged Nq=1000 Nk=77", attn=(q, k, v, None))
+        if d in DEEP_HEAD_DIMS:  # and packed: the cluster's column slices of each head
+            pq, pk, pv = (packed(t) for t in (q, k, v))
+            compare(errs, flash_counter(d), bf, flash_attention_packed(pq, pk, pv, 3),
+                    packed(want), "packed, ragged Nq=1000 Nk=77", attn=(pq, pk, pv, 3))
     host = host_cost()
 
     worst = 0.0
@@ -840,64 +868,105 @@ def phase_head_dims():
         if row is not None:
             row["host_us"] = us
     log_rows(res)
-    return res, worst, route_times
+    return res, worst
 
 
-def route_wide_heads(res, errs, randn):
-    """bfloat16 d = 136 .. 576 run flash_wgmma_wide_kernel
-    (`ops.attention.WIDE_WGMMA_HEAD_DIMS`) where it is faster than
-    flash_mma_wide_kernel at the paths' wide sites: here each shape of
-    WIDE_ROUTE_SHAPES runs through both in this process (the mma.sync
-    kernel routed there for these calls only), each held to both bf16
-    limits and checked to be the kernel the profile sees, then timed in
-    device time beside the library call. Logs a [route] line a shape and a
-    verdict a head dim, adds the mma.sync kernel's time (`mma_ms`) to the
-    rows of this phase at those shapes, and returns {shape: (wgmma ms, mma
-    ms, library ms, bound ms)}."""
+def route_wide_heads(errs, randn):
+    """flash_wgmma_wide_kernel (`ops.attention.WIDE_WGMMA_HEAD_DIMS`) at the
+    paths' wide sites, WIDE_ROUTE_SHAPES: each held to both bf16 limits,
+    checked to be the kernel the profile sees and timed in device time
+    beside the library call. Logs a [route] line a shape."""
     import torch
     import torch.nn.functional as F
 
-    from ealdm_torch.ops import attention
     from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
 
     bf = torch.bfloat16
-    routed = attention.WIDE_WGMMA_HEAD_DIMS
-    out, wins = {}, {}
     for shape in WIDE_ROUTE_SHAPES:
         b, h, n, d = shape
         qkv = [randn(*shape, dtype=bf) for _ in range(3)]
-        want = flash_attention_plain(*qkv)
-        times = {}
-        for kernel, dims in ((WIDE_WGMMA_KERNEL, range(136, 577, 8)),
-                             ("flash_mma_wide_kernel", range(0))):
-            attention.WIDE_WGMMA_HEAD_DIMS = dims
-            try:
-                compare(errs, flash_counter(d), bf, flash_attention(*qkv), want,
-                        f"{list(shape)} on {kernel}", attn=(*qkv, None))
-                ms, seen = device_ms(lambda: flash_attention(*qkv), names=True)
-            finally:
-                attention.WIDE_WGMMA_HEAD_DIMS = routed
-            if seen != kernel:
-                raise RuntimeError(f"{list(shape)}: the profile saw {seen}, not {kernel}")
-            times[kernel] = ms
+        compare(errs, flash_counter(d), bf, flash_attention(*qkv), flash_attention_plain(*qkv),
+                f"{list(shape)}", attn=(*qkv, None))
+        ms, seen = device_ms(lambda: flash_attention(*qkv), names=True)
+        if seen != WIDE_WGMMA_KERNEL:
+            raise RuntimeError(f"{list(shape)}: the profile saw {seen}, not {WIDE_WGMMA_KERNEL}")
         lib = device_ms(lambda: F.scaled_dot_product_attention(*qkv))
         bms, by = bound(4 * b * h * n * n * d, 4 * b * h * n * d * 2, PEAK_BF16, exps=b * h * n * n)
-        new, old = times[WIDE_WGMMA_KERNEL], times["flash_mma_wide_kernel"]
-        out[shape] = (new, old, lib, bms)
-        wins.setdefault(d, []).append(new < old)
-        log(f"[route] d={d} {list(shape)}: flash_mma_wide_kernel {old:.4f} ms, "
-            f"flash_wgmma_wide_kernel {new:.4f} ms, library {lib:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
-        row = res.get(f"flash_attention_d{d}_b{b}_n{n}")
-        if row is not None:
-            row["mma_ms"] = old
-        del qkv, want
-    for d, w in wins.items():
-        verdict = ("flash_wgmma_wide_kernel" if all(w) else "flash_mma_wide_kernel")
-        log(f"[route] d={d}: the wgmma kernel is faster at {sum(w)} of {len(w)} shapes: "
-            f"{verdict} is the faster; routed to "
-            f"{'flash_wgmma_wide_kernel' if d in routed else 'flash_mma_wide_kernel'}")
-    return out
+        log(f"[route] d={d} {list(shape)}: {WIDE_WGMMA_KERNEL} {ms:.4f} ms, library "
+            f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        del qkv
+
+
+def route_deep_heads(res, errs, randn):
+    """The deep wgmma kernel (routed: d = 584 .. 1,920) at [4, 2, 1024, d]
+    for d = 640 (held to both bf16 limits and checked to be the kernel the
+    profile sees, as the DEEP_HEAD_DIMS rows were) and the DEEP_HEAD_DIMS:
+    adds a row for d = 640 and logs a `[route]` line a head dim (kernel,
+    library, bound)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
+
+    bf = torch.bfloat16
+    shape = (4, 2, 1024, 640)
+    qkv = [randn(*shape, dtype=bf) for _ in range(3)]
+    compare(errs, flash_counter(640), bf, flash_attention(*qkv), flash_attention_plain(*qkv),
+            f"{list(shape)}", attn=(*qkv, None))
+    attention_row(res, errs, flash_counter(640), flash_counter(640), shape,
+                  "contiguous [B,H,N,D]", flash_attention, flash_attention_plain,
+                  F.scaled_dot_product_attention, "ealdm_tpu/ops/attention.py:77", qkv,
+                  counter=(flash_counter(640), shape[2]))
+    del qkv
+    for d in (640, *DEEP_HEAD_DIMS):
+        row = res[flash_counter(d)]
+        if row["kernel"] != DEEP_WGMMA_KERNEL:
+            raise RuntimeError(f"d={d} bf16: the profile saw {row['kernel']}, "
+                               f"not {DEEP_WGMMA_KERNEL}")
+        log(f"[route] deep head {row['shape']}: {DEEP_WGMMA_KERNEL} {row['ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_kind']})")
+
+
+def float32_heads(res, errs, randn):
+    """The float32 kernels at FLOAT32_SHAPES (flash_wide_kernel to d = 512,
+    flash_deep_kernel above; the profile must see the routed one), held to
+    1e-4 against the plain version and timed in device time beside the
+    plain version and the library call, with the FMA bound (the operations
+    at 67 TFLOP/s, float32 outside the tensor cores). A row each, with 0
+    launches: the paths run bfloat16 (the float32 card-vs-CPU passes are
+    checks, not paths)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
+
+    f32 = torch.float32
+    for shape in FLOAT32_SHAPES:
+        b, h, n, d = shape
+        qkv = [randn(*shape, dtype=f32) for _ in range(3)]
+        row = f"flash_attention_f32_d{d}"
+        got, want = flash_attention(*qkv), flash_attention_plain(*qkv)
+        compare(errs, row, f32, got, want, f"{list(shape)}")
+        errs[row] = (got - want).abs().max().item()  # compare keeps bfloat16's only
+        ms, seen = device_ms(lambda: flash_attention(*qkv), names=True)
+        want_kernel = "flash_wide_kernel" if d <= 512 else DEEP_KERNEL
+        if seen != want_kernel:
+            raise RuntimeError(f"float32 {list(shape)}: the profile saw {seen}, not {want_kernel}")
+        bms, by = bound(4 * b * h * n * n * d, 4 * b * h * n * d * 4, PEAK_FP32)
+        res[row] = dict(
+            name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention.cu",
+            replaces="ealdm_tpu/ops/attention.py:77", launches=None,
+            max_abs_err=errs[row], ms=ms, plain_ms=device_ms(lambda: flash_attention_plain(*qkv)),
+            bound_ms=bms, bound_by=by, bound_kind=by,
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(*qkv)),
+            event_ms=cuda_ms(lambda: flash_attention(*qkv)), kernel=seen, shape=list(shape),
+            layout="contiguous [B,H,N,D]", dtype="float32",
+            # the counters do not tell the dtypes apart; no path runs float32 flash
+            counter=(f"{row} (float32: on no path)", n))
+        log(f"[route] float32 {list(shape)}: {seen} {ms:.4f} ms, library "
+            f"{res[row]['library_ms']:.4f} ms, FMA bound {bms:.4f} ms ({by})")
+        del qkv, got, want
 
 
 def host_cost(calls=1000):
@@ -2773,12 +2842,8 @@ def main(argv):
             rows = phase_kernels()
             rows.update(phase_group_norm())
             rows["bias_act"] = phase_ops()
-        head_dim_rows, head_dim_grads, route_times = phase_head_dims()
+        head_dim_rows, head_dim_grads = phase_head_dims()
         rows.update(head_dim_rows)
-        for row in rows.values():  # phase 2's d=512 row: the parent kernel's time too
-            times = route_times.get(tuple(row.get("shape", ())))
-            if times is not None and row.get("layout", "").startswith("contiguous"):
-                row["mma_ms"] = times[1]
     launches_by_path = {}
     if not {"--kernels", "--groupnorm", "--train", "--paths"} & set(argv):
         steps, batch = 50, 24

@@ -114,6 +114,9 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fa = libs["flash_attention"].ealdm_flash_attention
     fa.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [F, P]
     fa.restype = I
+    fd = libs["flash_attention_sm90_deep"].ealdm_flash_attention_sm90_deep
+    fd.argtypes = fa.argtypes  # its slice width where fa takes the dtype
+    fd.restype = I
     for name in ("flash_attention_sm90", "flash_attention_sm90_wide"):
         fw = getattr(libs[name], f"ealdm_{name}")
         fw.argtypes = [P, P, P, P, I, I, I, I, I] + [L] * 12 + [F, P]

@@ -14,12 +14,9 @@
 // rows >= Nq are not stored. Every key tile holds at least one valid key, so
 // the running max is finite after the first tile.
 //
-// bfloat16 (`flash_mma_narrow_kernel` for D <= 32, `flash_mma_wide_kernel`
-// for D > 576; D = 40 .. 128 runs `flash_wgmma_narrow_kernel` in
-// flash_attention_sm90.cu and D = 136 .. 576 `flash_wgmma_wide_kernel` in
-// flash_attention_sm90_wide.cu, which ops/attention.py calls instead; the
-// wide kernel here keeps every DP for chip_smoke.py's timing beside them): both
-// products on the tensor cores with
+// bfloat16 `flash_mma_narrow_kernel` runs D <= 32 (D = 40 .. 1,920 run the
+// wgmma kernels of flash_attention_sm90.cu, _wide.cu and _deep.cu, which
+// ops/attention.py calls instead): both products on the tensor cores with
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate). The scale is applied to the
 // fp32 scores, folded with log2(e) into one FMA before ex2.approx; P is
 // rounded to bf16 for P*V (as the TPU's MXU rounds it), the row sums use the
@@ -28,11 +25,10 @@
 // overlaps this tile's math. Shared-memory rows are padded by 16 bytes, so
 // the 8 rows an ldmatrix phase reads fall in 8 distinct 16-byte bank groups.
 //
-// Any D that is a multiple of 8: in bfloat16 from 8 to 32 and 136 to 640
-// (the repo's configurations run 24, 32 and 384 ... 576 here), in float32
-// from 8 to 512. Each bfloat16 kernel is a template over a padded
-// width DP >= D: D = 24 is not a multiple of mma's k-step of 16, and
-// the wide kernel's warps own equal column strips. The pad columns of the
+// Any D that is a multiple of 8: in bfloat16 from 8 to 32 (the repo's
+// configurations run 24 and 32 here), in float32 from 8 to 512. The
+// bfloat16 kernel is a template over a padded width DP >= D: D = 24 is not
+// a multiple of mma's k-step of 16. The pad columns of the
 // Q, K and V tiles are zero-filled by the same cp.async (src-size 0) and the
 // Q fragments read zeros there, so q.k^T is unchanged; output columns past D
 // are never written. D is a multiple of 8, so a 16-byte chunk is all data or
@@ -57,25 +53,11 @@
 //    of shared memory a block (20 KiB at DP = 32). At DP = 32 a thread
 //    takes 83 registers, so 5 blocks share an SM where the earlier kernel
 //    written for d = 32 alone took 78 and 6: about 4% slower (PERF.md).
-//  * 128 < D <= 640, DP = round_up(D, 64) (routed: 584 .. 640, which no
-//    configuration reaches; timed beside the wgmma kernel at the VAE's 512
-//    and cin256-v2's 384 and 576). Bound: operations (its exps take an eighth of
-//    the operation time at D = 512). Design: 8 warps, 64 query rows a block
-//    for DP <= 512 and 32 above (so that the accumulators fit the register
-//    file and Q plus two K/V buffers the 227 KB of shared memory: 215,552
-//    bytes at DP = 512 and 640). Q stays in shared memory, K/V tiles of 32
-//    keys x DP are double buffered. Each warp computes a 16x16 (64 rows) or
-//    16x8 (32 rows) piece of S over the full depth (Q and K by ldmatrix),
-//    the pieces meet in shared memory, 256 / rows threads a row run the
-//    online softmax and write P (bf16) and the per-row rescale, and each
-//    warp keeps a strip of DP / 8 columns of O for every row in fp32
-//    registers (128 at DP = 512), reading P as A-fragments and V by
-//    ldmatrix.trans.
 //
 // float32 keeps the first port's FMA kernel `flash_wide_kernel` (D split
 // over the threads, up to 2 columns a thread, fp32 tiles in shared memory)
 // for every D up to 512. It is the card's float32 reference; the main path
-// runs bfloat16. Above 512 in float32 and above 640 in bfloat16,
+// runs bfloat16. Above 512 in float32 and above 1,920 in bfloat16,
 // `flash_deep_kernel` runs (FMA, fp32 math, any D: 1,024-column strips
 // across blocks, the depth in chunks). On the H100 (probe_flash.py f32,
 // PERF.md) the deep kernel takes 1.6-2.2x the wide kernel's time at D <= 160
@@ -250,12 +232,12 @@ flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ====================================================== float32 D > 512, any D > 640
-// Any head dim above the tensor-core kernels' 640 (JAX's kernel takes any
-// D), in float32 or bfloat16 (math in fp32; P stays fp32, so bfloat16
-// results are only closer to the plain version), and float32 above 512. No
-// configuration's bf16 path reaches such a head: the kernel is right and
-// simple, not fast. It is the float32 kernel above
+// ====================================================== float32 D > 512, bfloat16 D > 1,920
+// float32 above 512 and bfloat16 above the deep wgmma kernel's 1,920
+// (flash_attention_sm90_deep.cu; JAX's kernel takes any D): math in fp32,
+// and P stays fp32, so bfloat16 results are only closer to the plain
+// version. No configuration's path reaches such a
+// head in bf16: the kernel is right and simple, not fast. It is the float32 kernel above
 // with nothing of size D in shared memory, so any D runs in 43 KiB. A block
 // owns 16 query rows and a strip of up to 1,024 output columns (grid z: one
 // strip up to D = 1,024); each thread keeps its 8 columns of the strip
@@ -494,26 +476,6 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
 }
 
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
-}
-
-// max / sum over groups of W neighbouring lanes (W a power of 2 up to 32)
-template <int W>
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 1; off < W; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-template <int W>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < W; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // ---------------------------------------------------------------- D <= 32
 constexpr int kNRows = 64;     // query rows a block: 4 warps x 16
 constexpr int kNKeys = 64;     // keys a tile
@@ -702,236 +664,6 @@ flash_mma_narrow_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- D > 128
-constexpr int kWKeys = 32;        // keys a tile
-constexpr int kWThreads = 256;    // 8 warps
-constexpr int kWSLd = kWKeys + 8; // fp32 score row
-constexpr int kWPLd = kWKeys + 8; // bf16 P row: 80 bytes
-
-template <int DP, int ROWS>
-constexpr size_t wide_mma_smem_bytes() {  // Q, K/V x 2 buffers, P; S, alpha, l
-  return sizeof(bf16) * ((size_t)ROWS * (DP + 8) + 4 * (size_t)kWKeys * (DP + 8) +
-                         (size_t)ROWS * kWPLd) +
-         sizeof(float) * ((size_t)ROWS * kWSLd + 2 * ROWS);
-}
-
-template <int DP, int ROWS>
-__global__ void __launch_bounds__(kWThreads, 1)
-flash_mma_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                      int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
-                      Strides os, float scale_log2) {
-  static_assert(DP % 64 == 0 && (ROWS == 64 || ROWS == 32), "DP / ROWS");
-  constexpr int LD = DP + 8;             // Q/K/V smem row: DP/8 + 1 chunks (odd)
-  constexpr int CHUNKS = DP / 8;
-  constexpr int MT = ROWS / 16;          // m-tiles of a block
-  constexpr int NPW = MT / 2;            // n-tiles (8 keys) of S a warp
-  constexpr int CW = DP / 8;             // columns of O a warp
-  constexpr int NTW = CW / 8;            // their n-tiles
-  constexpr int TPR = kWThreads / ROWS;  // softmax threads a row
-  constexpr int KPT = kWKeys / TPR;      // keys a softmax thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
-  bf16* Ks = Qs + ROWS * LD;                     // [2][32][LD]
-  bf16* Vs = Ks + 2 * kWKeys * LD;               // [2][32][LD]
-  bf16* Ps = Vs + 2 * kWKeys * LD;               // [ROWS][kWPLd]
-  float* Ss = reinterpret_cast<float*>(Ps + ROWS * kWPLd);  // [ROWS][kWSLd]
-  float* alpha_s = Ss + ROWS * kWSLd;            // [ROWS]
-  float* l_s = alpha_s + ROWS;                   // [ROWS]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int row0 = blockIdx.x * ROWS;
-  const int dchunks = D / 8;
-  const bf16* kp = k + b * ks.b + h * ks.h;
-  const bf16* vp = v + b * vs.b + h * vs.h;
-
-  {  // Q, rows >= Nq and pad columns zero-filled; joins the first tile's group
-    const bf16* qp = q + b * qs.b + h * qs.h;
-    for (int c = tid; c < ROWS * CHUNKS; c += kWThreads) {
-      const int i = c / CHUNKS, ch = c % CHUNKS;
-      const bool row_ok = row0 + i < Nq;
-      const long long row = row_ok ? row0 + i : 0;
-      const int col = ch < dchunks ? ch * 8 : 0;
-      cp_async16(smem_u32(Qs + i * LD + ch * 8), qp + row * qs.n + col,
-                 row_ok && ch < dchunks);
-    }
-  }
-  auto load_tile = [&](int tile, int buf) {
-    const int k0 = tile * kWKeys;
-    bf16* Kb = Ks + buf * kWKeys * LD;
-    bf16* Vb = Vs + buf * kWKeys * LD;
-#pragma unroll 4
-    for (int c = tid; c < kWKeys * CHUNKS; c += kWThreads) {
-      const int j = c / CHUNKS, ch = c % CHUNKS;
-      const bool key_ok = k0 + j < Nk, ok = key_ok && ch < dchunks;
-      const long long key = key_ok ? k0 + j : 0;
-      const int col = ch < dchunks ? ch * 8 : 0;
-      cp_async16(smem_u32(Kb + j * LD + ch * 8), kp + key * ks.n + col, ok);
-      cp_async16(smem_u32(Vb + j * LD + ch * 8), vp + key * vs.n + col, ok);
-    }
-    cp_async_commit();
-  };
-  const int ntiles = (Nk + kWKeys - 1) / kWKeys;
-  load_tile(0, 0);
-
-  float acc[MT][NTW][4];  // O: ROWS rows x this warp's CW columns
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  // softmax: TPR threads a row, KPT keys each
-  const int sr = tid / TPR, sq = tid % TPR;
-  float m_run = -INFINITY, l_run = 0.f;
-  // S piece of this warp: rows 16*smt.., keys 8*NPW*skg..
-  const int smt = warp % MT, skg = warp / MT;
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    cp_async_wait_all();
-    __syncthreads();  // tile landed for all; P, alpha and the old buffers are free
-    if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
-    const bf16* Kt = Ks + buf * kWKeys * LD;
-    const bf16* Vt = Vs + buf * kWKeys * LD;
-
-    // S piece = Q[16 rows] K[8*NPW keys]^T over the full depth, DP/16 k-steps
-    float s[NPW][4];
-#pragma unroll
-    for (int nt = 0; nt < NPW; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    const uint32_t qa_addr =
-        smem_u32(Qs + (16 * smt + (lane & 15)) * LD + (lane >> 4) * 8);
-    const uint32_t kb_addr =
-        NPW == 2 ? smem_u32(Kt + (16 * skg + (lane & 7) + (lane >> 4) * 8) * LD +
-                            ((lane >> 3) & 1) * 8)
-                 : smem_u32(Kt + (8 * skg + (lane & 7)) * LD + ((lane >> 3) & 1) * 8);
-#pragma unroll 8
-    for (int kstep = 0; kstep < DP / 16; ++kstep) {
-      uint32_t a[4];
-      ldsm_x4(a, qa_addr + kstep * 32);
-      if constexpr (NPW == 2) {
-        uint32_t kb[4];
-        ldsm_x4(kb, kb_addr + kstep * 32);
-        mma_bf16(s[0], a, kb[0], kb[1]);
-        mma_bf16(s[1], a, kb[2], kb[3]);
-      } else {
-        uint32_t kb[2];
-        ldsm_x2(kb, kb_addr + kstep * 32);
-        mma_bf16(s[0], a, kb[0], kb[1]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NPW; ++nt) {
-      const int col = 8 * NPW * skg + 8 * nt + 2 * t;
-      *reinterpret_cast<float2*>(Ss + (16 * smt + g) * kWSLd + col) =
-          make_float2(s[nt][0], s[nt][1]);
-      *reinterpret_cast<float2*>(Ss + (16 * smt + g + 8) * kWSLd + col) =
-          make_float2(s[nt][2], s[nt][3]);
-    }
-    __syncthreads();
-
-    {  // online softmax of row sr, keys KPT*sq .. KPT*sq+KPT-1
-      float sv[KPT];
-#pragma unroll
-      for (int i = 0; i < KPT; i += 4) {
-        const float4 f = *reinterpret_cast<const float4*>(Ss + sr * kWSLd + KPT * sq + i);
-        sv[i] = f.x;
-        sv[i + 1] = f.y;
-        sv[i + 2] = f.z;
-        sv[i + 3] = f.w;
-      }
-      const int key0 = tile * kWKeys + KPT * sq;
-      float mx = m_run;
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        if (key0 + i >= Nk) sv[i] = -INFINITY;
-        mx = fmaxf(mx, sv[i]);
-      }
-      mx = group_max<TPR>(mx);  // the TPR threads of a row are neighbouring lanes
-      const float alpha = ex2((m_run - mx) * scale_log2);
-      m_run = mx;
-      const float mc = mx * scale_log2;
-      l_run *= alpha;
-      uint32_t* prow = reinterpret_cast<uint32_t*>(Ps + sr * kWPLd + KPT * sq);
-#pragma unroll
-      for (int i = 0; i < KPT / 2; ++i) {
-        const float p0 = ex2(fmaf(sv[2 * i], scale_log2, -mc));
-        const float p1 = ex2(fmaf(sv[2 * i + 1], scale_log2, -mc));
-        l_run += p0 + p1;
-        prow[i] = pack_bf16(p0, p1);
-      }
-      if (sq == 0) alpha_s[sr] = alpha;
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V on this warp's CW columns
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const float a_lo = alpha_s[16 * mt + g], a_hi = alpha_s[16 * mt + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < NTW; ++nt) {
-        acc[mt][nt][0] *= a_lo;
-        acc[mt][nt][1] *= a_lo;
-        acc[mt][nt][2] *= a_hi;
-        acc[mt][nt][3] *= a_hi;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kWKeys / 16; ++kk) {
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(pa[mt], smem_u32(Ps + (16 * mt + (lane & 15)) * kWPLd + 16 * kk +
-                                 (lane >> 4) * 8));
-      const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const bf16* vrow = Vt + key * LD + CW * warp;
-#pragma unroll
-      for (int np = 0; np < NTW / 2; ++np) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, smem_u32(vrow + 16 * np + (lane >> 4) * 8));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], pa[mt], vb[0], vb[1]);
-          mma_bf16(acc[mt][2 * np + 1], pa[mt], vb[2], vb[3]);
-        }
-      }
-      if constexpr (NTW % 2) {
-        uint32_t vb[2];
-        ldsm_x2_trans(vb, smem_u32(vrow + 16 * (NTW / 2)));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][NTW - 1], pa[mt], vb[0], vb[1]);
-      }
-    }
-  }
-
-  l_run = group_sum<TPR>(l_run);
-  if (sq == 0) l_s[sr] = l_run;
-  __syncthreads();
-  bf16* op = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int ra = 16 * mt + g, rb = ra + 8;
-    const float inv_a = 1.f / l_s[ra], inv_b = 1.f / l_s[rb];
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt) {
-      const int col0 = CW * warp + 8 * nt;
-      if (col0 >= D) break;  // pad columns are not stored
-      const int col = col0 + 2 * t;
-      if (row0 + ra < Nq)
-        *reinterpret_cast<uint32_t*>(op + (long long)(row0 + ra) * os.n + col) =
-            pack_bf16(acc[mt][nt][0] * inv_a, acc[mt][nt][1] * inv_a);
-      if (row0 + rb < Nq)
-        *reinterpret_cast<uint32_t*>(op + (long long)(row0 + rb) * os.n + col) =
-            pack_bf16(acc[mt][nt][2] * inv_b, acc[mt][nt][3] * inv_b);
-    }
-  }
-}
-
 // ---------------------------------------------------------------- launch
 // D is a multiple of 8 from 8 to FLASH_PROBE_DEEP_ABOVE (the entry point
 // routes the rest).
@@ -1004,26 +736,8 @@ cudaError_t launch_narrow(const bf16* q, const bf16* k, const bf16* v, bf16* o, 
   return cudaSuccess;
 }
 
-template <int DP>
-cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-                        int H, int Nq, int Nk, int D, Strides qs, Strides ks,
-                        Strides vs, Strides os, float scale_log2, cudaStream_t stream) {
-  constexpr int ROWS = DP <= 512 ? 64 : 32;
-  constexpr size_t smem = wide_mma_smem_bytes<DP, ROWS>();
-  static_assert(smem <= 232448, "Q and two K/V buffers fit shared memory");
-  auto kern = flash_mma_wide_kernel<DP, ROWS>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Nq + ROWS - 1) / ROWS, B * H);
-  kern<<<grid, kWThreads, smem, stream>>>(q, k, v, o, H, Nq, Nk, D, qs, ks, vs, os,
-                                          scale_log2);
-  return cudaSuccess;
-}
-
-// The caller guarantees 16-byte aligned bases and strides that are
-// multiples of 8 elements (the cp.async and 4-byte fragment accesses), and
-// routes D = 40 .. 128 to flash_attention_sm90.cu.
+// D <= 32. The caller guarantees 16-byte aligned bases and strides that
+// are multiples of 8 elements (the cp.async and 4-byte fragment accesses).
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                         int B, int H, int Nq, int Nk, int D, Strides qs,
                         Strides ks, Strides vs, Strides os, float scale,
@@ -1031,17 +745,9 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   const float scale_log2 = scale * 1.4426950408889634f;
 #define EALDM_FLASH_ARGS q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os, scale_log2, stream
   cudaError_t e;
-  switch (D <= 128 ? (D + 15) / 16 * 16 : (D + 63) / 64 * 64) {
-    case 16: e = launch_narrow<16>(EALDM_FLASH_ARGS); break;
-    case 32: e = launch_narrow<32>(EALDM_FLASH_ARGS); break;
-    case 192: e = launch_wide<192>(EALDM_FLASH_ARGS); break;
-    case 256: e = launch_wide<256>(EALDM_FLASH_ARGS); break;
-    case 320: e = launch_wide<320>(EALDM_FLASH_ARGS); break;
-    case 384: e = launch_wide<384>(EALDM_FLASH_ARGS); break;
-    case 448: e = launch_wide<448>(EALDM_FLASH_ARGS); break;
-    case 512: e = launch_wide<512>(EALDM_FLASH_ARGS); break;
-    case 576: e = launch_wide<576>(EALDM_FLASH_ARGS); break;
-    case 640: e = launch_wide<640>(EALDM_FLASH_ARGS); break;
+  switch (D) {
+    case 8: case 16: e = launch_narrow<16>(EALDM_FLASH_ARGS); break;
+    case 24: case 32: e = launch_narrow<32>(EALDM_FLASH_ARGS); break;
     default: return cudaErrorInvalidValue;
   }
 #undef EALDM_FLASH_ARGS
@@ -1051,9 +757,11 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D a multiple of 8 (flash_deep_kernel
-// above 512 in float32 and above 640 in bfloat16). Strides are in elements.
-// Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 = float32 (any D that is a multiple of 8: flash_deep_kernel
+// above 512), 1 = bfloat16 (D = 8 .. 32, and flash_deep_kernel above 1,920;
+// ops/attention.py routes the D between to the wgmma kernels, and they are
+// refused here). Strides are in elements. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int ealdm_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int Nq, int Nk, int D, long long q_sb, long long q_sh,
@@ -1069,7 +777,7 @@ extern "C" int ealdm_flash_attention(
     return (int)launch_deep(static_cast<const float*>(q), static_cast<const float*>(k),
                             static_cast<const float*>(v), static_cast<float*>(o), B, H, Nq,
                             Nk, D, qs, ks, vs, os, scale, s);
-  if (D > 640 && dtype == 1)
+  if (D > 1920 && dtype == 1)
     return (int)launch_deep(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                             static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H, Nq,
                             Nk, D, qs, ks, vs, os, scale, s);

@@ -115,27 +115,6 @@ struct alignas(1024) Smem {  // every strip 1024-byte aligned (the swizzles' per
   uint64_t q_full, k_full[C::kStages], v_full[C::kStages], v_empty[C::kStages];
 };
 
-__device__ __forceinline__ void fence_proxy_async() {  // generic stores -> wgmma's reads
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {  // every non-exited thread of the cluster
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// the address of this block's shared `p` in the shared memory of cluster block `rank`
-__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
-  return out;
-}
-
 __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");

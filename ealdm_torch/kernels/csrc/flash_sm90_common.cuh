@@ -1,7 +1,9 @@
 // Helpers shared by the Hopper flash-attention kernels
-// (flash_attention_sm90.cu, flash_attention_sm90_wide.cu): mbarriers, TMA
-// loads from 4-D tensor maps, wgmma descriptors and products, the softmax's
-// arithmetic, and the host-side tensor-map encoding.
+// (flash_attention_sm90.cu, flash_attention_sm90_wide.cu,
+// flash_attention_sm90_deep.cu): mbarriers, thread-block clusters and their
+// distributed shared memory, TMA loads from 4-D tensor maps, wgmma
+// descriptors and products, the softmax's arithmetic, and the host-side
+// tensor-map encoding.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -54,6 +56,54 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try_wait(a, parity))
     if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// ---------------------------------------------------------------- clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ void cluster_sync() {  // every non-exited thread of the cluster
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the address of this block's shared `p` in the shared memory of cluster block `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// Arrive on the mbarrier at `bar` in cluster block `rank` (the default
+// semantics, release at the CTA's scope): what a consumer block tells a
+// producer block that its buffer may be written again, as the pipelines
+// that multicast TMA copies do. Cluster-scope semantics would cost a GPU-wide
+// fence and an L1 invalidation on each call (PERF.md).
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(map_rank(bar, rank)) : "memory");
+}
+
+// Store 16 bytes at `addr` in a cluster block's shared memory (a
+// shared::cluster address from map_rank) and count them on that block's
+// mbarrier at `bar` (complete_tx): the data is visible to the threads that
+// see the barrier's phase complete, as a TMA copy's is.
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {  // generic stores -> wgmma's reads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // one box of a 4-D tensor map into shared memory, completing on `bar`

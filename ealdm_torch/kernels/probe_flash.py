@@ -3,6 +3,7 @@
     python -m ealdm_torch.kernels.probe_flash          # both kernels
     python -m ealdm_torch.kernels.probe_flash narrow   # flash_attention_sm90.cu only
     python -m ealdm_torch.kernels.probe_flash wide     # flash_attention_sm90_wide.cu only
+    python -m ealdm_torch.kernels.probe_flash deep     # flash_attention_sm90_deep.cu only
     python -m ealdm_torch.kernels.probe_flash f32      # flash_attention.cu's float32 kernels
 
 Builds each source into `build/kernels/probe/` once for each of its
@@ -19,10 +20,16 @@ wide kernel (d = 136 .. 576) at cin256-v2's and the VAEs' shapes: as built;
 without the softmax; the copies alone; without V's copies; 3 PV
 warpgroups at d = 384 (2 as built); the key split over a cluster of two
 blocks nowhere and everywhere (as built where twice the blocks fill the
-SMs' waves better). The float32 kernels (flash_attention.cu, float32
-inputs): as built (`flash_wide_kernel` up to d = 512, `flash_deep_kernel`
-above), with `flash_deep_kernel` at every d, and with `flash_wide_kernel`
-up to 640 (its 16-row blocks above 512). A variant that leaves work out computes garbage:
+SMs' waves better). The deep kernel (d = 584 .. 1,920, a cluster of
+blocks that split the head dim) at [4, 2, 1024, d], d = 640, 648, 960 and
+1,104: as built; without the softmax; the copies and the exchange of
+partial scores alone; the copies alone; without V's copies; without the
+exchange (each block's S its own partial); with every d on depth slices
+of 384 columns (as routed: 512 at d = 776 .. 1,024, `deep_slices`). The
+float32 kernels (flash_attention.cu, float32 inputs): as built
+(`flash_wide_kernel` up to d = 512, `flash_deep_kernel` above), with
+`flash_deep_kernel` at every d, and with `flash_wide_kernel` up to 640 (its
+16-row blocks above 512). A variant that leaves work out computes garbage:
 only its time is read. Prints one line per shape, and the card's name and
 power limit; `chip_smoke.py` phase 2c times the same shapes beside the
 library call.
@@ -37,6 +44,7 @@ import subprocess
 import torch
 
 from . import build
+from ..ops.attention import deep_slices
 
 NARROW_VARIANTS = {
     "as built": [],
@@ -71,6 +79,18 @@ WIDE_VARIANTS = {
 # VQ-f8 mid attention, cin256-v2's VQ-f4 decode
 WIDE_SHAPES = ((12, 1, 1024, 384), (12, 1, 256, 576), (8, 1, 1024, 512), (24, 1, 1024, 512),
                (6, 1, 4096, 512))
+DEEP_VARIANTS = {
+    "as built": [],
+    "no softmax": ["-DFLASH_PROBE_SKIP=1"],
+    "copies and exchange only": ["-DFLASH_PROBE_SKIP=3"],
+    "copies only": ["-DFLASH_PROBE_SKIP=11"],
+    "no V copies": ["-DFLASH_PROBE_SKIP=4"],
+    "no exchange": ["-DFLASH_PROBE_SKIP=8"],
+    "W = 384 at every d": [],
+}
+# the head dims chip_smoke.py times it at: 640, 648 and 960; and 1,104
+# (d = 1,100 padded: three blocks a cluster)
+DEEP_SHAPES = ((4, 2, 1024, 640), (4, 2, 1024, 648), (4, 2, 1024, 960), (4, 2, 1024, 1104))
 F32_VARIANTS = {
     "as built": [],
     "flash_deep_kernel at every d": ["-DFLASH_PROBE_DEEP_ABOVE=0"],
@@ -91,9 +111,16 @@ PROBES = {
     "flash_attention_sm90_wide": (WIDE_VARIANTS, WIDE_SHAPES,
                                   lambda name, d: name == "3 PV warpgroups at d=384" and d != 384,
                                   torch.bfloat16),
-    # its entry takes a dtype code (0: float32) after the output
+    "flash_attention_sm90_deep": (DEEP_VARIANTS, DEEP_SHAPES, lambda name, d: False,
+                                  torch.bfloat16),
     "flash_attention": (F32_VARIANTS, F32_SHAPES, lambda name, d: False, torch.float32),
 }
+
+# the argument some entries take after the output: flash_attention.cu's
+# dtype code (0: float32), the deep kernel's depth slice
+PRE_ARG = {"flash_attention": lambda name, d: 0,
+           "flash_attention_sm90_deep": lambda name, d: (
+               384 if name == "W = 384 at every d" else deep_slices(d)[0])}
 
 
 def _libraries(source: str, variants: dict) -> dict:
@@ -117,8 +144,7 @@ def _libraries(source: str, variants: dict) -> dict:
               + "".join(f"; {line.strip()[:160]}" for line in out.splitlines()
                         if "Performance Loss" in line), flush=True)
         fn = getattr(ctypes.CDLL(str(lib)), f"ealdm_{source}")
-        fn.argtypes = [P, P, P, P] + [I] * (6 if source == "flash_attention" else 5) + [L] * 12 \
-            + [F, P]
+        fn.argtypes = [P, P, P, P] + [I] * (6 if source in PRE_ARG else 5) + [L] * 12 + [F, P]
         fn.restype = I
         libs[name] = fn
     return libs
@@ -149,12 +175,12 @@ def main(argv=()):
     if not torch.cuda.is_available():
         raise SystemExit("probe_flash needs a CUDA card")
     which = {"narrow": ["flash_attention_sm90"], "wide": ["flash_attention_sm90_wide"],
+             "deep": ["flash_attention_sm90_deep"],
              "f32": ["flash_attention"]}.get(argv[0] if argv else "", list(PROBES))
     gen = torch.Generator(device="cuda").manual_seed(0)
     for source in which:
         variants, shapes, skip, dtype = PROBES[source]
         libs = _libraries(source, variants)
-        dtype_arg = [0] if source == "flash_attention" else []
         for shape in shapes:
             b, h, n, d = shape
             q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -165,9 +191,10 @@ def main(argv=()):
             for name, fn in libs.items():
                 if skip(name, d):
                     continue
+                pre = [PRE_ARG[source](name, d)] if source in PRE_ARG else []
 
-                def run(fn=fn):
-                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *dtype_arg,
+                def run(fn=fn, pre=pre):
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *pre,
                              b, h, n, n, d, *strides, 1 / math.sqrt(d),
                              torch.cuda.current_stream().cuda_stream)
                     build.check(err, f"probe {source} {name}")

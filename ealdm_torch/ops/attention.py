@@ -5,15 +5,17 @@ launch a hand-written kernel on CUDA tensors and run `flash_attention_plain`,
 the same math in torch, on CPU tensors. The kernels run head dims that are
 multiples of 8; the wrappers run any other d zero-padded to the next
 multiple of 8, so every d runs, as the JAX kernel takes any d. bfloat16 up
-to 640 runs on the tensor cores and rounds P to bfloat16 before P*V (as
+to 1,920 runs on the tensor cores and rounds P to bfloat16 before P*V (as
 the TPU's MXU does): `WGMMA_HEAD_DIMS` on the narrow wgmma/TMA kernel
 (`kernels/csrc/flash_attention_sm90.cu`), `WIDE_WGMMA_HEAD_DIMS` on the
-wide one (`kernels/csrc/flash_attention_sm90_wide.cu`), the others on
-`mma.sync` (`kernels/csrc/flash_attention.cu`); it needs 16-byte aligned
-tensors with strides in multiples of 8 elements and raises otherwise.
-float32 runs on FMA, above 512 on `flash_deep_kernel` (FMA, float32 math,
-any d), which also runs bfloat16 above 640 (no configuration's bfloat16
-path reaches such a head). Each launch
+wide one (`kernels/csrc/flash_attention_sm90_wide.cu`),
+`DEEP_WGMMA_HEAD_DIMS` on the deep one, a cluster of blocks that split the
+head dim (`kernels/csrc/flash_attention_sm90_deep.cu`; no configuration's
+bfloat16 path reaches d = 584 or above), the others on `mma.sync`
+(`kernels/csrc/flash_attention.cu`); it needs 16-byte aligned tensors with
+strides in multiples of 8 elements and raises otherwise. float32 runs on
+FMA, above 512 on `flash_deep_kernel` (FMA, float32 math, any d), which
+also runs bfloat16 above 1,920. Each launch
 counts under `flash_counter(d)` (per head dim and entry point).
 On the card both run inside autograd Functions whose backward is the vjp of
 the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
@@ -35,7 +37,7 @@ from ..kernels import build
 __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
            "flash_attention_plain", "flash_counter",
            "flash_attention_vjp", "bf16_attention_shares", "WGMMA_HEAD_DIMS",
-           "WIDE_WGMMA_HEAD_DIMS",
+           "WIDE_WGMMA_HEAD_DIMS", "DEEP_WGMMA_HEAD_DIMS", "deep_slices",
            "tiny_ctx_attention_packed", "set_attention_impl", "attention_impl"]
 
 # "dense" (default), "flash" (the kernel at eligible self-attention sites) or
@@ -44,13 +46,26 @@ __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
 _ATTN_IMPL = "dense"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # bfloat16 head dims that run `flash_wgmma_narrow_kernel`
-# (`kernels/csrc/flash_attention_sm90.cu`) and `flash_wgmma_wide_kernel`
-# (`kernels/csrc/flash_attention_sm90_wide.cu`), both wgmma and TMA; the
+# (`kernels/csrc/flash_attention_sm90.cu`), `flash_wgmma_wide_kernel`
+# (`kernels/csrc/flash_attention_sm90_wide.cu`) and `flash_wgmma_deep_kernel`
+# (`kernels/csrc/flash_attention_sm90_deep.cu`), all wgmma and TMA; the
 # others run `flash_attention.cu` (`flash_mma_narrow_kernel` to 32,
-# `flash_mma_wide_kernel` above 576). float32 runs `flash_wide_kernel` up to
-# d = 512 and `flash_deep_kernel` above.
+# `flash_deep_kernel` above 1,920). float32 runs `flash_wide_kernel` up to
+# d = 512 and `flash_deep_kernel` above. These ranges and `deep_slices` are
+# the routing: each C entry point refuses a head dim it is not routed.
 WGMMA_HEAD_DIMS = range(40, 129, 8)
 WIDE_WGMMA_HEAD_DIMS = range(136, 577, 8)
+DEEP_WGMMA_HEAD_DIMS = range(584, 1921, 8)
+
+
+def deep_slices(d: int):
+    """(W, CS) of `flash_wgmma_deep_kernel` at head dim d (a multiple of
+    8): each block of a cluster of CS keeps a depth slice of W columns.
+    W = 512 (two blocks) where d is 776 .. 1,024, else 384 (two to five
+    blocks, so d <= 1,920): the width that pads d less. The kernel takes W
+    from here."""
+    w = 512 if 768 < d <= 1024 else 384
+    return w, -(-d // w)
 
 
 def flash_counter(d: int, packed: bool = False) -> str:
@@ -283,12 +298,16 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
     flat = [s for triple in strides for s in triple]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    if q.dtype == torch.bfloat16 and (d in WGMMA_HEAD_DIMS or d in WIDE_WGMMA_HEAD_DIMS):
-        name = "flash_attention_sm90" if d in WGMMA_HEAD_DIMS else "flash_attention_sm90_wide"
-        err = getattr(build.library(name), f"ealdm_{name}")(
-            *ptrs, b, h, nq, nk, d, *flat, float(scale), stream)
-        build.check(err, name)
-        return
+    if q.dtype == torch.bfloat16:
+        name = ("flash_attention_sm90" if d in WGMMA_HEAD_DIMS
+                else "flash_attention_sm90_wide" if d in WIDE_WGMMA_HEAD_DIMS
+                else "flash_attention_sm90_deep" if d in DEEP_WGMMA_HEAD_DIMS else None)
+        if name is not None:
+            width = (deep_slices(d)[0],) if name == "flash_attention_sm90_deep" else ()
+            err = getattr(build.library(name), f"ealdm_{name}")(
+                *ptrs, *width, b, h, nq, nk, d, *flat, float(scale), stream)
+            build.check(err, name)
+            return
     err = build.library("flash_attention").ealdm_flash_attention(
         *ptrs, _DTYPE_CODE[q.dtype], b, h, nq, nk, d, *flat, float(scale), stream)
     build.check(err, "flash_attention")

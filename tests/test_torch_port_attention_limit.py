@@ -17,12 +17,16 @@ the limits would catch a kernel with those faults. `emulate_wide` does the
 same for the wide wgmma kernel (`flash_attention_sm90_wide.cu`, d = 136 ..
 576), whose order differs: O's rescale reaches the warpgroups that hold O
 through a double buffer, and with the key split two blocks combine (O,
-max, sum) at the end. At the head dims the
+max, sum) at the end. `emulate_deep` does it for the deep wgmma kernel
+(`flash_attention_sm90_deep.cu`, d = 584 .. 1,920), whose scores are the
+sum of a cluster's partial products over depth slices, added in rank
+order. At the head dims the
 repo's other configurations reach (24, 40, 48, 80: not multiples of the
 mma k-step, or off the two that the first kernels took), the plain versions
 the card holds the kernels to are checked against the JAX kernels in
 interpret mode, split and packed.
 """
+import functools
 import math
 
 import jax.numpy as jnp
@@ -33,7 +37,8 @@ import torch
 from ealdm_tpu.ops import attention as j_attention
 from ealdm_tpu.ops.attention import _flash_packed_forward
 from ealdm_torch.ops.attention import (
-    _split_heads, bf16_attention_shares, flash_attention_packed, flash_attention_plain)
+    _split_heads, bf16_attention_shares, deep_slices, flash_attention_packed,
+    flash_attention_plain)
 
 LOG2E = 1.4426950408889634
 
@@ -324,3 +329,161 @@ def test_broken_wide_emulation_breaks_limit(d, fault):
     broken = emulate_wide(q, k, v, d, key_split=2,
                           **{fault: fault == "stale_alpha"})
     assert shares(broken, q, k, v)[0] > 2
+
+
+# the deep wgmma kernel (`flash_attention_sm90_deep.cu`, d = 584 .. 1,920):
+# 32-key tiles, and the depth slices `deep_slices` gives it, one block of a
+# cluster each
+DEEP_BLOCK_K = 32
+
+
+def emulate_deep(q, k, v, scale=None, p_bits=8, own_partial_only=False, stale_peer=0):
+    """The deep kernel's arithmetic on [B, H, Nq, D] q and [B, H, Nk, D] k/v,
+    in its order: the head dim, zero-padded to a multiple of 8 and then to
+    CS slices of W, splits over the CS blocks of a cluster; for each
+    32-key tile each block takes its partial S_c = Q_c K_c^T and the cluster
+    adds the CS partials in rank order 0 .. CS-1, so every block runs the
+    same base-2 online softmax on the same S and the same P (rounded to
+    bfloat16); block c adds P V_c to its columns of O. Returns the float32
+    output before its rounding. The faults, each in block c's view of S:
+    `own_partial_only` takes its own partial without its peers';
+    `stale_peer` = s > 0 takes each peer's partial of tile j - s (zeros
+    before the first tile): s = 1 reads the other exchange buffer, s = 2
+    the right buffer before the peer's new partial lands (a missing wait)."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    w, cs = deep_slices(-(-d // 8) * 8)
+    pad = (0, cs * w - d)
+    qf, kf, vf = (torch.nn.functional.pad(t.float(), pad) for t in (q, k, v))
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    bk = DEEP_BLOCK_K
+    ntiles = -(-k.shape[2] // bk)
+    # partials[j][r]: block r's partial S of tile j
+    partials = [[qf[..., r * w:(r + 1) * w] @ kf[:, :, j * bk:(j + 1) * bk, r * w:(r + 1) * w]
+                 .transpose(-1, -2) for r in range(cs)] for j in range(ntiles)]
+    out = torch.zeros(qf.shape)
+    for blk in range(cs):  # each block's view; sound, they all see one S
+        m = torch.full(q.shape[:3] + (1,), -math.inf)
+        l = torch.zeros(q.shape[:3] + (1,))
+        acc = torch.zeros(q.shape[:3] + (w,))
+        for j in range(ntiles):
+            s = None
+            for r in range(cs):
+                part = partials[j][r]
+                if own_partial_only and r != blk:
+                    continue
+                if stale_peer and r != blk:
+                    part = partials[j - stale_peer][r] if j >= stale_peer else \
+                        torch.zeros_like(part)
+                    if part.shape != partials[j][r].shape:  # the ragged last tile
+                        part = part[..., :partials[j][r].shape[-1]]
+                s = part if s is None else s + part
+            vt = vf[:, :, j * bk:(j + 1) * bk, blk * w:(blk + 1) * w]
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - m_new * c)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + (p if p_bits is None else round_significand(p, p_bits)) @ vt
+            m = m_new
+        out[..., blk * w:(blk + 1) * w] = acc / l
+    return out[..., :d]
+
+
+DEEP_DIMS = (648, 960, 1100)
+# (B, H, Nq, Nk): a partial query block (rows past 64) and a partial last
+# key tile, and a single ragged tile
+DEEP_SHAPES = [(1, 2, 70, 77), (2, 1, 33, 19)]
+
+
+@pytest.mark.parametrize("shape", DEEP_SHAPES)
+@pytest.mark.parametrize("d", DEEP_DIMS)
+def test_deep_emulation_within_limit(d, shape):
+    b, h, nq, nk = shape
+    rng = np.random.default_rng(nq * 1000 + nk + d)
+    q, k, v = _bf16(rng, b, h, nq, d), _bf16(rng, b, h, nk, d), _bf16(rng, b, h, nk, d)
+    assert max(shares(emulate_deep(q, k, v), q, k, v)) <= 1
+
+
+def test_deep_slices_match_the_kernel_route():
+    """The clusters the deep kernel runs (the wrapper passes it the width
+    of `deep_slices`, which `emulate_deep` also takes): 2 blocks of 384 at
+    d = 648 and 704, 2 of 512 at 960, 3 of 384 at 1,104, 5 of 384 at 1,920
+    (its widest), and the smallest padding of the two widths everywhere."""
+    assert [deep_slices(d) for d in (648, 704, 960, 1104, 1920)] == [
+        (384, 2), (384, 2), (512, 2), (384, 3), (384, 5)]
+    for d in range(584, 1921, 8):
+        w, cs = deep_slices(d)
+        assert w * cs == min(-(-d // 384) * 384, -(-d // 512) * 512 if d <= 1024 else 10**9)
+
+
+@pytest.mark.parametrize("fault", ["own_partial_only", "stale_peer_1", "stale_peer_2"])
+@pytest.mark.parametrize("d", [648, 1100])
+def test_broken_deep_emulation_breaks_limit(d, fault):
+    """The faults the cluster's exchange can have: a block that normalises
+    its columns with its own partial S and not its peers' (its slice of
+    the row is then weighted differently from the others'), and a peer's
+    partial read from the previous tile's buffer or before the peer's store
+    lands (a missing cluster wait). Each is far outside the limit."""
+    b, h, nq, nk = 1, 2, 64, 4 * DEEP_BLOCK_K + 19
+    rng = np.random.default_rng(17)
+    q, k, v = _bf16(rng, b, h, nq, d), _bf16(rng, b, h, nk, d), _bf16(rng, b, h, nk, d)
+    q = q * 2  # spread the scores so that a wrong S moves the softmax
+    assert max(shares(emulate_deep(q, k, v), q, k, v)) <= 1
+    kw = ({"own_partial_only": True} if fault == "own_partial_only"
+          else {"stale_peer": int(fault[-1])})
+    assert shares(emulate_deep(q, k, v, **kw), q, k, v)[0] > 2
+
+
+@functools.lru_cache(maxsize=None)
+def _deep_pallas(d, layout):
+    """(q, k, v, JAX's output) at [2, 2, 256, d] float32 ([2, 256, 2*d]
+    packed): the Pallas kernel in interpret mode with 32-key tiles."""
+    b, h, n = 2, 2, 256
+    rng = np.random.default_rng(d + (layout == "packed"))
+    if layout == "packed":
+        q, k, v = (rng.standard_normal((b, n, h * d)).astype(np.float32) for _ in range(3))
+        want = _flash_packed_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h,
+                                     block_k=DEEP_BLOCK_K, interpret=True)
+    else:
+        q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(3))
+        orig = j_attention.pl.pallas_call
+        j_attention.pl.pallas_call = lambda *a, **kw: orig(*a, **{**kw, "interpret": True})
+        try:
+            want = j_attention.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                               block_k=DEEP_BLOCK_K)
+        finally:
+            j_attention.pl.pallas_call = orig
+    return q, k, v, np.asarray(want)
+
+
+def _deep_split(layout, *arrays):
+    """torch [B, H, N, D] views of the test's float32 arrays."""
+    ts = [torch.from_numpy(a) for a in arrays]
+    return ts if layout == "split" else [_split_heads(t, 2) for t in ts]
+
+
+@pytest.mark.parametrize("layout", ["split", "packed"])
+@pytest.mark.parametrize("d", [648, 960])
+def test_deep_emulation_matches_pallas_without_rounding(d, layout):
+    """float32, P unrounded: the deep order (the cluster's partial scores
+    added in rank order, 32-key tiles) is the Pallas kernel's online
+    softmax, on [B, H, N, D] and on the packed [B, N, H*D]: 1e-5."""
+    q, k, v, want = _deep_pallas(d, layout)
+    got = emulate_deep(*_deep_split(layout, q, k, v), p_bits=None)
+    if layout == "packed":
+        got = got.transpose(1, 2).reshape(want.shape)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["split", "packed"])
+@pytest.mark.parametrize("d", [648, 960])
+def test_plain_matches_pallas_at_deep_head_dims(d, layout):
+    """flash_attention_plain (and the packed entry point's CPU form), the
+    card's reference for the deep kernel, against the same Pallas runs:
+    1e-5."""
+    q, k, v, want = _deep_pallas(d, layout)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = (flash_attention_plain(tq, tk, tv) if layout == "split"
+           else flash_attention_packed(tq, tk, tv, 2))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
