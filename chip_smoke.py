@@ -13,7 +13,8 @@ Phases, each of which raises (non-zero exit) on failure:
      seconds logged), and take a census of the bfloat16 flash kernels' and
      the GroupNorm kernels' machine code (tensor-core, async-copy, ldmatrix
      and exp instructions; ptxas registers and spills): the three wgmma
-     flash kernels need HGMMA and UTMALDG and unserialized products, no
+     flash kernels need HGMMA and UTMALDG and unserialized products, the
+     float32 one (split TF32) HMMA of the TF32 kind only and cp.async, no
      kernel may spill;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes and layouts, in bfloat16 and float32, show that two planted
@@ -36,12 +37,12 @@ Phases, each of which raises (non-zero exit) on failure:
      the gradients through FlashAttention at d = 48 and d = 384; the zoo
      paths' five flash shapes (ZOO_PATH_SHAPES, a `[route]` line each:
      kernel, library, bound) and d = 648 and 960 (held, timed; the profile
-     must see flash_wgmma_deep_kernel in bfloat16 and flash_deep_kernel in
-     float32); `route_deep_heads`: the deep wgmma kernel at
+     must see flash_wgmma_deep_kernel in bfloat16 and flash_tf32x3_kernel
+     in float32); `route_deep_heads`: the deep wgmma kernel at
      [4, 2, 1024, 640] too, and a `[route]` line at d = 640, 648 and 960
-     (kernel, library, bound); the float32
-     kernels at the float32 reference passes' widest heads, timed beside
-     the library (`float32_heads`);
+     (kernel, library, bound); the float32 kernel (split TF32) at every
+     head of `probe_flash.F32_SHAPES`, timed beside the library and the
+     plain version, and bfloat16 d = 1,928 on it (`float32_heads`);
   2b. the op library entry point `ealdm_torch.ops` at full width: the
      bias_act kernel against `bias_act_plain` (nine activations, any dim,
      three dtypes), first- and second-order gradients, then filtered_lrelu
@@ -148,10 +149,13 @@ MMA_KERNELS = ("flash_mma_narrow_kernel",)
 WGMMA_KERNEL = "flash_wgmma_narrow_kernel"
 WIDE_WGMMA_KERNEL = "flash_wgmma_wide_kernel"
 DEEP_WGMMA_KERNEL = "flash_wgmma_deep_kernel"
-# flash_deep_kernel: float32 above 512, bfloat16 above 1,920
-DEEP_KERNEL = "flash_deep_kernel"
+# flash_attention_sm90_f32.cu (split TF32 on mma.sync, and on wgmma at d = 33
+# .. 128 and 161 .. 256): float32 at every d, bfloat16 above 1,920; its key
+# split's second launch
+F32_KERNEL = "flash_tf32x3_kernel"
+F32_COMBINE_KERNEL = "flash_tf32x3_combine_kernel"
 FLASH_KERNELS = (*MMA_KERNELS, WGMMA_KERNEL, WIDE_WGMMA_KERNEL, DEEP_WGMMA_KERNEL,
-                 "flash_wide_kernel", DEEP_KERNEL)
+                 F32_KERNEL, F32_COMBINE_KERNEL)
 KERNEL_SOURCES = {WGMMA_KERNEL: "flash_attention_sm90.cu",
                   WIDE_WGMMA_KERNEL: "flash_attention_sm90_wide.cu",
                   DEEP_WGMMA_KERNEL: "flash_attention_sm90_deep.cu"}
@@ -172,12 +176,11 @@ WIDE_ROUTE_SHAPES = (*PATH_WIDE_SHAPES, (24, 1, 1024, 512), (6, 1, 4096, 512))
 ZOO_PATH_SHAPES = ((10, 8, 1024, 24), (10, 8, 256, 48), (10, 1, 1024, 512),
                    (2, 8, 1024, 64), (2, 8, 256, 96))
 # head dims above 640, held and timed on flash_wgmma_deep_kernel (bfloat16)
-# and flash_deep_kernel (float32)
+# and flash_tf32x3_kernel (float32)
 DEEP_HEAD_DIMS = (648, 960)
-# [B, H, N, D] of the float32 reference passes' widest heads (the VAEs'
-# 512, cin256-v2's 576) and of d = 640: flash_wide_kernel to 512,
-# flash_deep_kernel above
-FLOAT32_SHAPES = ((1, 1, 1024, 512), (1, 1, 256, 576), (2, 2, 1024, 640))
+# TF32 on the tensor cores (NVIDIA data sheet, dense): the float32 flash
+# kernel's three terms a product run at this rate
+PEAK_TF32 = 495e12
 # the channels_last GroupNorm kernels (group_norm.cu): the two that stage
 # rows in shared memory by asynchronous copies, and the streaming one; and
 # the NCHW kernels kept from PR 1
@@ -421,17 +424,35 @@ def sass_census(source, names):
 def phase_sass():
     """Machine-code census: the bfloat16 flash kernels need tensor-core
     (HMMA/HGMMA) and asynchronous-copy instructions, the three wgmma ones
-    HGMMA and TMA loads (UTMALDG), the GroupNorm kernels that stage rows in
-    shared memory asynchronous copies (LDGSTS, UTMALDG or the bulk copy
-    UBLKCP); no kernel of any may spill, and ptxas may not serialize a
-    wgmma kernel's products (its "Potential Performance Loss" notes). Raises otherwise, or if a
-    kernel is missing from the machine code or the nvcc report."""
+    HGMMA and TMA loads (UTMALDG), the float32 one (`flash_tf32x3_kernel`)
+    TF32 products only, both HMMA.1688.F32.TF32 (mma.sync) and TF32 HGMMA
+    (the instances on wgmma), and LDGSTS, the GroupNorm kernels that stage
+    rows in shared memory asynchronous copies (LDGSTS, UTMALDG or the bulk
+    copy UBLKCP); no kernel of any may spill, and ptxas may not serialize a
+    wgmma kernel's products (its "Potential Performance Loss" notes).
+    Raises otherwise, or if a kernel is missing from the machine code or the
+    nvcc report."""
+    import re
+
     from ealdm_torch.kernels import build
 
     flash = sass_census("flash_attention", MMA_KERNELS)
-    sass_census("flash_attention", (DEEP_KERNEL,))  # FMA only: its spills and registers
-    for kernel, source in KERNEL_SOURCES.items():
-        flash.update(sass_census(source.removesuffix(".cu"), (kernel,)))
+    f32 = sass_census("flash_attention_sm90_f32", (F32_KERNEL, F32_COMBINE_KERNEL))
+    if not f32[F32_KERNEL]["HMMA"] or not f32[F32_KERNEL]["LDGSTS"]:
+        raise RuntimeError(f"{F32_KERNEL} needs HMMA and LDGSTS: {f32[F32_KERNEL]}")
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
+                           str(build.library_path("flash_attention_sm90_f32"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    tf32, tf32_wg = sass.count("HMMA.1688.F32.TF32"), len(re.findall(r"HGMMA\.\S*\.TF32", sass))
+    log(f"[sass] {F32_KERNEL}: {tf32} HMMA.1688.F32.TF32 (of {f32[F32_KERNEL]['HMMA']} HMMA), "
+        f"{tf32_wg} TF32 HGMMA (of {f32[F32_KERNEL]['HGMMA']} HGMMA)")
+    if tf32 != f32[F32_KERNEL]["HMMA"] or tf32_wg != f32[F32_KERNEL]["HGMMA"]:
+        raise RuntimeError(f"{F32_KERNEL}: tensor-core products that are not TF32")
+    if not tf32 or not tf32_wg:
+        raise RuntimeError(f"{F32_KERNEL} needs both mma.sync and wgmma TF32 products")
+    for kernel, source in {**KERNEL_SOURCES, F32_KERNEL: "flash_attention_sm90_f32.cu"}.items():
+        if kernel != F32_KERNEL:
+            flash.update(sass_census(source.removesuffix(".cu"), (kernel,)))
         serialized = [line for line in build.build_report(source.removesuffix(".cu")).splitlines()
                       if "Potential Performance Loss" in line and "wgmma" in line]
         if serialized:
@@ -759,7 +780,7 @@ def phase_head_dims():
     [16, 1, 1024, d], the paths' shapes PATH_WIDE_SHAPES and ZOO_PATH_SHAPES
     (a `[route]` line each for the zoo's: kernel, library, bound), and
     DEEP_HEAD_DIMS at [4, 2, 1024, d] (flash_wgmma_deep_kernel in bfloat16,
-    flash_deep_kernel in float32, as the profile must see). Each against
+    flash_tf32x3_kernel in float32, as the profile must see). Each against
     `flash_attention_plain` in bfloat16 (both limits of
     `bf16_attention_shares`) and float32 (1e-4), through the split and the
     packed entry point; then bfloat16 timings of the split one (a row each,
@@ -818,8 +839,8 @@ def phase_head_dims():
                                    f"not {DEEP_WGMMA_KERNEL}")
             qkv32 = [t.float() for t in qkv]
             _, seen = device_ms(lambda: flash_attention(*qkv32), iters=2, names=True)
-            if seen != DEEP_KERNEL:
-                raise RuntimeError(f"d={d} float32: the profile saw {seen}, not {DEEP_KERNEL}")
+            if F32_KERNEL not in seen.split("+"):
+                raise RuntimeError(f"d={d} float32: the profile saw {seen}, not {F32_KERNEL}")
             del qkv32
         if shape in ZOO_PATH_SHAPES:
             r = res[row]
@@ -929,43 +950,53 @@ def route_deep_heads(res, errs, randn):
 
 
 def float32_heads(res, errs, randn):
-    """The float32 kernels at FLOAT32_SHAPES (flash_wide_kernel to d = 512,
-    flash_deep_kernel above; the profile must see the routed one), held to
-    1e-4 against the plain version and timed in device time beside the
-    plain version and the library call, with the FMA bound (the operations
-    at 67 TFLOP/s, float32 outside the tensor cores). A row each, with 0
-    launches: the paths run bfloat16 (the float32 card-vs-CPU passes are
-    checks, not paths)."""
+    """The float32 kernel (split TF32, `flash_tf32x3_kernel`, and its
+    combine where the entry splits the keys) at every head of
+    `probe_flash.F32_SHAPES`, held to 1e-4 against the plain version and
+    timed in device time beside the plain version and the library call,
+    with the bound of three TF32 terms a product at 495 TFLOP/s. A row
+    each, with 0 launches: the paths run bfloat16 (the float32 card-vs-CPU
+    passes are checks, not paths). Then bfloat16 at [2, 2, 1024, 1928], past
+    the deep wgmma kernel's 1,920, on the same kernel (S in one term,
+    bfloat16 being exact in TF32, P V in two), held to both bf16 limits and
+    bound by the bfloat16 function's operations at 989 TFLOP/s, as every
+    other bfloat16 row is."""
     import torch
     import torch.nn.functional as F
 
-    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
+    from ealdm_torch.kernels.probe_flash import BF16_DEEP_SHAPE, F32_SHAPES
+    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain
 
-    f32 = torch.float32
-    for shape in FLOAT32_SHAPES:
+    for shape, dtype in [*((s, torch.float32) for s in F32_SHAPES),
+                         (BF16_DEEP_SHAPE, torch.bfloat16)]:
         b, h, n, d = shape
-        qkv = [randn(*shape, dtype=f32) for _ in range(3)]
-        row = f"flash_attention_f32_d{d}"
+        qkv = [randn(*shape, dtype=dtype) for _ in range(3)]
+        row = f"flash_attention_{'f32' if dtype == torch.float32 else 'bf16'}_d{d}_b{b}_n{n}"
         got, want = flash_attention(*qkv), flash_attention_plain(*qkv)
-        compare(errs, row, f32, got, want, f"{list(shape)}")
-        errs[row] = (got - want).abs().max().item()  # compare keeps bfloat16's only
+        compare(errs, row, dtype, got, want, f"{list(shape)}", attn=(*qkv, None))
+        errs[row] = (got.float() - want.float()).abs().max().item()
         ms, seen = device_ms(lambda: flash_attention(*qkv), names=True)
-        want_kernel = "flash_wide_kernel" if d <= 512 else DEEP_KERNEL
-        if seen != want_kernel:
-            raise RuntimeError(f"float32 {list(shape)}: the profile saw {seen}, not {want_kernel}")
-        bms, by = bound(4 * b * h * n * n * d, 4 * b * h * n * d * 4, PEAK_FP32)
+        if F32_KERNEL not in seen.split("+"):
+            raise RuntimeError(f"{dtype} {list(shape)}: the profile saw {seen}, not {F32_KERNEL}")
+        # float32 needs three TF32 terms a product to hold 1e-4; bfloat16
+        # attention is the function's own operations at the bfloat16 peak
+        flops, peak = ((3 * 4 * b * h * n * n * d, PEAK_TF32) if dtype == torch.float32
+                       else (4 * b * h * n * n * d, PEAK_BF16))
+        bms, by = bound(flops, 4 * b * h * n * d * qkv[0].element_size(), peak,
+                        exps=b * h * n * n)
         res[row] = dict(
-            name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention.cu",
+            name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention_sm90_f32.cu",
             replaces="ealdm_tpu/ops/attention.py:77", launches=None,
             max_abs_err=errs[row], ms=ms, plain_ms=device_ms(lambda: flash_attention_plain(*qkv)),
-            bound_ms=bms, bound_by=by, bound_kind=by,
+            bound_ms=bms, bound_by="bytes" if by == "bytes" else "operations", bound_kind=by,
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(*qkv)),
             event_ms=cuda_ms(lambda: flash_attention(*qkv)), kernel=seen, shape=list(shape),
-            layout="contiguous [B,H,N,D]", dtype="float32",
-            # the counters do not tell the dtypes apart; no path runs float32 flash
-            counter=(f"{row} (float32: on no path)", n))
-        log(f"[route] float32 {list(shape)}: {seen} {ms:.4f} ms, library "
-            f"{res[row]['library_ms']:.4f} ms, FMA bound {bms:.4f} ms ({by})")
+            layout="contiguous [B,H,N,D]", dtype=str(dtype).removeprefix("torch."),
+            # the counters do not tell the dtypes apart; no path runs these
+            counter=(f"{row} (on no path)", n))
+        log(f"[route] {str(dtype)[6:]} {list(shape)}: {seen} {ms:.4f} ms, plain "
+            f"{res[row]['plain_ms']:.4f} ms, library {res[row]['library_ms']:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), max_abs_err {errs[row]:.3g}")
         del qkv, got, want
 
 
@@ -1348,7 +1379,9 @@ def phase_packed(model, mixed, batch, steps):
 def phase_reference(cfg_module, bf16_model):
     """Flagship width, batch 1, 2 DDIM steps, float32: the card with its
     kernels against the CPU with the plain versions, same weights, x_T and
-    noise; then one decode of the same VQ codes on both."""
+    noise; then one decode of the same VQ codes on both. TF32 is off for
+    the library's matmuls and convolutions; the flash kernel computes in
+    split TF32 (three TF32 terms a product, about 1e-6 from float32)."""
     import torch
 
     from ealdm_torch.inference import sample_images
@@ -1699,8 +1732,9 @@ def phase_inpaint(cfg_module):
 def inpaint_reference(cfg_module, bf16_model, img, mask_px):
     """Phase 7's float32 check: batch 1, 2 DDIM steps with the mask, the
     card (kernels) against the CPU (plain versions), same weights, x_T and
-    noise; the encode too. TF32 is off (main): 1e-3 of the latent's scale,
-    as phase 5."""
+    noise; the encode too. TF32 is off for the library's matmuls and
+    convolutions (main); the flash kernel computes in split TF32, about
+    1e-6 from float32. 1e-3 of the latent's scale, as phase 5."""
     import torch
 
     from ealdm_torch.inference import sample_images
@@ -1894,8 +1928,8 @@ def conditional_reference(label, cfg_module, cfg, bf16_model, cond_input, uncond
                           scale, seed):
     """Batch 1, 2 DDIM steps at eta 0 with guidance, float32: the card (its
     kernels) against the CPU (the plain versions), same weights, inputs and
-    x_T; the conditioning too. 1e-3 of the latent's scale each (TF32 off,
-    as phase 5)."""
+    x_T; the conditioning too. 1e-3 of the latent's scale each (TF32 off
+    for the library, the flash kernel in split TF32, as phase 5)."""
     import torch
 
     from ealdm_torch.inference import sample_images
@@ -2122,8 +2156,8 @@ def zoo_reference(label, name, bf16_model, latent, eta, seed, cond_fn=None):
     """Batch 1, 2 DDIM steps, float32: the zoo entry `name` on the card (its
     kernels) against the CPU (the plain versions), same weights, x_T and
     step noise; with `cond_fn(model, device)`, the conditioning too. 1e-3
-    of the latent's (and the conditioning's) scale each, TF32 off, as
-    phase 5."""
+    of the latent's (and the conditioning's) scale each, TF32 off for the
+    library and the flash kernel in split TF32, as phase 5."""
     import torch
 
     from ealdm_torch import zoo
@@ -2635,7 +2669,9 @@ def phase_train(cfg_module):
 
 def phase_train_reference(cfg_module, trained):
     """(d) One training step's loss and gradients at full width, batch 1,
-    float32, dropout off, TF32 off: the card (kernels) against the CPU
+    float32, dropout off, TF32 off for the library's matmuls and
+    convolutions (the flash kernel computes in split TF32, about 1e-6 from
+    float32): the card (kernels) against the CPU
     (plain versions), same weights, batch, t and noise. The sums differ in
     order (cuDNN and cuBLAS against oneDNN) and the attention differs in
     form (the flash kernel against dense sdpa): loss to 1e-4 relative, the

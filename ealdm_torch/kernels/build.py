@@ -117,6 +117,11 @@ def _declare(libs: Dict[str, ctypes.CDLL]) -> None:
     fd = libs["flash_attention_sm90_deep"].ealdm_flash_attention_sm90_deep
     fd.argtypes = fa.argtypes  # its slice width where fa takes the dtype
     fd.restype = I
+    f32 = libs["flash_attention_sm90_f32"]
+    f32.ealdm_flash_attention_sm90_f32.argtypes = [P] * 6 + [I] * 10 + [L] * 12 + [F, P]
+    f32.ealdm_flash_attention_sm90_f32.restype = I
+    f32.ealdm_flash_attention_sm90_f32_splits.argtypes = [I] * 9
+    f32.ealdm_flash_attention_sm90_f32_splits.restype = I
     for name in ("flash_attention_sm90", "flash_attention_sm90_wide"):
         fw = getattr(libs[name], f"ealdm_{name}")
         fw.argtypes = [P, P, P, P, I, I, I, I, I] + [L] * 12 + [F, P]

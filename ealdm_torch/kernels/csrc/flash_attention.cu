@@ -25,14 +25,14 @@
 // overlaps this tile's math. Shared-memory rows are padded by 16 bytes, so
 // the 8 rows an ldmatrix phase reads fall in 8 distinct 16-byte bank groups.
 //
-// Any D that is a multiple of 8: in bfloat16 from 8 to 32 (the repo's
-// configurations run 24 and 32 here), in float32 from 8 to 512. The
-// bfloat16 kernel is a template over a padded width DP >= D: D = 24 is not
-// a multiple of mma's k-step of 16. The pad columns of the
-// Q, K and V tiles are zero-filled by the same cp.async (src-size 0) and the
-// Q fragments read zeros there, so q.k^T is unchanged; output columns past D
-// are never written. D is a multiple of 8, so a 16-byte chunk is all data or
-// all pad.
+// D is a multiple of 8 from 8 to 32 in bfloat16 (the repo's configurations
+// run 24 and 32 here); float32 runs flash_tf32x3_kernel
+// (flash_attention_sm90_f32.cu). The kernel is a template over a padded
+// width DP >= D: D = 24 is not a multiple of mma's k-step of 16. The pad
+// columns of the K and V tiles are zero-filled by the same cp.async
+// (src-size 0) and the Q fragments read zeros there, so q.k^T is unchanged;
+// output columns past D are never written. D is a multiple of 8, so a
+// 16-byte chunk is all data or all pad.
 //
 //  * D <= 32, DP = round_up(D, 16) (the UNet's heads: 32 in the flagship
 //    and the inpainting model, 24 in lsun_churches; the wgmma kernel is
@@ -53,27 +53,11 @@
 //    of shared memory a block (20 KiB at DP = 32). At DP = 32 a thread
 //    takes 83 registers, so 5 blocks share an SM where the earlier kernel
 //    written for d = 32 alone took 78 and 6: about 4% slower (PERF.md).
-//
-// float32 keeps the first port's FMA kernel `flash_wide_kernel` (D split
-// over the threads, up to 2 columns a thread, fp32 tiles in shared memory)
-// for every D up to 512. It is the card's float32 reference; the main path
-// runs bfloat16. Above 512 in float32 and above 1,920 in bfloat16,
-// `flash_deep_kernel` runs (FMA, fp32 math, any D: 1,024-column strips
-// across blocks, the depth in chunks). On the H100 (probe_flash.py f32,
-// PERF.md) the deep kernel takes 1.6-2.2x the wide kernel's time at D <= 160
-// over 1,024 rows and about the same at 384 and 512, but 0.84x at 576 and
-// 0.34x at 640, where the wide kernel's 16-row blocks kept D in shared memory.
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
-
-// The float32 D above which flash_deep_kernel runs. probe_flash.py builds
-// copies with 0 (the deep kernel at every D) and 640 (flash_wide_kernel up
-// to 640, its 16-row blocks above 512) to time the two kernels.
-#ifndef FLASH_PROBE_DEEP_ABOVE
-#define FLASH_PROBE_DEEP_ABOVE 512
-#endif
 
 namespace {
 
@@ -82,330 +66,6 @@ using bf16 = __nv_bfloat16;
 struct Strides {
   long long b, h, n;
 };
-
-// ================================================================ float32
-// BQ rows, BK = 32 keys, NT = 8 * BQ threads (4 rows a warp); thread t owns
-// columns t, t + NT, ..., COLS of them (columns >= D idle).
-template <int BQ>
-size_t wide_smem_bytes(int D) {
-  constexpr int BK = 32;
-  return sizeof(float) * ((size_t)BQ * D + (size_t)BK * (D + 1) + (size_t)BK * D +
-                          (size_t)BK * BQ + 2 * BQ);
-}
-
-template <int BQ, int NT, int COLS>
-__global__ void __launch_bounds__(NT)
-flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int H,
-                  int Nq, int Nk, int D, Strides qs, Strides ks, Strides vs,
-                  Strides os, float scale) {
-  constexpr int BK = 32;  // one key per lane
-  static_assert(BQ == 4 * (NT / 32), "4 rows per warp");
-  const int KP = D + 1;  // padded K row: lane j hits bank (j + k) % 32
-
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][D]  q * scale
-  float* Ks = Qs + BQ * D;          // [BK][KP]
-  float* Vs = Ks + BK * KP;         // [BK][D]
-  float* Pt = Vs + BK * D;          // [BK][BQ] probabilities, transposed
-  float* alpha_s = Pt + BK * BQ;    // [BQ]
-  float* l_s = alpha_s + BQ;        // [BQ]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int row0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float* kp = k + b * ks.b + h * ks.h;
-  const float* vp = v + b * vs.b + h * vs.h;
-
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int i = idx / D, d = idx % D;
-    const int row = row0 + i;
-    Qs[idx] = row < Nq ? q[b * qs.b + h * qs.h + (long long)row * qs.n + d] * scale
-                       : 0.f;
-  }
-  float acc[BQ][COLS];
-#pragma unroll
-  for (int i = 0; i < BQ; ++i)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
-  // running max / sum of this warp's 4 rows (same value in every lane)
-  float m_r[4], l_r[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) { m_r[r] = -INFINITY; l_r[r] = 0.f; }
-
-  for (int k0 = 0; k0 < Nk; k0 += BK) {
-    __syncthreads();  // previous tile's P and V are consumed; Q is staged
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int j = idx / D, d = idx % D;
-      const int key = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < Nk) {
-        kv = kp[(long long)key * ks.n + d];
-        vv = vp[(long long)key * vs.n + d];
-      }
-      Ks[j * KP + d] = kv;
-      Vs[j * D + d] = vv;
-    }
-    __syncthreads();
-
-    // scores of rows 4*warp .. 4*warp+3 against key `lane`
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* krow = Ks + lane * KP;
-    const float* q0 = Qs + (4 * warp) * D;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float k_0 = krow[d], k_1 = krow[d + 1], k_2 = krow[d + 2],
-                  k_3 = krow[d + 3];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 qq = *reinterpret_cast<const float4*>(q0 + r * D + d);
-        s[r] = fmaf(qq.x, k_0, s[r]);
-        s[r] = fmaf(qq.y, k_1, s[r]);
-        s[r] = fmaf(qq.z, k_2, s[r]);
-        s[r] = fmaf(qq.w, k_3, s[r]);
-      }
-    }
-    const bool valid = k0 + lane < Nk;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float sv = valid ? s[r] : -INFINITY;
-      float mt = sv;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m_r[r], mt);
-      const float p = expf(sv - m_new);
-      float ps = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      const float alpha = expf(m_r[r] - m_new);
-      l_r[r] = l_r[r] * alpha + ps;
-      m_r[r] = m_new;
-      Pt[lane * BQ + 4 * warp + r] = p;
-      if (lane == 0) alpha_s[4 * warp + r] = alpha;
-    }
-    __syncthreads();
-
-    // acc[i][c] = acc[i][c] * alpha[i] + sum_j P[i][j] * V[j][col c]
-#pragma unroll
-    for (int i = 0; i < BQ; ++i) {
-      const float a = alpha_s[i];
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[i][c] *= a;
-    }
-    for (int j = 0; j < BK; ++j) {
-      float vv[COLS];
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int col = tid + c * NT;
-        vv[c] = col < D ? Vs[j * D + col] : 0.f;
-      }
-#pragma unroll
-      for (int i4 = 0; i4 < BQ / 4; ++i4) {
-        const float4 p4 = *reinterpret_cast<const float4*>(Pt + j * BQ + 4 * i4);
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          acc[4 * i4 + 0][c] = fmaf(p4.x, vv[c], acc[4 * i4 + 0][c]);
-          acc[4 * i4 + 1][c] = fmaf(p4.y, vv[c], acc[4 * i4 + 1][c]);
-          acc[4 * i4 + 2][c] = fmaf(p4.z, vv[c], acc[4 * i4 + 2][c]);
-          acc[4 * i4 + 3][c] = fmaf(p4.w, vv[c], acc[4 * i4 + 3][c]);
-        }
-      }
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) l_s[4 * warp + r] = l_r[r];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < BQ; ++i) {
-    const int row = row0 + i;
-    if (row >= Nq) break;
-    const float inv = 1.f / l_s[i];
-    float* op = o + b * os.b + h * os.h + (long long)row * os.n;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c)
-      if (tid + c * NT < D) op[tid + c * NT] = acc[i][c] * inv;
-  }
-}
-
-// ====================================================== float32 D > 512, bfloat16 D > 1,920
-// float32 above 512 and bfloat16 above the deep wgmma kernel's 1,920
-// (flash_attention_sm90_deep.cu; JAX's kernel takes any D): math in fp32,
-// and P stays fp32, so bfloat16 results are only closer to the plain
-// version. No configuration's path reaches such a
-// head in bf16: the kernel is right and simple, not fast. It is the float32 kernel above
-// with nothing of size D in shared memory, so any D runs in 43 KiB. A block
-// owns 16 query rows and a strip of up to 1,024 output columns (grid z: one
-// strip up to D = 1,024); each thread keeps its 8 columns of the strip
-// (one a 128-column chunk) for all 16 rows in registers. For each 32-key
-// tile the scores are summed over the depth in chunks of 128 columns (the
-// chunk of Q, scaled, and of K staged as fp32; Q is re-read from the L2 for
-// each tile); the online softmax is the float32 kernel's; then the tile's V
-// is staged chunk by chunk and each chunk updates one of the thread's
-// columns. Bound: operations (FMA at 67 TFLOP/s in float32), and in
-// practice the shared-memory reads of the products.
-template <typename T> __device__ __forceinline__ float ld_f32(const T* p);
-template <> __device__ __forceinline__ float ld_f32<float>(const float* p) { return *p; }
-template <> __device__ __forceinline__ float ld_f32<bf16>(const bf16* p) {
-  return __bfloat162float(*p);
-}
-template <typename T> __device__ __forceinline__ void st_f32(T* p, float x);
-template <> __device__ __forceinline__ void st_f32<float>(float* p, float x) { *p = x; }
-template <> __device__ __forceinline__ void st_f32<bf16>(bf16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-constexpr int kDRows = 16;      // query rows a block: 4 warps x 4
-constexpr int kDKeys = 32;      // keys a tile, one a lane
-constexpr int kDThreads = 128;  // = kDChunk: thread t owns column t of each chunk
-constexpr int kDChunk = 128;    // depth (and output) columns a pass stages
-constexpr int kDCols = 8;       // chunks a strip: output columns a thread
-constexpr int kDStrip = kDChunk * kDCols;  // output columns a block
-
-constexpr size_t deep_smem_bytes() {
-  return sizeof(float) * ((size_t)kDRows * kDChunk + (size_t)kDKeys * (kDChunk + 1) +
-                          (size_t)kDKeys * kDChunk + (size_t)kDKeys * kDRows + 2 * kDRows);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kDThreads)
-flash_deep_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int H, int Nq, int Nk,
-                  int D, Strides qs, Strides ks, Strides vs, Strides os, float scale) {
-  constexpr int BQ = kDRows, BK = kDKeys, NT = kDThreads, DC = kDChunk, KP = DC + 1;
-  constexpr int COLS = kDCols, STRIP = kDStrip;
-  static_assert(NT == DC, "a thread owns one column of each chunk");
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;               // [BQ][DC] a depth chunk of q * scale
-  float* Ks = Qs + BQ * DC;       // [BK][KP] the same chunk of the key tile
-  float* Vs = Ks + BK * KP;       // [BK][DC] a column chunk of the tile's V
-  float* Pt = Vs + BK * DC;       // [BK][BQ] probabilities, transposed
-  float* alpha_s = Pt + BK * BQ;  // [BQ]
-  float* l_s = alpha_s + BQ;      // [BQ]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int row0 = blockIdx.x * BQ, col0 = blockIdx.z * STRIP;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + h * ks.h;
-  const T* vp = v + b * vs.b + h * vs.h;
-
-  float acc[BQ][COLS];
-#pragma unroll
-  for (int i = 0; i < BQ; ++i)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
-  float m_r[4], l_r[4];  // running max / sum of this warp's 4 rows
-#pragma unroll
-  for (int r = 0; r < 4; ++r) { m_r[r] = -INFINITY; l_r[r] = 0.f; }
-
-  for (int k0 = 0; k0 < Nk; k0 += BK) {
-    // scores of rows 4*warp .. 4*warp+3 against key `lane`, over the depth
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < D; d0 += DC) {
-      const int dc = min(DC, D - d0);
-      __syncthreads();  // the last chunk's Q/K (and the last tile's P, V) are consumed
-      for (int idx = tid; idx < BQ * DC; idx += NT) {
-        const int i = idx / DC, d = idx % DC, row = row0 + i;
-        Qs[idx] = row < Nq && d < dc ? ld_f32(qp + (long long)row * qs.n + d0 + d) * scale
-                                     : 0.f;
-      }
-      for (int idx = tid; idx < BK * DC; idx += NT) {
-        const int j = idx / DC, d = idx % DC, key = k0 + j;
-        Ks[j * KP + d] = key < Nk && d < dc ? ld_f32(kp + (long long)key * ks.n + d0 + d)
-                                            : 0.f;
-      }
-      __syncthreads();
-      const float* krow = Ks + lane * KP;  // lane j reads bank (j + d) % 32
-      const float* q0 = Qs + 4 * warp * DC;
-#pragma unroll 4
-      for (int d = 0; d < DC; d += 4) {  // columns past dc are zeros on both sides
-        const float k_0 = krow[d], k_1 = krow[d + 1], k_2 = krow[d + 2], k_3 = krow[d + 3];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float4 qq = *reinterpret_cast<const float4*>(q0 + r * DC + d);
-          s[r] = fmaf(qq.x, k_0, s[r]);
-          s[r] = fmaf(qq.y, k_1, s[r]);
-          s[r] = fmaf(qq.z, k_2, s[r]);
-          s[r] = fmaf(qq.w, k_3, s[r]);
-        }
-      }
-    }
-    const bool valid = k0 + lane < Nk;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float sv = valid ? s[r] : -INFINITY;
-      float mt = sv;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m_r[r], mt);
-      const float p = expf(sv - m_new);
-      float ps = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      const float alpha = expf(m_r[r] - m_new);
-      l_r[r] = l_r[r] * alpha + ps;
-      m_r[r] = m_new;
-      Pt[lane * BQ + 4 * warp + r] = p;
-      if (lane == 0) alpha_s[4 * warp + r] = alpha;
-    }
-    __syncthreads();  // P and alpha are in place
-
-#pragma unroll
-    for (int i = 0; i < BQ; ++i) {
-      const float a = alpha_s[i];
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[i][c] *= a;
-    }
-    // acc[i][c] += sum_j P[i][j] * V[j][col0 + c*DC + tid], a chunk at a time
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int c0 = col0 + c * DC;
-      if (c0 >= D) break;  // the same for every thread
-      if (c) __syncthreads();  // the last chunk's V is consumed
-      for (int idx = tid; idx < BK * DC; idx += NT) {
-        const int j = idx / DC, col = c0 + idx % DC, key = k0 + j;
-        Vs[idx] = key < Nk && col < D ? ld_f32(vp + (long long)key * vs.n + col) : 0.f;
-      }
-      __syncthreads();
-      for (int j = 0; j < BK; ++j) {
-        const float vv = Vs[j * DC + tid];
-#pragma unroll
-        for (int i4 = 0; i4 < BQ / 4; ++i4) {
-          const float4 p4 = *reinterpret_cast<const float4*>(Pt + j * BQ + 4 * i4);
-          acc[4 * i4 + 0][c] = fmaf(p4.x, vv, acc[4 * i4 + 0][c]);
-          acc[4 * i4 + 1][c] = fmaf(p4.y, vv, acc[4 * i4 + 1][c]);
-          acc[4 * i4 + 2][c] = fmaf(p4.z, vv, acc[4 * i4 + 2][c]);
-          acc[4 * i4 + 3][c] = fmaf(p4.w, vv, acc[4 * i4 + 3][c]);
-        }
-      }
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) l_s[4 * warp + r] = l_r[r];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < BQ; ++i) {
-    const int row = row0 + i;
-    if (row >= Nq) break;
-    const float inv = 1.f / l_s[i];
-    T* op = o + b * os.b + h * os.h + (long long)row * os.n;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int col = col0 + c * DC + tid;
-      if (col < D) st_f32(op + col, acc[i][c] * inv);
-    }
-  }
-}
 
 // =============================================================== bfloat16
 // ---------------------------------------------------------------- helpers
@@ -665,62 +325,6 @@ flash_mma_narrow_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- launch
-// D is a multiple of 8 from 8 to FLASH_PROBE_DEEP_ABOVE (the entry point
-// routes the rest).
-template <int BQ, int NT, int COLS>
-cudaError_t launch_wide_f32(const float* q, const float* k, const float* v, float* o,
-                            int B, int H, int Nq, int Nk, int D, Strides qs,
-                            Strides ks, Strides vs, Strides os, float scale,
-                            cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes<BQ>(D);
-  auto kern = flash_wide_kernel<BQ, NT, COLS>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Nq + BQ - 1) / BQ, B * H);
-  kern<<<grid, NT, smem, stream>>>(q, k, v, o, H, Nq, Nk, D, qs, ks, vs, os, scale);
-  return cudaSuccess;
-}
-
-cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
-                       int B, int H, int Nq, int Nk, int D, Strides qs,
-                       Strides ks, Strides vs, Strides os, float scale,
-                       cudaStream_t stream) {
-  cudaError_t e = cudaSuccess;
-  if (D <= 256) {
-    e = launch_wide_f32<32, 256, 1>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os, scale,
-                                    stream);
-  } else if (D <= 512) {
-    e = launch_wide_f32<32, 256, 2>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os, scale,
-                                    stream);
-  } else {
-#if FLASH_PROBE_DEEP_ABOVE > 512  // 16 rows a block keep the fp32 tiles within shared memory
-    e = launch_wide_f32<16, 128, 5>(q, k, v, o, B, H, Nq, Nk, D, qs, ks, vs, os, scale,
-                                    stream);
-#else
-    return cudaErrorInvalidValue;
-#endif
-  }
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_deep(const T* q, const T* k, const T* v, T* o, int B, int H, int Nq,
-                        int Nk, int D, Strides qs, Strides ks, Strides vs, Strides os,
-                        float scale, cudaStream_t stream) {
-  constexpr size_t smem = deep_smem_bytes();
-  auto kern = flash_deep_kernel<T>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const int strips = (D + kDStrip - 1) / kDStrip;
-  if (strips > 65535) return cudaErrorInvalidValue;
-  dim3 grid((Nq + kDRows - 1) / kDRows, B * H, strips);
-  kern<<<grid, kDThreads, smem, stream>>>(q, k, v, o, H, Nq, Nk, D, qs, ks, vs, os, scale);
-  return cudaGetLastError();
-}
-
 template <int DP>
 cudaError_t launch_narrow(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
                           int H, int Nq, int Nk, int D, Strides qs, Strides ks,
@@ -757,10 +361,9 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 }  // namespace
 
-// dtype: 0 = float32 (any D that is a multiple of 8: flash_deep_kernel
-// above 512), 1 = bfloat16 (D = 8 .. 32, and flash_deep_kernel above 1,920;
-// ops/attention.py routes the D between to the wgmma kernels, and they are
-// refused here). Strides are in elements. Returns the cudaError_t of the
+// dtype: 1 = bfloat16 with D = 8 .. 32; ops/attention.py routes every other
+// head dim and float32 to the kernels of flash_attention_sm90*.cu, and they
+// are refused here. Strides are in elements. Returns the cudaError_t of the
 // launch (0 on success).
 extern "C" int ealdm_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
@@ -768,28 +371,14 @@ extern "C" int ealdm_flash_attention(
     long long q_sn, long long k_sb, long long k_sh, long long k_sn,
     long long v_sb, long long v_sh, long long v_sn, long long o_sb,
     long long o_sh, long long o_sn, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || B * H > 65535 || D < 8 || D % 8 != 0)
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || B * H > 65535 || D < 8 || D % 8 != 0 ||
+      dtype != 1)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_sn}, ks{k_sb, k_sh, k_sn}, vs{v_sb, v_sh, v_sn},
       os{o_sb, o_sh, o_sn};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > FLASH_PROBE_DEEP_ABOVE && dtype == 0)
-    return (int)launch_deep(static_cast<const float*>(q), static_cast<const float*>(k),
-                            static_cast<const float*>(v), static_cast<float*>(o), B, H, Nq,
-                            Nk, D, qs, ks, vs, os, scale, s);
-  if (D > 1920 && dtype == 1)
-    return (int)launch_deep(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                            static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H, Nq,
-                            Nk, D, qs, ks, vs, os, scale, s);
-  if (dtype == 0)
-    return (int)launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                           static_cast<const float*>(v), static_cast<float*>(o), B,
-                           H, Nq, Nk, D, qs, ks, vs, os, scale, s);
-  if (dtype == 1)
-    return (int)launch_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                            static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H,
-                            Nq, Nk, D, qs, ks, vs, os, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H, Nq, Nk,
+                          D, qs, ks, vs, os, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ealdm_cuda_error_string(int err) {

@@ -12,11 +12,15 @@ wide one (`kernels/csrc/flash_attention_sm90_wide.cu`),
 `DEEP_WGMMA_HEAD_DIMS` on the deep one, a cluster of blocks that split the
 head dim (`kernels/csrc/flash_attention_sm90_deep.cu`; no configuration's
 bfloat16 path reaches d = 584 or above), the others on `mma.sync`
-(`kernels/csrc/flash_attention.cu`); it needs 16-byte aligned tensors with
-strides in multiples of 8 elements and raises otherwise. float32 runs on
-FMA, above 512 on `flash_deep_kernel` (FMA, float32 math, any d), which
-also runs bfloat16 above 1,920. Each launch
-counts under `flash_counter(d)` (per head dim and entry point).
+(`kernels/csrc/flash_attention.cu`). float32 at every d, and bfloat16 above
+1,920, run `flash_tf32x3_kernel` (`kernels/csrc/flash_attention_sm90_f32.cu`):
+both products on the tensor cores in split TF32 (hi*lo + lo*hi + hi*hi, about
+1e-6 from float32 math), with a key split over blocks where the row blocks
+leave SMs idle, its parts added by `flash_tf32x3_combine_kernel`. Every
+kernel copies 16-byte pieces: the tensors must be 16-byte aligned with
+strides in multiples of 16 bytes, else `ValueError`. Each launch
+counts under `flash_counter(d)` (per head dim and entry point), and a
+combine under `COMBINE_COUNTER`.
 On the card both run inside autograd Functions whose backward is the vjp of
 the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
 do. `bf16_attention_shares` states the limits a bfloat16 kernel is held to
@@ -37,7 +41,8 @@ from ..kernels import build
 __all__ = ["sdpa", "flash_attention", "flash_attention_packed",
            "flash_attention_plain", "flash_counter",
            "flash_attention_vjp", "bf16_attention_shares", "WGMMA_HEAD_DIMS",
-           "WIDE_WGMMA_HEAD_DIMS", "DEEP_WGMMA_HEAD_DIMS", "deep_slices",
+           "WIDE_WGMMA_HEAD_DIMS", "DEEP_WGMMA_HEAD_DIMS", "deep_slices", "tf32x3_tiling",
+           "COMBINE_COUNTER",
            "tiny_ctx_attention_packed", "set_attention_impl", "attention_impl"]
 
 # "dense" (default), "flash" (the kernel at eligible self-attention sites) or
@@ -48,14 +53,18 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # bfloat16 head dims that run `flash_wgmma_narrow_kernel`
 # (`kernels/csrc/flash_attention_sm90.cu`), `flash_wgmma_wide_kernel`
 # (`kernels/csrc/flash_attention_sm90_wide.cu`) and `flash_wgmma_deep_kernel`
-# (`kernels/csrc/flash_attention_sm90_deep.cu`), all wgmma and TMA; the
-# others run `flash_attention.cu` (`flash_mma_narrow_kernel` to 32,
-# `flash_deep_kernel` above 1,920). float32 runs `flash_wide_kernel` up to
-# d = 512 and `flash_deep_kernel` above. These ranges and `deep_slices` are
-# the routing: each C entry point refuses a head dim it is not routed.
+# (`kernels/csrc/flash_attention_sm90_deep.cu`), all wgmma and TMA;
+# `flash_attention.cu` runs the others up to 32 (`flash_mma_narrow_kernel`).
+# float32 at every d, and bfloat16 above 1,920, run `flash_tf32x3_kernel`
+# (`kernels/csrc/flash_attention_sm90_f32.cu`, split TF32). These ranges,
+# `deep_slices` and `tf32x3_tiling` are the routing: each C entry point
+# refuses a head dim it is not routed.
 WGMMA_HEAD_DIMS = range(40, 129, 8)
 WIDE_WGMMA_HEAD_DIMS = range(136, 577, 8)
 DEEP_WGMMA_HEAD_DIMS = range(584, 1921, 8)
+# the launch counter of `flash_tf32x3_combine_kernel`, which adds the parts
+# of a key split (the C entry point launches it after the flash kernel)
+COMBINE_COUNTER = "flash_attention_combine"
 
 
 def deep_slices(d: int):
@@ -66,6 +75,27 @@ def deep_slices(d: int):
     from here."""
     w = 512 if 768 < d <= 1024 else 384
     return w, -(-d // w)
+
+
+def tf32x3_tiling(d: int, dtype=torch.float32):
+    """(BK, WC, DW) of `flash_tf32x3_kernel` at head dim d (a multiple of
+    8): tiles of BK keys, and row groups of 16 rows whose WC warps multiply
+    DW columns each, so that a depth pass of S and a strip of O are WC * DW
+    columns. float32: d <= 32, 64 and 128 on one warp of d rounded up; d <=
+    160 on two of 80 and d <= 256 on two of 128; d = 513 .. 640 on four of
+    160 with 24-key tiles; every other d on four of 128, in passes and
+    strips of 512 above 640. bfloat16 (above 1,920) on eight of 128. The
+    kernel takes the tiling from here (its entry point refuses a tiling it
+    has no instance of), and `emulate_tf32x3` in the tests follows it."""
+    if dtype == torch.bfloat16:
+        return 32, 8, 128
+    if d <= 64:
+        return 64, 1, 32 if d <= 32 else 64
+    if d <= 128:
+        return 32, 1, 128
+    if d <= 256:
+        return (32, 2, 80) if d <= 160 else (32, 2, 128)
+    return (24, 4, 160) if 512 < d <= 640 else (32, 4, 128)
 
 
 def flash_counter(d: int, packed: bool = False) -> str:
@@ -291,40 +321,66 @@ def _launch(q, k, v, o, b, h, nq, nk, d, strides, scale):
         raise ValueError("q, k, v must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):
         raise ValueError("the head dimension must be contiguous")
-    if q.dtype == torch.bfloat16:
-        _check_bf16_alignment((q, k, v, o), strides, (b, h, nq), (b, h, nk))
+    _check_alignment((q, k, v, o), strides, (b, h, nq), (b, h, nk))
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     flat = [s for triple in strides for s in triple]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    if q.dtype == torch.bfloat16:
-        name = ("flash_attention_sm90" if d in WGMMA_HEAD_DIMS
-                else "flash_attention_sm90_wide" if d in WIDE_WGMMA_HEAD_DIMS
-                else "flash_attention_sm90_deep" if d in DEEP_WGMMA_HEAD_DIMS else None)
-        if name is not None:
-            width = (deep_slices(d)[0],) if name == "flash_attention_sm90_deep" else ()
-            err = getattr(build.library(name), f"ealdm_{name}")(
-                *ptrs, *width, b, h, nq, nk, d, *flat, float(scale), stream)
-            build.check(err, name)
-            return
+    if q.dtype == torch.float32 or d > DEEP_WGMMA_HEAD_DIMS[-1]:
+        _launch_tf32x3(ptrs, q, b, h, nq, nk, d, flat, scale, stream)
+        return
+    # bfloat16 up to 1,920
+    name = ("flash_attention_sm90" if d in WGMMA_HEAD_DIMS
+            else "flash_attention_sm90_wide" if d in WIDE_WGMMA_HEAD_DIMS
+            else "flash_attention_sm90_deep" if d in DEEP_WGMMA_HEAD_DIMS else None)
+    if name is not None:
+        width = (deep_slices(d)[0],) if name == "flash_attention_sm90_deep" else ()
+        err = getattr(build.library(name), f"ealdm_{name}")(
+            *ptrs, *width, b, h, nq, nk, d, *flat, float(scale), stream)
+        build.check(err, name)
+        return
     err = build.library("flash_attention").ealdm_flash_attention(
         *ptrs, _DTYPE_CODE[q.dtype], b, h, nq, nk, d, *flat, float(scale), stream)
     build.check(err, "flash_attention")
 
 
-def _check_bf16_alignment(tensors, strides, q_sizes, kv_sizes):
-    """The bfloat16 kernels copy rows in 16-byte pieces: every base must be
-    16-byte aligned and every (batch, head, row) stride of a dimension
-    longer than 1 a multiple of 8 elements."""
+def _launch_tf32x3(ptrs, q, b, h, nq, nk, d, flat, scale, stream):
+    """`flash_tf32x3_kernel`, with the key split its entry point asks for:
+    KS > 1 takes an fp32 scratch for the parts (unnormalised O, and each
+    row's max and sum), allocated here, and a second launch that adds them."""
+    lib = build.library("flash_attention_sm90_f32")
+    code = _DTYPE_CODE[q.dtype]
+    tiling = tf32x3_tiling(d, q.dtype)
+    splits = lib.ealdm_flash_attention_sm90_f32_splits(code, *tiling, b, h, nq, nk, d)
+    if splits < 1:
+        build.check(-splits, "flash_attention_sm90_f32 key split")
+    part = ml = None
+    if splits > 1:
+        part = torch.empty(splits * b * h * nq * d, dtype=torch.float32, device=q.device)
+        ml = torch.empty(splits * b * h * nq * 2, dtype=torch.float32, device=q.device)
+    err = lib.ealdm_flash_attention_sm90_f32(
+        *ptrs, None if part is None else part.data_ptr(), None if ml is None else ml.data_ptr(),
+        splits, code, *tiling, b, h, nq, nk, d, *flat, float(scale), stream)
+    build.check(err, "flash_attention_sm90_f32")
+    if splits > 1:
+        kernels.count_launch(COMBINE_COUNTER, nq)
+
+
+def _check_alignment(tensors, strides, q_sizes, kv_sizes):
+    """The kernels copy rows in 16-byte pieces: every base must be 16-byte
+    aligned and every (batch, head, row) stride of a dimension longer than 1
+    a multiple of 16 bytes (8 bfloat16 or 4 float32 elements)."""
+    dtype = str(tensors[0].dtype).removeprefix("torch.")
+    elems = 16 // tensors[0].element_size()
     for name, t, triple, sizes in zip("qkvo", tensors, strides,
                                       (q_sizes, kv_sizes, kv_sizes, q_sizes)):
         if t.data_ptr() % 16:
-            raise ValueError(f"bfloat16 flash attention needs 16-byte aligned "
+            raise ValueError(f"{dtype} flash attention needs 16-byte aligned "
                              f"tensors; {name} starts at {t.data_ptr() % 16} past")
-        if any(s % 8 for s, n in zip(triple, sizes) if n > 1):
-            raise ValueError(f"bfloat16 flash attention needs strides that are "
-                             f"multiples of 8 elements; {name} has {tuple(triple)}")
+        if any(s % elems for s, n in zip(triple, sizes) if n > 1):
+            raise ValueError(f"{dtype} flash attention needs strides that are "
+                             f"multiples of {elems} elements; {name} has {tuple(triple)}")
 
 
 def tiny_ctx_attention_packed(q, k, v, heads, scale=None):

@@ -38,7 +38,7 @@ from ealdm_tpu.ops import attention as j_attention
 from ealdm_tpu.ops.attention import _flash_packed_forward
 from ealdm_torch.ops.attention import (
     _split_heads, bf16_attention_shares, deep_slices, flash_attention_packed,
-    flash_attention_plain)
+    flash_attention_plain, tf32x3_tiling)
 
 LOG2E = 1.4426950408889634
 
@@ -487,3 +487,159 @@ def test_plain_matches_pallas_at_deep_head_dims(d, layout):
     got = (flash_attention_plain(tq, tk, tv) if layout == "split"
            else flash_attention_packed(tq, tk, tv, 2))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- float32
+# `flash_tf32x3_kernel` (`flash_attention_sm90_f32.cu`): every float32 head
+# dim (and bfloat16 above 1,920) on the TF32 tensor cores (mma.sync, and
+# wgmma at some head dims) in split TF32, on `tf32x3_tiling`.
+
+
+def tf32_round(x):
+    """x rounded to TF32 as `cvt.rna.tf32.f32` does: 10 fraction bits, to
+    nearest, ties away from zero (the low 13 bits of the float32 cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_trunc(x):
+    """x cut to TF32: its 13 low bits cleared (toward zero), as the kernel
+    takes hi, and as the tensor core reads a float32 lo."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, split, rounding=tf32_trunc):
+    """a @ b on the TF32 tensor cores: in split TF32 (hi*lo + lo*hi + hi*hi,
+    the order the kernel issues them), or one term (hi*hi). The kernel's
+    split (`rounding=tf32_trunc`): hi = x cut to TF32, lo = x - hi, of which
+    the tensor core reads the TF32 top; `tf32_round` is cvt.rna's."""
+    ah, bh = rounding(a), rounding(b)
+    if not split:
+        return ah @ bh
+    al, bl = rounding(a - ah), rounding(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def emulate_tf32x3(q, k, v, splits=1, scale=None, split_scores=True, split_values=True,
+                   rescale_parts=True, rounding=tf32_trunc):
+    """The kernel's arithmetic on float32 [B, H, Nq, D] q and [B, H, Nk, D]
+    k/v, in its order: the head dim zero-padded to whole depth passes of CW
+    columns; for each tile of BK keys, each warp's partial S over its DW
+    columns of every pass (split TF32), the partials added in rank order;
+    the base-2 online softmax; O += P V in split TF32. With `splits` > 1 the
+    key tiles split into that many ranges, each with its own (max, sum, O),
+    combined as the combine kernel does. The faults: one TF32 term in S
+    (`split_scores=False`) or in P V (`split_values=False`), and a combine
+    that adds the parts without rescaling each by 2^((m_i - m) c).
+    `rounding=tf32_round` splits with cvt.rna instead."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    bk, wc, dw = tf32x3_tiling(d)
+    cw = wc * dw
+    dp = -(-d // cw) * cw
+    qf, kf, vf = (torch.nn.functional.pad(t.float(), (0, dp - d)) for t in (q, k, v))
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    ntiles = -(-k.shape[2] // bk)
+    parts = []
+    for sp in range(splits):
+        m = torch.full(q.shape[:3] + (1,), -math.inf)
+        l = torch.zeros(q.shape[:3] + (1,))
+        acc = torch.zeros(qf.shape)
+        for j in range(sp * ntiles // splits, (sp + 1) * ntiles // splits):
+            kt, vt = kf[:, :, j * bk:(j + 1) * bk], vf[:, :, j * bk:(j + 1) * bk]
+            s = None
+            for w in range(cw // dw):  # warp w's partial over every pass, in rank order
+                cols = [p + w * dw + i for p in range(0, dp, cw) for i in range(dw)]
+                part = _tf32_product(qf[..., cols], kt[..., cols].transpose(-1, -2),
+                                     split_scores, rounding)
+                s = part if s is None else s + part
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - m_new * c)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + _tf32_product(p, vt, split_values, rounding)
+            m = m_new
+        parts.append((m, l, acc))
+    if splits == 1:
+        return (acc / l)[..., :d]
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    w = [torch.exp2((m - top) * c) if rescale_parts else torch.ones_like(m)
+         for m, _, _ in parts]
+    total = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    return (sum(wi * a for wi, (_, _, a) in zip(w, parts)) / total)[..., :d]
+
+
+def _f32(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+# (B, H, Nq, Nk, key splits) at each d: whole tiles, a ragged query block
+# and key tile, and a key split whose ranges hold 1 to 3 tiles
+TF32X3_SHAPES = [(1, 2, 128, 256, 1), (2, 1, 70, 77, 1), (1, 2, 100, 200, 3)]
+
+
+@pytest.mark.parametrize("rounding", [tf32_trunc, tf32_round])
+@pytest.mark.parametrize("shape", TF32X3_SHAPES)
+@pytest.mark.parametrize("d", [32, 512, 640, 680])
+def test_tf32x3_emulation_within_limit(d, shape, rounding):
+    """Split TF32 on both products, in the kernel's order, holds the float32
+    limit of 1e-4 against flash_attention_plain: at d = 32, 512 and 640 (one
+    depth pass) and 680 (two passes of 512, and two strips), with and
+    without the key split; with the kernel's split (hi cut to TF32) and
+    with cvt.rna's."""
+    b, h, nq, nk, splits = shape
+    rng = np.random.default_rng(nq * 1000 + nk + d)
+    q, k, v = _f32(rng, b, h, nq, d), _f32(rng, b, h, nk, d), _f32(rng, b, h, nk, d)
+    got = emulate_tf32x3(q, k, v, splits=splits, rounding=rounding)
+    assert (got - flash_attention_plain(q, k, v)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("layout", ["split", "packed"])
+@pytest.mark.parametrize("d", [32, 512])
+def test_tf32x3_emulation_matches_pallas(interpret_pallas, d, layout):
+    """The emulation against JAX's Pallas kernel in interpret mode, from the
+    same numpy inputs at [2, 2, 256, d] ([2, 256, 2*d] packed), with a key
+    split of 2: 1e-4."""
+    b, h, n = 2, 2, 256
+    rng = np.random.default_rng(200 + d)
+    if layout == "packed":
+        q, k, v = (rng.standard_normal((b, n, h * d)).astype(np.float32) for _ in range(3))
+        want = _flash_packed_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h,
+                                     interpret=True)
+        got = emulate_tf32x3(*(_split_heads(torch.from_numpy(t), h) for t in (q, k, v)),
+                             splits=2).transpose(1, 2).reshape(b, n, h * d)
+    else:
+        q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(3))
+        want = j_attention.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        got = emulate_tf32x3(*(torch.from_numpy(t) for t in (q, k, v)), splits=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("fault", ["one_term", "scores_only", "values_only", "stale_combine"])
+def test_broken_tf32x3_emulation_breaks_limit(fault):
+    """The faults the float32 kernel could have, each outside 1e-4 at
+    [1, 2, 256, 512]: one TF32 term in both products, the split on only one
+    of them, and a key split whose combine does not rescale each part by
+    2^((m_i - m) c)."""
+    b, h, n, d = 1, 2, 256, 512
+    rng = np.random.default_rng(41)
+    q, k, v = (_f32(rng, b, h, n, d) for _ in range(3))
+    want = flash_attention_plain(q, k, v)
+    assert (emulate_tf32x3(q, k, v, splits=4) - want).abs().max().item() <= 1e-4
+    kw = {"one_term": dict(split_scores=False, split_values=False),
+          "scores_only": dict(split_values=False),
+          "values_only": dict(split_scores=False),
+          "stale_combine": dict(splits=4, rescale_parts=False)}[fault]
+    assert (emulate_tf32x3(q, k, v, **kw) - want).abs().max().item() > 1e-4
+
+
+def test_tf32_round_is_cvt_rna():
+    """tf32_round keeps 10 fraction bits, rounding half away from zero, as
+    cvt.rna does: 1 + 2^-11 (a tie) rounds up, 1 + 2^-11 - 2^-23 down, and
+    negative values mirror; tf32_trunc cuts toward zero."""
+    x = torch.tensor([1 + 2**-11, 1 + 2**-11 - 2**-23, -(1 + 2**-11), 1 + 3 * 2**-11])
+    torch.testing.assert_close(tf32_round(x), torch.tensor([1 + 2**-10, 1.0, -(1 + 2**-10),
+                                                            1 + 2 * 2**-10]), rtol=0, atol=0)
+    torch.testing.assert_close(tf32_trunc(x), torch.tensor([1.0, 1.0, -1.0, 1 + 2**-10]),
+                               rtol=0, atol=0)

@@ -13,8 +13,9 @@ shapes, where the key split over a cluster of two blocks runs or does not.
 The deep kernel (`DEEP_WGMMA_HEAD_DIMS`, d = 584 .. 1,920: a cluster of
 blocks that split the head dim) at d = 648, 704, 960 and 1,100 (padded to
 1,104), ragged, in the same three layouts, the kernel each dtype runs
-above d = 640, and the C entry points' refusal of head dims that
-`ops.attention` does not route to them.
+above d = 640 (float32 and bfloat16 above 1,920: `flash_tf32x3_kernel`),
+and the C entry points' refusal of head dims that `ops.attention` does
+not route to them.
 These tests need an NVIDIA GPU (sm_90a) with nvcc; elsewhere they skip. Run
 them on the card with
     python -m pytest tests/test_torch_port_flash_sm90.py -m cuda -q
@@ -35,6 +36,7 @@ from ealdm_torch.ops.attention import (
     flash_attention_plain,
     flash_counter,
     sdpa,
+    tf32x3_tiling,
 )
 
 pytestmark = pytest.mark.cuda
@@ -159,24 +161,25 @@ def _kernels_seen(q, k, v):
 
 def test_deep_wgmma_kernel_is_the_one_launched(dev):
     """bfloat16 d = 648 and 960 run `flash_wgmma_deep_kernel`; float32 at
-    those d, and bfloat16 above 1,920, run `flash_deep_kernel`."""
+    those d, and bfloat16 above 1,920, run `flash_tf32x3_kernel`."""
     for d in (648, 960):
         q, k, v = (_randn(2, 2, 256, d, dev=dev, seed=s) for s in (1, 2, 3))
         seen = _kernels_seen(q, k, v)
         assert d in DEEP_WGMMA_HEAD_DIMS and "flash_wgmma_deep_kernel" in seen
-        assert "flash_deep_kernel" not in seen
+        assert "flash_tf32x3_kernel" not in seen
         seen = _kernels_seen(*(t.float() for t in (q, k, v)))
-        assert "flash_deep_kernel" in seen and "flash_wgmma_deep_kernel" not in seen
+        assert "flash_tf32x3_kernel" in seen and "flash_wgmma_deep_kernel" not in seen
     q, k, v = (_randn(1, 1, 64, 1928, dev=dev, seed=s) for s in (1, 2, 3))
     seen = _kernels_seen(q, k, v)
-    assert 1928 not in DEEP_WGMMA_HEAD_DIMS and "flash_deep_kernel" in seen
+    assert 1928 not in DEEP_WGMMA_HEAD_DIMS and "flash_tf32x3_kernel" in seen
     assert "flash_wgmma_deep_kernel" not in seen
 
 
 def test_flash_attention_above_deep_wgmma_head_dims(dev):
     """bfloat16 d = 1,928, past the deep wgmma kernel's 1,920, runs
-    `flash_deep_kernel` (FMA, float32 math), ragged, split and packed; and
-    d = 1,920, the deep wgmma kernel's widest (five blocks a cluster)."""
+    `flash_tf32x3_kernel` (split TF32: S in one term, bfloat16 being exact
+    in TF32, P V in two), ragged, split and packed; and d = 1,920, the deep
+    wgmma kernel's widest (five blocks a cluster)."""
     for d in (1928, 1920):
         for layout in ("contiguous", "packed"):
             _check_layout(dev, layout, 1, 2, d, 70, 45)
@@ -186,8 +189,10 @@ def test_flash_entries_refuse_what_is_not_routed_to_them(dev):
     """`ops.attention` owns the routing: the deep wgmma kernel's entry
     takes its slice width from `deep_slices` and refuses a width it has no
     instance for, or one whose cluster would not be 2 .. 5 blocks (2 at 512);
-    flash_attention.cu refuses bfloat16 d = 40 .. 1,920, which the wgmma
-    kernels run. Each refusal is cudaErrorInvalidValue (1), before a launch."""
+    flash_attention.cu refuses float32 and bfloat16 above 32, which the
+    wgmma kernels and flash_attention_sm90_f32.cu run; the latter refuses
+    bfloat16 d = 8 .. 1,920. Each refusal is cudaErrorInvalidValue (1),
+    before a launch."""
     from ealdm_torch.kernels import build
 
     q = _randn(1, 1, 64, 1928, dev=dev, seed=1)
@@ -205,9 +210,17 @@ def test_flash_entries_refuse_what_is_not_routed_to_them(dev):
         assert call(deep, w, d) == 1, (w, d)
     assert call(deep, 384, 648) == 0
     mma = build.library("flash_attention").ealdm_flash_attention
-    for d in (40, 136, 640, 1920):
+    for d in (40, 136, 640, 1920, 1928):
         assert call(mma, 1, d) == 1, d
-    assert call(mma, 1, 1928) == 0
+    assert call(mma, 0, 32) == 1
+    f32 = build.library("flash_attention_sm90_f32")
+    tiling = tf32x3_tiling(1928, torch.bfloat16)
+    entry = f32.ealdm_flash_attention_sm90_f32
+    for d in (32, 648, 1920):
+        assert f32.ealdm_flash_attention_sm90_f32_splits(1, *tiling, 1, 1, 64, 64, d) == -1, d
+        assert call(lambda *a: entry(*a[:4], None, None, 1, a[4], *tiling, *a[5:]),
+                    1, d) == 1, d
+    assert call(lambda *a: entry(*a[:4], None, None, 1, a[4], *tiling, *a[5:]), 1, 1928) == 0
     torch.cuda.synchronize()
 
 

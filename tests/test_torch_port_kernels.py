@@ -174,11 +174,11 @@ def test_flash_attention_head_dims(dev, dtype, d):
 def test_flash_attention_deep_head_dims(dev, dtype, d):
     """A head dim above 640 (1100 is padded to 1104) runs, in bfloat16,
     flash_wgmma_deep_kernel (`flash_attention_sm90_deep.cu`: a cluster of
-    blocks that split the head dim) and, in float32, flash_deep_kernel
-    (`flash_attention.cu`: FMA, column strips of 1,024 across blocks, the
-    depth in chunks of 128), counted under its head dim, split and packed,
-    against the plain version with ragged query and key counts: bfloat16
-    within the limits of the tensor-core kernels, float32 to 1e-4."""
+    blocks that split the head dim) and, in float32, flash_tf32x3_kernel
+    (`flash_attention_sm90_f32.cu`: split TF32, strips and depth passes of
+    512 columns), counted under its head dim, split and packed, against the
+    plain version with ragged query and key counts: bfloat16 within the
+    limits of the tensor-core kernels, float32 to 1e-4."""
     heads = 2
     q = _randn(2, heads, 70, d, dtype=dtype, dev=dev, seed=1)
     k = _randn(2, heads, 45, d, dtype=dtype, dev=dev, seed=2)
@@ -192,7 +192,7 @@ def test_flash_attention_deep_head_dims(dev, dtype, d):
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
     seen = " ".join(e.key for e in prof.key_averages())
-    kernel = "flash_wgmma_deep_kernel" if dtype == torch.bfloat16 else "flash_deep_kernel<"
+    kernel = "flash_wgmma_deep_kernel" if dtype == torch.bfloat16 else "flash_tf32x3_kernel<"
     assert kernel in seen, seen
     assert got.shape == q.shape
     assert kernels.launches[flash_counter(d)] == before + 1
