@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernels    # phases 1-2b only: a new kernel's first call
     python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
     python3 chip_smoke.py --train      # the build and phase 6 (training) only
-    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-14 only
+    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-15 only
     python3 chip_smoke.py --host       # the build and the flash wrapper's host cost
 
 Phases, each of which raises (non-zero exit) on failure:
@@ -23,20 +23,23 @@ Phases, each of which raises (non-zero exit) on failure:
      the d <= 32 routing: the wgmma kernel held and timed beside
      flash_mma_narrow_kernel at the flagship's d=32 shapes and at d=24;
      GroupNorm in both layouts it takes, timed at the main path's
-     (channels_last) on inputs that do not fit the L2;
+     (channels_last) on inputs that do not fit the L2, and at the RDM's
+     widest one-read site [4,3584,6,6] and largest two-read [2,128,768,768];
   2c. flash attention at the head dims of the repo's other configurations
      (24, 40, 48, 80 at 1024 and 256 tokens; 384 and 576 at 1024; and the
      conditional paths' wide sites [12,1,256,576], [12,1,1024,384],
      [8,1,1024,512]), split and packed, both dtypes, timed like phase 2
      (each row names the kernel the profile saw); the wide sites
      (`route_wide_heads`: flash_wgmma_wide_kernel held and timed beside the
-     library at those sites, [24,1,1024,512] and cin256-v2's VQ-f4 decode
-     [6,1,4096,512], `[route]` lines); d = 24
+     library at those sites, [24,1,1024,512], cin256-v2's VQ-f4 decode
+     [6,1,4096,512] and the RDM's KL-f16 decode [2,1,2304,512], `[route]`
+     lines); d = 24
      .. 80, 384, 512 and 576 at a ragged Nq = 1000, Nk = 77; the wrapper's
      host time a call at [16,8,256,80] and [16,8,256,32] (`host_cost`);
      the gradients through FlashAttention at d = 48 and d = 384; the zoo
-     paths' five flash shapes (ZOO_PATH_SHAPES, a `[route]` line each:
-     kernel, library, bound) and d = 648 and 960 (held, timed; the profile
+     paths' five flash shapes and the RDM path's two (ZOO_PATH_SHAPES,
+     RDM_PATH_SHAPES, a `[route]` line each: kernel, library, bound) and
+     d = 648 and 960 (held, timed; the profile
      must see flash_wgmma_deep_kernel in bfloat16 and flash_tf32x3_kernel
      in float32); `route_deep_heads`: the deep wgmma kernel at
      [4, 2, 1024, 640] too, and a `[route]` line at d = 640, 648 and 960
@@ -103,15 +106,25 @@ Phases, each of which raises (non-zero exit) on failure:
      batch of 2: the attention-free VQ-f4 encoding of the masked image
      joined to the mask at 64^2, DDIM-50 at eta 0 (concat: the plain step),
      decode, composite; float32 card vs CPU (conditioning and 2 steps).
-  Each of phases 7-14 also holds every kernel launch of one bfloat16 pass
-  (7, 14: encode, one UNet call, decode; 8, 11, 12, 13: one UNet call
+  15. retrieval-augmented sampling (`config.RDM768`, the 768x768 RDM with
+     KL-f16 and 48^2 latents), scripts/knn2img.py with --use_neighbors
+     --knn 10: a seeded 200,000 x 768 database indexed on the card by
+     `auto_build_searcher` (447 leaves, 22 probed), the ViT-L/14 CLIP text
+     tower on the default prompt (n = 2) and image tower on example0,
+     k = 10 on the exact search (against a float64 brute force) and the
+     partitioned one (recall@10 logged), the [2, 11, 768] context through
+     DDIM-50 at eta 0 with CFG 5, the decode to 768^2; the C = 3,584
+     GroupNorm sites among the held ones; float32 card vs CPU at batch 1,
+     2 steps (conditioning, latent, image embedding).
+  Each of phases 7-15 also holds every kernel launch of one bfloat16 pass
+  (7, 14: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet call
   and a decode; 9: one UNet call; 10: one round trip) against its plain
   version on the same inputs, at the shapes and strides the path gives it
-  (`hold_sites`); 11-14 also report img/s (median of three runs), peak
+  (`hold_sites`); 11-15 also report img/s (median of three runs), peak
   GiB and the device's busy time and idle share from one profile. Phases
-  7-14 run after phase 5 and before phase 6.
+  7-15 run after phase 5 and before phase 6.
 
-The last lines of output are a `[paths]` JSON line with phases 7-14's
+The last lines of output are a `[paths]` JSON line with phases 7-15's
 numbers, a `[train]` JSON line with phase 6's numbers,
 the card's name and power limit, a JSON line with every kernel's numbers
 (not with --train), and {"ok": true, "device": {...}}.
@@ -168,13 +181,19 @@ WIDE_HEAD_DIMS = (384, 576)
 # batch of 12 at ds 4 and ds 2, and txt2img's KL-f8 mid attention at batch 8
 PATH_WIDE_SHAPES = ((12, 1, 256, 576), (12, 1, 1024, 384), (8, 1, 1024, 512))
 # the wide routing's shapes: those, the flagship's VQ-f8 mid attention at
-# batch 24 and cin256-v2's VQ-f4 decode (6 images a call, 64^2 tokens)
-WIDE_ROUTE_SHAPES = (*PATH_WIDE_SHAPES, (24, 1, 1024, 512), (6, 1, 4096, 512))
+# batch 24, cin256-v2's VQ-f4 decode (6 images a call, 64^2 tokens) and the
+# RDM's KL-f16 decode (2 images, 48^2 tokens)
+WIDE_ROUTE_SHAPES = (*PATH_WIDE_SHAPES, (24, 1, 1024, 512), (6, 1, 4096, 512),
+                     (2, 1, 2304, 512))
 # [B, H, N, D] of the zoo paths' flash sites (phases 13 and 14):
 # lsun_churches256 at batch 10 (d=24 at 32^2, d=48 at 16^2, the KL-f8 mid
 # attention) and inpainting_big at batch 2 (d=64 at 32^2, d=96 at 16^2)
 ZOO_PATH_SHAPES = ((10, 8, 1024, 24), (10, 8, 256, 48), (10, 1, 1024, 512),
                    (2, 8, 1024, 64), (2, 8, 256, 96))
+# [B, H, N, D] of the retrieval-augmented path's flash sites (phase 15):
+# the RDM UNet's CFG batch of 4 at 48^2 (14 heads of 32) and the KL-f16
+# decoder's attention at 48^2 on 2 images
+RDM_PATH_SHAPES = ((4, 14, 2304, 32), (2, 1, 2304, 512))
 # head dims above 640, held and timed on flash_wgmma_deep_kernel (bfloat16)
 # and flash_tf32x3_kernel (float32)
 DEEP_HEAD_DIMS = (648, 960)
@@ -698,7 +717,7 @@ def phase_group_norm():
 
     cases = [((48, 256, 32, 32), 1e-5), ((48, 512, 16, 16), 1e-5), ((48, 1024, 8, 8), 1e-5),
              ((48, 768, 32, 32), 1e-5), ((24, 128, 256, 256), 1e-6),
-             ((48, 256, 128, 128), 1e-6)]
+             ((48, 256, 128, 128), 1e-6), ((4, 3584, 6, 6), 1e-5), ((2, 128, 768, 768), 1e-6)]
     for shape, eps in cases:
         c = shape[1]
         scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
@@ -729,6 +748,10 @@ def phase_group_norm():
          chunked),
         ("group_norm_nchw", (48, 256, 32, 32), 1e-5, True, "nchw", single),
         ("group_norm_two_pass_nchw", (24, 128, 256, 256), 1e-6, False, "nchw", chunked),
+        # the RDM's widest UNet site (a skip joined at 6^2) and its largest
+        # decoder sample (phase 15)
+        ("group_norm_c3584", (4, 3584, 6, 6), 1e-5, False, "channels_last", single),
+        ("group_norm_two_pass_768", (2, 128, 768, 768), 1e-6, False, "channels_last", chunked),
     ]
     for row, shape, eps, has_pre, layout, replaces in timed:
         n_, c = shape[:2]
@@ -807,7 +830,7 @@ def phase_head_dims():
 
     cases = [(16, 8, n, d) for d in NARROW_HEAD_DIMS for n in (1024, 256)]
     cases += [(16, 1, 1024, d) for d in WIDE_HEAD_DIMS]
-    cases += [*PATH_WIDE_SHAPES, *ZOO_PATH_SHAPES]
+    cases += [*PATH_WIDE_SHAPES, *ZOO_PATH_SHAPES, *RDM_PATH_SHAPES]
     cases += [(4, 2, 1024, d) for d in DEEP_HEAD_DIMS]
     for shape in cases:
         name = flash_counter(shape[3])
@@ -825,7 +848,7 @@ def phase_head_dims():
     res = {}
     for shape in cases:
         b, h, n, d = shape
-        if shape in PATH_WIDE_SHAPES or shape in ZOO_PATH_SHAPES:
+        if shape in (*PATH_WIDE_SHAPES, *ZOO_PATH_SHAPES, *RDM_PATH_SHAPES):
             row = f"flash_attention_d{d}_b{b}_n{n}"
         else:
             row = f"flash_attention_d{d}_n{n}" if d in NARROW_HEAD_DIMS else flash_counter(d)
@@ -842,9 +865,10 @@ def phase_head_dims():
             if F32_KERNEL not in seen.split("+"):
                 raise RuntimeError(f"d={d} float32: the profile saw {seen}, not {F32_KERNEL}")
             del qkv32
-        if shape in ZOO_PATH_SHAPES:
+        if shape in (*ZOO_PATH_SHAPES, *RDM_PATH_SHAPES):
             r = res[row]
-            log(f"[route] zoo path {list(shape)}: {r['kernel']} {r['ms']:.4f} ms, library "
+            where = "zoo" if shape in ZOO_PATH_SHAPES else "rdm"
+            log(f"[route] {where} path {list(shape)}: {r['kernel']} {r['ms']:.4f} ms, library "
                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_kind']})")
         del qkv
 
@@ -1214,29 +1238,41 @@ def mixed_batch(b, res, seed, device):
     }
 
 
-def group_norm_sites(module, side):
-    """(C, side, groups) of every GroupNorm32 one forward of `module` runs on
-    a [N, C, side, side] input, from the module tree: children run in the
-    order they were registered, each GroupNorm32 inside a child once, and a
-    resampling child (a ResBlock with up / down from its out_norm on)
-    halves or doubles the side for the children after it."""
-    from ealdm_torch.models.layers import Downsample, GroupNorm32, ResBlock, Upsample
+def child_sides(module, side):
+    """(child, the side of its input, the side it hands on) of each child
+    of `module` run on a [N, C, side, side] input, from the module tree:
+    children run in the order they were registered, and a resampling child
+    (Downsample / Upsample, or a ResBlock with up / down) halves or doubles
+    the side for the children after it."""
+    from ealdm_torch.models.layers import Downsample, ResBlock, Upsample
     from ealdm_torch.models.vae import VaeDownsample, VaeUpsample
 
-    sites = []
     for child in module.children():
+        new = side
         if isinstance(child, (Downsample, VaeDownsample)):
-            side //= 2
+            new = side // 2
         elif isinstance(child, (Upsample, VaeUpsample)):
-            side *= 2
+            new = side * 2
         elif isinstance(child, ResBlock) and child.resample is not None:
-            # in_norm at the input's side, the rest after the resample
             new = side * 2 if child.resample == "up" else side // 2
-            sites += [(n.weight.numel(), s, n.num_groups)
-                      for n, s in ((child.in_norm, side), (child.out_norm, new))]
-            side = new
+        yield child, side, new
+        side = new
+
+
+def group_norm_sites(module, side):
+    """(C, side, groups) of every GroupNorm32 one forward of `module` runs on
+    a [N, C, side, side] input (`child_sides`), each GroupNorm32 inside a
+    child once; a resampling ResBlock's in_norm at the side before its
+    resample, its out_norm after."""
+    from ealdm_torch.models.layers import GroupNorm32, ResBlock
+
+    sites = []
+    for child, s, new in child_sides(module, side):
+        if isinstance(child, ResBlock) and child.resample is not None:
+            sites += [(n.weight.numel(), t, n.num_groups)
+                      for n, t in ((child.in_norm, s), (child.out_norm, new))]
         else:
-            sites += [(m.weight.numel(), side, m.num_groups) for m in child.modules()
+            sites += [(m.weight.numel(), s, m.num_groups) for m in child.modules()
                       if isinstance(m, GroupNorm32)]
     return sites
 
@@ -1426,25 +1462,29 @@ def phase_reference(cfg_module, bf16_model):
 
 
 # ------------------------------------------------------------------ phases 7-10
-def flash_sites(module, runs, census):
-    """Add to `census` the flash launches of `runs` forwards of `module`:
-    every eligible self-attention site (AttentionBlock, SpatialTransformer
-    per depth, VaeAttnBlock) under its head dim's counter and its tokens."""
+def flash_sites(module, side, runs, census):
+    """Add to `census` the flash launches of `runs` forwards of `module` on
+    a [N, C, side, side] input: every eligible self-attention site
+    (AttentionBlock, SpatialTransformer per depth, VaeAttnBlock) under its
+    head dim's counter and the tokens of the side it runs at
+    (`child_sides`; not the module's build-time `tokens`: a VAE decodes
+    latents larger than its config's resolution)."""
     from ealdm_torch.models.layers import AttentionBlock, SpatialTransformer, flash_eligible
     from ealdm_torch.models.vae import VaeAttnBlock
     from ealdm_torch.ops.attention import flash_counter
 
-    for m in module.modules():
-        if isinstance(m, AttentionBlock):
-            d, k = m.head_dim, 1
-        elif isinstance(m, SpatialTransformer):
-            d, k = m.block(0).attn1.dim_head, m.depth
-        elif isinstance(m, VaeAttnBlock):
-            d, k = m.q.weight.shape[0], 1
-        else:
-            continue
-        if flash_eligible(m.tokens, m.tokens):
-            census[(flash_counter(d), m.tokens)] += k * runs
+    for child, s, _ in child_sides(module, side):
+        for m in child.modules():
+            if isinstance(m, AttentionBlock):
+                d, k = m.head_dim, 1
+            elif isinstance(m, SpatialTransformer):
+                d, k = m.block(0).attn1.dim_head, m.depth
+            elif isinstance(m, VaeAttnBlock):
+                d, k = m.q.weight.shape[0], 1
+            else:
+                continue
+            if flash_eligible(s * s, s * s):
+                census[(flash_counter(d), s * s)] += k * runs
 
 
 def path_census(passes):
@@ -1464,7 +1504,7 @@ def path_census(passes):
             shape = (n, c, s, s)
             path = group_norm_path(shape, torch.bfloat16, resolve_num_groups(c, groups))
             census[(path, ("channels_last", shape, "bfloat16"))] += runs
-        flash_sites(module, runs, census)
+        flash_sites(module, side, runs, census)
     return dict(census)
 
 
@@ -1924,39 +1964,61 @@ CIN256_CLASSES = (25, 187, 448, 992)  # scripts/latent_imagenet_diffusion.ipynb
 CIN256_NULL = 1000
 
 
-def conditional_reference(label, cfg_module, cfg, bf16_model, cond_input, uncond_input,
-                          scale, seed):
-    """Batch 1, 2 DDIM steps at eta 0 with guidance, float32: the card (its
-    kernels) against the CPU (the plain versions), same weights, inputs and
-    x_T; the conditioning too. 1e-3 of the latent's scale each (TF32 off
-    for the library, the flash kernel in split TF32, as phase 5)."""
+def float32_reference(label, build, bf16_model, latent, seed, cond_fn=None, scale=None,
+                      eta=0.0):
+    """Batch 1, 2 DDIM steps, float32: `build(device)`'s model on the card
+    (its kernels) against the CPU (the plain versions), with `bf16_model`'s
+    weights, the same x_T and, at eta > 0, the same step noise. With
+    `cond_fn(model, device)` -> (cond, uncond or None, {name: tensor}), the
+    conditioning is built on each device and held too, with each named
+    tensor, and guided at `scale`. 1e-3 of each result's scale, TF32 off for
+    the library and the flash kernel in split TF32, as phase 5."""
     import torch
 
     from ealdm_torch.inference import sample_images
+
+    sd = {key: v.float() for key, v in bf16_model.state_dict().items()}
+    g = torch.Generator().manual_seed(seed)
+    x_T = torch.randn(1, *latent, generator=g)
+    draws = [torch.randn(1, *latent, generator=g) for _ in range(2)] if eta else None
+    got = {}
+    for dev in ("cpu", "cuda"):
+        m = build(dev).eval()
+        m.load_state_dict(sd)
+        c, uc, extra = None, None, {}
+        if cond_fn is not None:
+            with torch.no_grad():
+                c, uc, extra = cond_fn(m, dev)
+            extra = dict(conditioning=c, **extra)
+        z = sample_images(m, 1, latent, steps=2, eta=eta, guidance_scale=scale, cond=c,
+                          uncond=uc, x_T=x_T.to(dev), decode=False, device=dev,
+                          noise_fn=(lambda i, shape: draws[i]) if eta else None)
+        for name, t in dict(latent=z, **extra).items():
+            got.setdefault(name, {})[dev] = t.float().cpu()
+        del m, c, uc, extra
+    out = {f"{name}_rel": rel_err_to_max(v["cuda"], v["cpu"]) for name, v in got.items()}
+    log(f"[{label}] float32 card vs CPU, batch 1, 2 steps: "
+        + ", ".join(f"{key} {v:.3g}" for key, v in out.items())
+        + f" (max|z| {got['latent']['cpu'].abs().max().item():.3g}; tolerance 1e-3 each)")
+    if not all(v <= 1e-3 for v in out.values()):
+        raise RuntimeError(f"{label}: the card's float32 result disagrees with the CPU")
+    return out
+
+
+def conditional_model(cfg_module, cfg):
+    """`build` for `float32_reference`: the config's LatentDiffusion."""
+    import torch
+
     from ealdm_torch.models.ddpm import LatentDiffusion
 
     kw = cfg_module.model_kwargs(cfg)
-    sd = {k: v.float() for k, v in bf16_model.state_dict().items()}
-    latent = (cfg["zres"], cfg["zres"], cfg["zch"])
-    x_T = torch.randn(1, *latent, generator=torch.Generator().manual_seed(seed))
-    ctx, z = {}, {}
-    for dev in ("cpu", "cuda"):
-        m = LatentDiffusion(**kw, dtype=torch.float32, device=dev).eval()
-        m.load_state_dict(sd)
-        with torch.no_grad():
-            c = m.get_learned_conditioning(cond_input.to(dev))
-            uc = m.get_learned_conditioning(uncond_input.to(dev))
-        ctx[dev] = c.float().cpu()
-        z[dev] = sample_images(m, 1, latent, steps=2, eta=0.0, guidance_scale=scale, cond=c,
-                               uncond=uc, x_T=x_T.to(dev), decode=False,
-                               device=dev).float().cpu()
-        del m
-    ctx_rel, rel = rel_err_to_max(ctx["cuda"], ctx["cpu"]), rel_err_to_max(z["cuda"], z["cpu"])
-    log(f"[{label}] float32 card vs CPU: conditioning max diff / max {ctx_rel:.3g}, 2-step "
-        f"latent {rel:.3g} of max|z| {z['cpu'].abs().max().item():.3g} (tolerance 1e-3 each)")
-    if not (ctx_rel <= 1e-3 and rel <= 1e-3):
-        raise RuntimeError(f"{label}: the card's float32 result disagrees with the CPU")
-    return dict(conditioning_rel=ctx_rel, latent_rel=rel)
+    return lambda dev: LatentDiffusion(**kw, dtype=torch.float32, device=dev)
+
+
+def learned_conditioning(cond_input, uncond_input):
+    """`cond_fn` for `float32_reference`: the model's own cond stage."""
+    return lambda m, dev: (m.get_learned_conditioning(cond_input.to(dev)),
+                           m.get_learned_conditioning(uncond_input.to(dev)), {})
 
 
 def conditional_path(label, run, census, batch_images, hold_fn, widest_c=None,
@@ -2075,8 +2137,10 @@ def phase_txt2img(cfg_module):
     check_image("txt2img", out["img"], (batch, cfg["res"], cfg["res"], 3))
     log(f"[txt2img] the two BERT passes (prompt and empty prompt, batch {batch} each) "
         f"{bert_ms:.3f} ms; output std {float(out['img'].float().std()):.4f}")
-    ref = conditional_reference("txt2img-reference", cfg_module, cfg, model, tokens_c[:1],
-                                tokens_uc[:1], scale, seed=83)
+    ref = float32_reference("txt2img-reference", conditional_model(cfg_module, cfg), model,
+                            (cfg["zres"], cfg["zres"], cfg["zch"]), seed=83,
+                            cond_fn=learned_conditioning(tokens_c[:1], tokens_uc[:1]),
+                            scale=scale)
     del model
     torch.cuda.empty_cache()
     return details, dict(batch=batch, steps=steps, guidance_scale=scale,
@@ -2141,9 +2205,11 @@ def phase_cin256(cfg_module):
 
     details, numbers = conditional_path("cin256", run, census, n * k, one_pass)
     check_image("cin256", out["img"], (n * k, cfg["res"], cfg["res"], 3))
-    ref = conditional_reference("cin256-reference", cfg_module, cfg, model,
-                                torch.tensor([CIN256_CLASSES[1]]), torch.tensor([CIN256_NULL]),
-                                scale, seed=93)
+    ref = float32_reference("cin256-reference", conditional_model(cfg_module, cfg), model,
+                            (cfg["zres"], cfg["zres"], cfg["zch"]), seed=93,
+                            cond_fn=learned_conditioning(torch.tensor([CIN256_CLASSES[1]]),
+                                                         torch.tensor([CIN256_NULL])),
+                            scale=scale)
     del model
     torch.cuda.empty_cache()
     return details, dict(classes=list(CIN256_CLASSES), samples_per_class=n, steps=steps,
@@ -2152,43 +2218,13 @@ def phase_cin256(cfg_module):
 
 
 # ------------------------------------------------------------------ phases 13-14
-def zoo_reference(label, name, bf16_model, latent, eta, seed, cond_fn=None):
-    """Batch 1, 2 DDIM steps, float32: the zoo entry `name` on the card (its
-    kernels) against the CPU (the plain versions), same weights, x_T and
-    step noise; with `cond_fn(model, device)`, the conditioning too. 1e-3
-    of the latent's (and the conditioning's) scale each, TF32 off for the
-    library and the flash kernel in split TF32, as phase 5."""
+def zoo_builder(name):
+    """`build` for `float32_reference`: the zoo entry `name`."""
     import torch
 
     from ealdm_torch import zoo
-    from ealdm_torch.inference import sample_images
 
-    sd = {k: v.float() for k, v in bf16_model.state_dict().items()}
-    g = torch.Generator().manual_seed(seed)
-    x_T = torch.randn(1, *latent, generator=g)
-    draws = [torch.randn(1, *latent, generator=g) for _ in range(2)]
-    ctx, z = {}, {}
-    for dev in ("cpu", "cuda"):
-        m = zoo.build(name, dtype=torch.float32, device=dev).eval()
-        m.load_state_dict(sd)
-        c = None
-        if cond_fn is not None:
-            with torch.no_grad():
-                c = cond_fn(m, dev)
-            ctx[dev] = c.float().cpu()
-        z[dev] = sample_images(m, 1, latent, steps=2, eta=eta, cond=c, x_T=x_T.to(dev),
-                               noise_fn=lambda i, shape: draws[i], decode=False,
-                               device=dev).float().cpu()
-        del m
-    out = dict(latent_rel=rel_err_to_max(z["cuda"], z["cpu"]))
-    if ctx:
-        out["conditioning_rel"] = rel_err_to_max(ctx["cuda"], ctx["cpu"])
-    log(f"[{label}] float32 card vs CPU, batch 1, 2 steps: "
-        + ", ".join(f"{k} {v:.3g}" for k, v in out.items())
-        + f" of max|z| {z['cpu'].abs().max().item():.3g} (tolerance 1e-3 each)")
-    if not all(v <= 1e-3 for v in out.values()):
-        raise RuntimeError(f"{label}: the card's float32 result disagrees with the CPU")
-    return out
+    return lambda dev: zoo.build(name, dtype=torch.float32, device=dev)
 
 
 def zoo_model(label, cfg, seed):
@@ -2245,7 +2281,8 @@ def phase_churches(cfg_module):
     details, numbers = conditional_path("churches", run, census, batch, one_pass,
                                         widest_c=1536, small_pixels=16)
     check_image("churches", out["img"], (batch, cfg["res"], cfg["res"], 3))
-    ref = zoo_reference("churches-reference", cfg["zoo"], model, latent, eta=1.0, seed=103)
+    ref = float32_reference("churches-reference", zoo_builder(cfg["zoo"]), model, latent,
+                            seed=103, eta=1.0)
     del model
     torch.cuda.empty_cache()
     return details, dict(batch=batch, steps=steps, eta=1.0, params_m=params_m, **numbers,
@@ -2334,18 +2371,200 @@ def phase_inpainting_big(cfg_module):
     known = mask_px.expand_as(out["img"]) == 0
     if not torch.equal(out["img"][known], img.expand_as(out["img"])[known]):
         raise RuntimeError("inpainting_big: the composite changed the known pixels")
-    ref = zoo_reference(
-        "inpainting_big-reference", cfg["zoo"], model, latent, eta=0.0, seed=113,
-        cond_fn=lambda m, dev: inpaint_conditioning(m, masked_cpu[:1].to(dev),
-                                                    mask_cpu[:1].to(dev)))
+    ref = float32_reference(
+        "inpainting_big-reference", zoo_builder(cfg["zoo"]), model, latent, seed=113,
+        cond_fn=lambda m, dev: (inpaint_conditioning(m, masked_cpu[:1].to(dev),
+                                                     mask_cpu[:1].to(dev)), None, {}))
     del model
     torch.cuda.empty_cache()
     return details, dict(batch=batch, steps=steps, eta=0.0, params_m=params_m, **numbers,
                          reference=ref)
 
 
+# ------------------------------------------------------------------ phase 15
+RDM_PROMPT = "a happy bear reading a newspaper, oil on canvas"  # knn2img's --prompt
+RDM_DATABASE = (200_000, 768)  # entries x CLIP ViT-L/14 embedding width
+
+
+def rdm_towers(clip, seed):
+    """The ViT-L/14 CLIP cond stages (text and image embedders) in float32
+    on the card, as knn2img runs them, with seeded random weights."""
+    from ealdm_torch.models.encoders import FrozenCLIPTextEmbedder, FrozenClipImageEmbedder
+
+    towers = []
+    for i, cls in enumerate((FrozenCLIPTextEmbedder, FrozenClipImageEmbedder)):
+        m = cls.from_version(clip, device="cuda").eval()
+        random_init_(m, seed=seed + i)
+        towers.append(m)
+    return towers
+
+
+def check_exact_search(label, found, queries, db, k):
+    """The exact search's indices against a float64 brute force on the host:
+    equal at every rank whose score is more than 1e-6 from its neighbours'
+    (a closer pair may swap under float32 rounding). Returns the ranks
+    checked and the largest score error."""
+    import numpy as np
+
+    q = queries.double().cpu().numpy()
+    q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-8)
+    scores = np.empty((q.shape[0], db.shape[0]))
+    for lo in range(0, db.shape[0], 50_000):  # float64 a slice at a time
+        part = db[lo:lo + 50_000].astype(np.float64)
+        part /= np.maximum(np.linalg.norm(part, axis=1, keepdims=True), 1e-8)
+        scores[:, lo:lo + 50_000] = q @ part.T
+    order = np.argsort(-scores, axis=1)[:, :k + 1]
+    top = np.take_along_axis(scores, order, axis=1)
+    got = found["nn_indices"].cpu().numpy()
+    gaps = -np.diff(top, axis=1)  # [B, k]: score j minus score j + 1
+    clear = (gaps[:, :k] > 1e-6) & np.concatenate(
+        [np.ones((q.shape[0], 1), bool), gaps[:, :k - 1] > 1e-6], axis=1)
+    bad = clear & (got != order[:, :k])
+    score_err = float(np.abs(found["nn_scores"].double().cpu().numpy() - top[:, :k]).max())
+    log(f"[{label}] exact search vs float64 brute force: {int(clear.sum())} of {got.size} "
+        f"ranks clear of a 1e-6 tie, {int(bad.sum())} differ; score error {score_err:.3g}")
+    if bad.any() or score_err > 1e-5:
+        raise RuntimeError(f"{label}: the exact search disagrees with the brute force")
+    return int(clear.sum()), score_err
+
+
+def phase_rdm(cfg_module):
+    """Phase 15: retrieval-augmented sampling (RDM768, the 768x768 RDM) as
+    scripts/knn2img.py runs it with --use_neighbors --knn 10, in bfloat16
+    at full width: a seeded 200,000 x 768 float32 database on the card,
+    indexed by `auto_build_searcher` (447 leaves, 22 probed); the ViT-L/14
+    text tower embeds the default prompt for n = 2 samples and the image
+    tower `example0` of data/inpainting_examples (128^2, upsampled to
+    224^2); k = 10 on the exact and the partitioned search (the exact one
+    against a float64 brute force, the partitioned one's recall@10 logged);
+    the [2, 11, 768] context through DDIM-50 at eta 0 with CFG 5 against
+    its zeros, hoisted; the KL-f16 decode to [2, 768, 768, 3]. The UNet's
+    d=32 flash and the decoder's d=512 run at 48^2 = 2,304 rows; the
+    GroupNorm sites of 3,584 channels must be among the held ones."""
+    import numpy as np
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch import retrieval
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.models.ddpm import LatentDiffusion
+
+    cfg = cfg_module.RDM768
+    n, steps, scale, k = 2, 50, 5.0, 10
+    latent = (cfg["zres"], cfg["zres"], cfg["zch"])
+    ealdm_torch.enable_inference_optimizations()
+    t0 = time.perf_counter()
+    model = LatentDiffusion(**cfg_module.model_kwargs(cfg), dtype=torch.bfloat16,
+                            device="cuda").eval()
+    random_init_(model, seed=120)
+    towers = rdm_towers(cfg["clip"], seed=121)
+    parts = {key: sum(p.numel() for p in getattr(model, key).parameters())
+             for key in ("model", "first_stage_model")}
+    parts.update(clip_text=sum(p.numel() for p in towers[0].parameters()),
+                 clip_image=sum(p.numel() for p in towers[1].parameters()))
+    log(f"[rdm] RDM768 {(parts['model'] + parts['first_stage_model']) / 1e6:.1f} M parameters "
+        f"(UNet {parts['model'] / 1e6:.1f} M, KL-f16 {parts['first_stage_model'] / 1e6:.1f} M), "
+        f"CLIP {cfg['clip']} text {parts['clip_text'] / 1e6:.1f} M and image "
+        f"{parts['clip_image'] / 1e6:.1f} M (float32), built in {time.perf_counter() - t0:.1f} s; "
+        f"n {n}, DDIM-{steps}, eta 0, CFG {scale}, k {k}")
+
+    t0 = time.perf_counter()
+    db = np.random.default_rng(122).standard_normal(RDM_DATABASE, dtype=np.float32)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    searcher = retrieval.auto_build_searcher({"embedding": db}, device="cuda")
+    exact = retrieval.Searcher.from_database({"embedding": db}, device="cuda")
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    leaves = searcher._centroids.shape[0]
+    log(f"[rdm] database {list(db.shape)} float32 made in {made_s:.2f} s; the partitioned "
+        f"index ({leaves} leaves of up to {searcher._leaf_idx.shape[1]}, "
+        f"{searcher.default_leaves_to_search} probed) and the exact one in {index_s:.2f} s")
+    if (not searcher.partitioned or leaves != int(math.sqrt(RDM_DATABASE[0]))
+            or searcher.default_leaves_to_search != leaves // 20):
+        raise RuntimeError("rdm: auto_build_searcher did not build sqrt(N) leaves, N/20 probed")
+
+    text, vision = towers
+    pixels = np.load(os.path.join(HERE, "ealdm_torch", "data", "inpainting_examples.npz"))
+    image = torch.from_numpy(pixels["example0"])[None].float().cuda() / 127.5 - 1.0
+    q_text = retrieval.embed_queries(n, texts=[RDM_PROMPT], text_embedder=text)
+    q_img = retrieval.embed_queries(n, image=image, image_embedder=vision)
+    for what, q in (("text", q_text), ("image", q_img)):
+        norms = torch.linalg.vector_norm(q, dim=-1)
+        if (tuple(q.shape) != (n, RDM_DATABASE[1]) or not bool(torch.isfinite(q).all())
+                or float((norms - 1).abs().max()) > 1e-5):
+            raise RuntimeError(f"rdm: {what} query {tuple(q.shape)}, norms {norms.tolist()}")
+    search_ms = {}
+    found = {}
+    for what, s in (("exact", exact), ("partitioned", searcher)):
+        found[what] = s.search(q_text, k=k)
+        search_ms[what] = cuda_ms(lambda: s.search(q_text, k=k), iters=5)
+    clear, score_err = check_exact_search("rdm", found["exact"], q_text, db, k)
+    got_e, got_p = (found[w]["nn_indices"].cpu().numpy() for w in ("exact", "partitioned"))
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(got_e, got_p)]))
+    img_found = searcher.search(q_img, k=k)["nn_indices"]
+    log(f"[rdm] search k={k}: exact {search_ms['exact']:.3f} ms, partitioned "
+        f"{search_ms['partitioned']:.3f} ms; partitioned recall@{k} against exact {recall:.3f} "
+        f"(information: the database is Gaussian noise); image query's neighbours "
+        f"{img_found[0].tolist()}")
+
+    out = {}
+
+    def conditioning():
+        q = retrieval.embed_queries(n, texts=[RDM_PROMPT], text_embedder=text)
+        return retrieval.retrieval_conditioning(q, searcher, k=k, guidance_scale=scale)[:2]
+
+    def run():
+        c, uc = conditioning()
+        g = torch.Generator(device="cuda").manual_seed(123)
+        out["img"], out["z"] = sample_images(model, n, latent, steps=steps, eta=0.0,
+                                             guidance_scale=scale, cond=c, uncond=uc,
+                                             generator=g)
+
+    c, uc = conditioning()
+    if tuple(c.shape) != (n, 1 + k, RDM_DATABASE[1]) or c.dtype != torch.float32:
+        raise RuntimeError(f"rdm: context {c.dtype} {tuple(c.shape)}")
+    cond_ms = cuda_ms(conditioning, iters=5)
+    fs, unet = model.first_stage_model, model.model.diffusion_model
+    census = path_census([(unet, 2 * n, cfg["zres"], steps), (fs.decoder, n, cfg["zres"], 1)])
+    t_mid = torch.full((2 * n,), 500, dtype=torch.int64, device="cuda")
+    z = torch.randn(2 * n, *latent, generator=torch.Generator().manual_seed(124)).cuda()
+
+    def one_pass():  # one UNet call on the CFG batch, then the decode
+        model.apply_model(z, t_mid, torch.cat([uc, c]))
+        model.decode_first_stage(z[:n])
+
+    details, numbers = conditional_path("rdm", run, census, n, one_pass, widest_c=3584)
+    check_image("rdm", out["img"], (n, cfg["res"], cfg["res"], 3))
+    log(f"[rdm] conditioning (text tower, partitioned search, stacking) {cond_ms:.3f} ms; "
+        f"output std {float(out['img'].float().std()):.4f}")
+    def reference_conditioning(m, dev):  # CLIP, the search and the stacking on dev
+        text, vision = towers
+        if dev == "cpu":
+            text, vision = (type(t).from_version(cfg["clip"], device="cpu").eval()
+                            for t in towers)
+            text.load_state_dict(towers[0].state_dict())
+            vision.load_state_dict(towers[1].state_dict())
+        q = retrieval.embed_queries(1, texts=[RDM_PROMPT], text_embedder=text)
+        c, uc, _ = retrieval.retrieval_conditioning(q, searcher.to(dev), k=k,
+                                                    guidance_scale=scale)
+        return c, uc, {"image_embedding": vision(image.to(dev))}
+
+    ref = float32_reference("rdm-reference", conditional_model(cfg_module, cfg), model,
+                            latent, seed=125, cond_fn=reference_conditioning, scale=scale)
+    del model, towers, searcher, exact
+    torch.cuda.empty_cache()
+    return details, dict(n_samples=n, steps=steps, eta=0.0, guidance_scale=scale, knn=k,
+                         params_m={key: v / 1e6 for key, v in parts.items()},
+                         database=list(RDM_DATABASE), leaves=leaves,
+                         leaves_probed=leaves // 20, index_build_s=index_s,
+                         search_ms=search_ms, partitioned_recall_at_k=recall,
+                         exact_ranks_checked=clear, exact_score_err=score_err,
+                         conditioning_ms=cond_ms, **numbers, reference=ref)
+
+
 def phases_paths(cfg_module):
-    """Phases 7-14. Returns ({path: launch details}, the [paths] line)."""
+    """Phases 7-15. Returns ({path: launch details}, the [paths] line)."""
     details, out = {}, {}
     details["inpaint"], out["inpaint"] = phase_inpaint(cfg_module)
     details["uncond"], out["uncond"] = phase_uncond(cfg_module)
@@ -2355,6 +2574,7 @@ def phases_paths(cfg_module):
     details["cin256"], out["cin256"] = phase_cin256(cfg_module)
     details["churches"], out["churches"] = phase_churches(cfg_module)
     details["inpainting_big"], out["inpainting_big"] = phase_inpainting_big(cfg_module)
+    details["rdm"], out["rdm"] = phase_rdm(cfg_module)
     return details, out
 
 
@@ -2844,6 +3064,10 @@ def phases_train(cfg_module):
 
 
 def main(argv):
+    # Finalize CUPTI when each torch.profiler trace ends: left on, its
+    # callbacks slow every later launch on the host and so every timed run
+    # after the first profile (`ealdm_torch/kernels/probe_host.py`)
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -2886,10 +3110,11 @@ def main(argv):
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
         counts = e2e["launches"]
         for row in rows.values():
-            # a kernel's row takes its count, a shape's row its count at that shape
+            # a kernel's row takes its count, a shape's row its count at that
+            # shape (left for the paths below where the flagship has none)
             name = row.get("counter", row["name"])
             if isinstance(name, tuple):
-                row["launches"] = details.get(name, 0)
+                row["launches"] = details.get(name) or None
             elif name in ("flash_attention_d32", "flash_attention_d512", "group_norm",
                           "group_norm_two_pass"):
                 row["launches"] = counts[name]
@@ -2909,7 +3134,7 @@ def main(argv):
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row); a row the flagship does not reach reads the first
-        # path that launches it (phases 7-14 in order), else 0
+        # path that launches it (phases 7-15 in order), else 0
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {
             path: (d.get(counter, 0) if isinstance(counter, tuple)

@@ -26,6 +26,12 @@ Two entries of the model zoo (`zoo.py`, the published `models/ldm/*`):
   INPAINT_BIG `ldm/inpainting_big`: concat conditioning on the VQ-f4
               (attention-free) encoding of the masked image and the mask
               (7 input channels), ResBlock resampling (64^2 x 3 latents).
+Retrieval-augmented diffusion:
+  RDM768   `configs/retrieval-augmented-diffusion/768x768.yaml`: a UNet of
+           448 channels with 32-wide heads cross-attending to a [query;
+           neighbours] context of CLIP ViT-L/14 embeddings (width 768, the
+           Identity cond stage: the context comes precomputed, see
+           `retrieval.py`), KL-f16 (768^2 images, 48^2 x 16 latents).
 """
 from __future__ import annotations
 
@@ -250,6 +256,36 @@ CHURCHES = dict(res=256, zres=32, zch=4, zoo="ldm/lsun_churches256",
                 model=zoo.model_kwargs("ldm/lsun_churches256"))
 INPAINT_BIG = dict(res=256, zres=64, zch=3, zoo="ldm/inpainting_big",
                    model=zoo.model_kwargs("ldm/inpainting_big"))
+
+
+# 768^2 images, 48^2 x 16 latents (768x768.yaml model.params, as TXT2IMG)
+RDM768 = dict(
+    res=768, zres=48, zch=16, clip="ViT-L/14",
+    model=dict(
+        unet_config=dict(
+            image_size=48, in_channels=16, out_channels=16, model_channels=448,
+            attention_resolutions=[4, 2, 1], num_res_blocks=2, channel_mult=[1, 2, 3, 4],
+            use_scale_shift_norm=False, resblock_updown=False, num_head_channels=32,
+            use_spatial_transformer=True, transformer_depth=1, context_dim=768,
+            use_checkpoint=True,
+        ),
+        first_stage_config={
+            "target": "ldm.models.autoencoder.AutoencoderKL",
+            "params": {
+                "embed_dim": 16,
+                "ddconfig": dict(
+                    double_z=True, z_channels=16, resolution=256, in_channels=3, out_ch=3,
+                    ch=128, ch_mult=[1, 1, 2, 2, 4], num_res_blocks=2, attn_resolutions=[16],
+                    dropout=0.0,
+                ),
+            },
+        },
+        cond_stage_config={"target": "torch.nn.Identity"},
+        timesteps=1000, linear_start=0.0015, linear_end=0.015,
+        first_stage_key="jpg", cond_stage_key="nix", cond_stage_trainable=False,
+        conditioning_key="crossattn", scale_factor=0.22765929,
+    ),
+)
 
 
 def model_kwargs(cfg: dict) -> dict:

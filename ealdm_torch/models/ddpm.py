@@ -60,7 +60,7 @@ def build_first_stage(config: Optional[Dict[str, Any]], dtype=torch.float32,
 SENTINELS = ("__is_unconditional__", "__is_first_stage__")
 
 
-def build_cond_stage(config, feat_hw: Optional[int], dtype=torch.float32):
+def build_cond_stage(config, feat_hw: Optional[int], dtype=torch.float32, device=None):
     """The cond-stage module of a cond_stage_config: the STDiff UnetCond tower
     (feat_hw is the side of the first-stage feature map it reads), or an
     encoder of `build_encoder` (None for `torch.nn.Identity`). A sentinel
@@ -72,7 +72,7 @@ def build_cond_stage(config, feat_hw: Optional[int], dtype=torch.float32):
     target = config.get("target", "")
     params = dict(config.get("params", {}))
     if not target.endswith("UnetCond"):
-        return build_encoder(target, params, dtype)
+        return build_encoder(target, params, dtype, device)
     cond_args = dict(params.pop("cond_args", {}))
     if cond_args.get("noise_f_int"):
         cond_args["noise_f_int"] = [t for t in cond_args["noise_f_int"] if t]
@@ -173,7 +173,7 @@ class LatentDiffusion(nn.Module):
         with torch.device(dev):
             self.model = DiffusionWrapper(unet_config, conditioning_key, dtype)
             self.first_stage_model = build_first_stage(first_stage_config, dtype, dev)
-            cond = build_cond_stage(cond_stage_config, feat_hw, dtype)
+            cond = build_cond_stage(cond_stage_config, feat_hw, dtype, dev)
             logvar = torch.full((timesteps,), float(logvar_init))
             if learn_logvar:
                 self.logvar = nn.Parameter(logvar)

@@ -1,9 +1,9 @@
 """Conditioning encoders (counterpart of `ealdm_tpu/models/encoders.py`):
-ClassEmbedder, TransformerEmbedder, BERTEmbedder and SpatialRescaler, and
+ClassEmbedder, TransformerEmbedder, BERTEmbedder, SpatialRescaler, the
+frozen CLIP text and image embedders (`models/clip.py`), and
 `build_encoder`, the registry of cond-stage targets.
 
-The hybrid and CLIP encoders are refused with the ROADMAP item that ports
-them (the CLIP embedders need `models/clip.py`).
+The hybrid encoder is refused with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
 from .layers import Conv2D
 from .text_transformer import Embed, SimpleTokenizer, TextTransformer
 
@@ -126,17 +127,103 @@ class SpatialRescaler(nn.Module):
         return x
 
 
-# cond-stage targets of the JAX registry that a later slice ports
-_NOT_PORTED = {
-    "HybridConditioner": "ROADMAP queue 1 item 6",
-    "FrozenCLIPTextEmbedder": "ROADMAP queue 1 item 6 (needs models/clip.py)",
-    "FrozenClipImageEmbedder": "ROADMAP queue 1 item 6 (needs models/clip.py)",
+# OpenAI CLIP release geometries (clip/model.py): version -> tower dims.
+CLIP_VERSIONS = {
+    # text: (width, layers, heads, embed); vision: (width, layers, heads,
+    # patch, embed)
+    "ViT-B/32": {"text": (512, 12, 8, 512), "vision": (768, 12, 12, 32, 512)},
+    "ViT-B/16": {"text": (512, 12, 8, 512), "vision": (768, 12, 12, 16, 512)},
+    "ViT-L/14": {"text": (768, 12, 12, 768),
+                 "vision": (1024, 24, 16, 14, 768)},
 }
 
 
-def build_encoder(target: str, params: Dict[str, Any], dtype=torch.float32):
+def _l2_normalize(z):
+    return z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-8)
+
+
+class FrozenCLIPTextEmbedder(nn.Module):
+    """Token ids [B, L] -> the EOT-pooled CLIP text feature, L2-normalized,
+    repeated to [B, n_repeat, n_embed]. `tokenize` runs the hermetic
+    `SimpleTokenizer` on the host (ids on the CPU; the tower moves them to
+    its device); the tower pools at its WordPiece end token (`sep_id`), or
+    the hash buckets' EOS. Built on `device` (default "cuda", which raises
+    without a card)."""
+
+    def __init__(self, n_embed: int = 512, n_layer: int = 12, width: int = 512,
+                 n_heads: int = 8, vocab_size: int = 49408, max_seq_len: int = 77,
+                 n_repeat: int = 1, normalize: bool = True, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        from .clip import CLIPTextTower
+
+        self.n_repeat, self.normalize = n_repeat, normalize
+        self.tokenizer = SimpleTokenizer(vocab_size, max_seq_len)
+        eos = self.tokenizer.EOS
+        if self.tokenizer._wordpiece is not None:
+            eos = self.tokenizer._wordpiece.sep_id
+        with torch.device(resolve_device(device)):
+            self.model = CLIPTextTower(vocab_size=vocab_size, context_length=max_seq_len,
+                                       width=width, layers=n_layer, heads=n_heads,
+                                       embed_dim=n_embed, eot_id=eos, dtype=dtype)
+
+    @classmethod
+    def from_version(cls, version: str = "ViT-L/14", **kw):
+        """The geometry of `clip.load(version)`."""
+        w, l, h, e = CLIP_VERSIONS[version]["text"]
+        return cls(n_embed=e, n_layer=l, width=w, n_heads=h, **kw)
+
+    def tokenize(self, texts: Sequence[str]) -> torch.Tensor:
+        return self.tokenizer(texts)
+
+    def forward(self, tokens):
+        z = self.model(tokens)
+        if self.normalize:
+            z = _l2_normalize(z)
+        return z[:, None, :].repeat(1, self.n_repeat, 1)
+
+
+class FrozenClipImageEmbedder(nn.Module):
+    """[-1, 1] NHWC image -> `clip_preprocess` (resize, channel statistics)
+    -> the ViT tower -> its L2-normalized [B, out_dim] embedding. The
+    default geometry is ViT-B/32. Built on `device` (default "cuda", which
+    raises without a card); the image must lie there."""
+
+    def __init__(self, out_dim: int = 512, image_size: int = 224, patch_size: int = 32,
+                 width: int = 768, n_layer: int = 12, n_heads: int = 12,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        from .clip import CLIPVisionTower
+
+        self.image_size = image_size
+        with torch.device(resolve_device(device)):
+            self.visual = CLIPVisionTower(image_size=image_size, patch_size=patch_size,
+                                          width=width, layers=n_layer, heads=n_heads,
+                                          embed_dim=out_dim, dtype=dtype)
+
+    @classmethod
+    def from_version(cls, version: str = "ViT-L/14", **kw):
+        w, l, h, p, e = CLIP_VERSIONS[version]["vision"]
+        return cls(out_dim=e, width=w, n_layer=l, n_heads=h, patch_size=p, **kw)
+
+    def forward(self, x):
+        from .clip import clip_preprocess
+
+        if x.device != self.visual.proj.device:
+            raise RuntimeError(f"image is on {x.device}, the embedder on "
+                               f"{self.visual.proj.device}")
+        return _l2_normalize(self.visual(clip_preprocess(x, self.image_size)))
+
+
+# cond-stage targets of the JAX registry that a later slice ports
+_NOT_PORTED = {"HybridConditioner": "ROADMAP queue 1 item 7"}
+
+
+def build_encoder(target: str, params: Dict[str, Any], dtype=torch.float32, device=None):
     """The module of a cond-stage target, or None for `torch.nn.Identity`
-    (a precomputed conditioning passed through unchanged)."""
+    (a precomputed conditioning passed through unchanged). The CLIP
+    embedders, which also serve alone as query encoders, are built on
+    `device` (default "cuda"); the others on the ambient device."""
     name = target.rsplit(".", 1)[-1]
     if name == "ClassEmbedder":
         return ClassEmbedder(embed_dim=params["embed_dim"],
@@ -148,6 +235,13 @@ def build_encoder(target: str, params: Dict[str, Any], dtype=torch.float32):
                    max_seq_len=params.get("max_seq_len", 77), dtype=dtype)
     if name == "SpatialRescaler":
         return SpatialRescaler(**params, dtype=dtype)
+    if name == "FrozenCLIPTextEmbedder":
+        kw = {k: params[k] for k in ("n_repeat", "normalize") if k in params}
+        return FrozenCLIPTextEmbedder.from_version(params.get("version", "ViT-L/14"),
+                                                   dtype=dtype, device=device, **kw)
+    if name == "FrozenClipImageEmbedder":
+        return FrozenClipImageEmbedder.from_version(params.get("model", "ViT-L/14"),
+                                                    dtype=dtype, device=device)
     if name == "Identity":
         return None
     if name in _NOT_PORTED:

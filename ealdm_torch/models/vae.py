@@ -100,7 +100,7 @@ def _attn_factory(attn_type: str):
         return lambda *args: nn.Identity()
     if attn_type == "linear":
         raise NotImplementedError("VaeLinAttnBlock (attn_type 'linear') is not ported yet: "
-                                  "ROADMAP queue 1 item 6")
+                                  "ROADMAP queue 1 item 7")
     raise ValueError(f"attn_type {attn_type!r} unknown")
 
 

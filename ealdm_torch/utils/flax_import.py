@@ -15,6 +15,12 @@ flax module names, so a flax path `a/b/c/<leaf>` becomes the port name
   ReZero gain g                          -> the same name, unchanged
   EqualizedDense weight (already [out, in]),
   FrozenBatchNorm mean and var           -> the same name, unchanged
+  CLIP's attention in_proj_weight,
+  in_proj_bias, out_proj_weight,
+  out_proj_bias (already torch's layout),
+  positional_embedding, class_embedding,
+  text_projection and proj ([width,
+  embed], used as x @ P)                 -> the same name, unchanged
   OptimizedLSTMCell lstm_<l>/{i,h}{i,f,g,o}
       -> torch.nn.LSTM lstm_<l>.{weight_ih,weight_hh,bias_hh}_l0, gates
          stacked in torch's i, f, g, o order. flax has one bias per gate, on
@@ -30,7 +36,10 @@ the zoo's (`zoo.py`): a scale-shift ResBlock's `emb_proj` of 2 * out_ch,
 the ResBlock resample sites `down_<l>_downres` / `up_<l>_upres` (their
 nearest and average-pool resamples have no parameters, in either package),
 the bias-free `channel_mapper` kernel of `SpatialRescaler`, and a VQ model
-whose `attn_type` "none" has no attention leaves.
+whose `attn_type` "none" has no attention leaves; and the CLIP towers of
+the CLIP cond stages (`models/clip.py`: the bias-free patchify `conv1`
+kernel, the MLP's Dense layers, the LayerNorms and the token embedding take
+the rules above).
 
 `load_flax_params` raises on any port parameter left unfilled, any flax
 leaf left unused, and any shape that disagrees; so does `load_flax_ema`,
@@ -48,6 +57,9 @@ import torch
 from .device import check_module_device
 
 _GATES = "ifgo"  # torch.nn.LSTM's stacking order
+# CLIP's raw parameters (`models/clip.py`), each in the layout the port uses
+_CLIP_LEAVES = ("in_proj_weight", "in_proj_bias", "out_proj_weight", "out_proj_bias",
+                "positional_embedding", "class_embedding", "text_projection", "proj")
 _LSTM = re.compile(r"^(.*lstm_\d+)\.([ih])([ifgo])\.(kernel|bias)$")
 
 
@@ -75,7 +87,7 @@ def _leaf(name: str, v: np.ndarray):
     if last == "scale":
         return weight, v
     if last in ("bias", "embedding", "c_to_scales_weight", "weight", "mean", "var",
-                "logvar", "g"):
+                "logvar", "g", *_CLIP_LEAVES):
         return name, v
     raise ValueError(f"{name}: no rule for flax leaf {last!r}")
 
