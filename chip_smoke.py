@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernels    # phases 1-2b only: a new kernel's first call
     python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
     python3 chip_smoke.py --train      # the build and phase 6 (training) only
-    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-15 only
+    python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-16 only
     python3 chip_smoke.py --host       # the build and the flash wrapper's host cost
 
 Phases, each of which raises (non-zero exit) on failure:
@@ -24,7 +24,8 @@ Phases, each of which raises (non-zero exit) on failure:
      flash_mma_narrow_kernel at the flagship's d=32 shapes and at d=24;
      GroupNorm in both layouts it takes, timed at the main path's
      (channels_last) on inputs that do not fit the L2, and at the RDM's
-     widest one-read site [4,3584,6,6] and largest two-read [2,128,768,768];
+     widest one-read site [4,3584,6,6] and largest two-read [2,128,768,768],
+     and the super-resolution decode's two-read [9,128,512,512];
   2c. flash attention at the head dims of the repo's other configurations
      (24, 40, 48, 80 at 1024 and 256 tokens; 384 and 576 at 1024; and the
      conditional paths' wide sites [12,1,256,576], [12,1,1024,384],
@@ -37,8 +38,9 @@ Phases, each of which raises (non-zero exit) on failure:
      .. 80, 384, 512 and 576 at a ragged Nq = 1000, Nk = 77; the wrapper's
      host time a call at [16,8,256,80] and [16,8,256,32] (`host_cost`);
      the gradients through FlashAttention at d = 48 and d = 384; the zoo
-     paths' five flash shapes and the RDM path's two (ZOO_PATH_SHAPES,
-     RDM_PATH_SHAPES, a `[route]` line each: kernel, library, bound) and
+     paths' five flash shapes, the RDM path's two and the super-resolution
+     path's four (ZOO_PATH_SHAPES, RDM_PATH_SHAPES, SR_PATH_SHAPES, a
+     `[route]` line each: kernel, library, bound) and
      d = 648 and 960 (held, timed; the profile
      must see flash_wgmma_deep_kernel in bfloat16 and flash_tf32x3_kernel
      in float32); `route_deep_heads`: the deep wgmma kernel at
@@ -73,7 +75,14 @@ Phases, each of which raises (non-zero exit) on failure:
      gradient of one bf16 batch-24 step with the kernels against the same
      step with each kernel launch replaced by its plain version, and a
      planted GroupNorm fault that must fail the same limit; (d) one float32
-     train step at batch 1, the card against the CPU.
+     train step at batch 1, the card against the CPU; (f) the cin256-v2
+     (`config.CIN256_TRAIN`: class ids through the trainable ClassEmbedder)
+     and txt2img (`config.TXT2IMG_TRAIN`: token ids from the host tokenizer
+     through the trainable 32-layer BERT) steps at batch 8, each with a
+     warm-up and three timed steps, launches per step against the module
+     tree, gradient completeness (the cond stage trains and moves, the
+     first stage gets no gradient and stays), one profiled step, and its
+     own (e) and (d).
   7. inpainting (`config.INPAINT`, scripts/inpaint.py's run): the VQ-f4
      encode of a seeded 256^2 batch of 16, a keep-mask, `sample_images(mask,
      x0)` with DDIM-50 at eta 0, decode and composite; launches against the
@@ -116,15 +125,26 @@ Phases, each of which raises (non-zero exit) on failure:
      DDIM-50 at eta 0 with CFG 5, the decode to 768^2; the C = 3,584
      GroupNorm sites among the held ones; float32 card vs CPU at batch 1,
      2 steps (conditioning, latent, image embedding).
-  Each of phases 7-15 also holds every kernel launch of one bfloat16 pass
-  (7, 14: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet call
-  and a decode; 9: one UNet call; 10: one round trip) against its plain
-  version on the same inputs, at the shapes and strides the path gives it
-  (`hold_sites`); 11-15 also report img/s (median of three runs), peak
-  GiB and the device's busy time and idle share from one profile. Phases
-  7-15 run after phase 5 and before phase 6.
+  16. super-resolution (`config.BSR_SR`, `ldm/bsr_sr`) through
+     `ealdm_torch.notebook_helpers` (`get_model`, `run`: split-input
+     patching at 128^2 crops, stride 64, DDIM-50 at eta 1) on (a) the
+     committed 64^2 example (256^2 out: 3x3 encode crops, one crop for the
+     UNet and the decode) and (b) that example upsampled to 256^2 (1024^2
+     out: 15x15 encode crops, 3x3 crops of 128^2 for the UNet, its d=32
+     flash at 256 rows, and for the decode to 512^2 each); launches against
+     the module tree at the crops' sides (`superres_passes`), three timed
+     runs, a profile, `hold_sites`; float32 card vs CPU at batch 1, 2 steps
+     on (a) with the grid cut to 32^2 crops, stride 16 (multi-crop encode,
+     UNet and decode).
+  Each of phases 7-16 also holds every kernel launch of one bfloat16 pass
+  (7, 14, 16: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet
+  call and a decode; 9: one UNet call; 10: one round trip) against its
+  plain version on the same inputs, at the shapes and strides the path
+  gives it (`hold_sites`); 11-16 also report img/s (median of three runs),
+  peak GiB and the device's busy time and idle share from one profile.
+  Phases 7-16 run after phase 5 and before phase 6.
 
-The last lines of output are a `[paths]` JSON line with phases 7-15's
+The last lines of output are a `[paths]` JSON line with phases 7-16's
 numbers, a `[train]` JSON line with phase 6's numbers,
 the card's name and power limit, a JSON line with every kernel's numbers
 (not with --train), and {"ok": true, "device": {...}}.
@@ -194,6 +214,12 @@ ZOO_PATH_SHAPES = ((10, 8, 1024, 24), (10, 8, 256, 48), (10, 1, 1024, 512),
 # the RDM UNet's CFG batch of 4 at 48^2 (14 heads of 32) and the KL-f16
 # decoder's attention at 48^2 on 2 images
 RDM_PATH_SHAPES = ((4, 14, 2304, 32), (2, 1, 2304, 512))
+# [B, H, N, D] of the super-resolution path's new flash sites (phase 16):
+# input (b)'s UNet on 3x3 crops of 128^2 (d=32, 20 heads at 16^2), the VQ-f4
+# decoder's attention at input (a)'s 64^2 latent and on (b)'s 3x3 crops of
+# 128^2, and (b)'s encoder on 15x15 crops (32^2 latent each)
+SR_PATH_SHAPES = ((9, 20, 256, 32), (1, 1, 4096, 512), (9, 1, 16384, 512),
+                  (225, 1, 1024, 512))
 # head dims above 640, held and timed on flash_wgmma_deep_kernel (bfloat16)
 # and flash_tf32x3_kernel (float32)
 DEEP_HEAD_DIMS = (648, 960)
@@ -717,7 +743,8 @@ def phase_group_norm():
 
     cases = [((48, 256, 32, 32), 1e-5), ((48, 512, 16, 16), 1e-5), ((48, 1024, 8, 8), 1e-5),
              ((48, 768, 32, 32), 1e-5), ((24, 128, 256, 256), 1e-6),
-             ((48, 256, 128, 128), 1e-6), ((4, 3584, 6, 6), 1e-5), ((2, 128, 768, 768), 1e-6)]
+             ((48, 256, 128, 128), 1e-6), ((4, 3584, 6, 6), 1e-5), ((2, 128, 768, 768), 1e-6),
+             ((9, 128, 512, 512), 1e-6)]
     for shape, eps in cases:
         c = shape[1]
         scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
@@ -752,6 +779,9 @@ def phase_group_norm():
         # decoder sample (phase 15)
         ("group_norm_c3584", (4, 3584, 6, 6), 1e-5, False, "channels_last", single),
         ("group_norm_two_pass_768", (2, 128, 768, 768), 1e-6, False, "channels_last", chunked),
+        # the super-resolution path's decode of 3x3 latent crops to 512^2 each
+        # (phase 16, input b)
+        ("group_norm_two_pass_512", (9, 128, 512, 512), 1e-6, False, "channels_last", chunked),
     ]
     for row, shape, eps, has_pre, layout, replaces in timed:
         n_, c = shape[:2]
@@ -830,7 +860,7 @@ def phase_head_dims():
 
     cases = [(16, 8, n, d) for d in NARROW_HEAD_DIMS for n in (1024, 256)]
     cases += [(16, 1, 1024, d) for d in WIDE_HEAD_DIMS]
-    cases += [*PATH_WIDE_SHAPES, *ZOO_PATH_SHAPES, *RDM_PATH_SHAPES]
+    cases += [*PATH_WIDE_SHAPES, *ZOO_PATH_SHAPES, *RDM_PATH_SHAPES, *SR_PATH_SHAPES]
     cases += [(4, 2, 1024, d) for d in DEEP_HEAD_DIMS]
     for shape in cases:
         name = flash_counter(shape[3])
@@ -848,7 +878,7 @@ def phase_head_dims():
     res = {}
     for shape in cases:
         b, h, n, d = shape
-        if shape in (*PATH_WIDE_SHAPES, *ZOO_PATH_SHAPES, *RDM_PATH_SHAPES):
+        if shape in (*PATH_WIDE_SHAPES, *ZOO_PATH_SHAPES, *RDM_PATH_SHAPES, *SR_PATH_SHAPES):
             row = f"flash_attention_d{d}_b{b}_n{n}"
         else:
             row = f"flash_attention_d{d}_n{n}" if d in NARROW_HEAD_DIMS else flash_counter(d)
@@ -865,9 +895,10 @@ def phase_head_dims():
             if F32_KERNEL not in seen.split("+"):
                 raise RuntimeError(f"d={d} float32: the profile saw {seen}, not {F32_KERNEL}")
             del qkv32
-        if shape in (*ZOO_PATH_SHAPES, *RDM_PATH_SHAPES):
+        if shape in (*ZOO_PATH_SHAPES, *RDM_PATH_SHAPES, *SR_PATH_SHAPES):
             r = res[row]
-            where = "zoo" if shape in ZOO_PATH_SHAPES else "rdm"
+            where = ("zoo" if shape in ZOO_PATH_SHAPES else
+                     "rdm" if shape in RDM_PATH_SHAPES else "superres")
             log(f"[route] {where} path {list(shape)}: {r['kernel']} {r['ms']:.4f} ms, library "
                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_kind']})")
         del qkv
@@ -1205,24 +1236,10 @@ def phase_ops():
 
 # ------------------------------------------------------------------ phase 3+
 def random_init_(model, seed):
-    """Seeded random weights: matrices and conv kernels ~ N(0, 1/fan_in),
-    norm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2), codebook N(0, 1)."""
-    import torch
+    """`ealdm_torch.utils.init.random_init_`: seeded random weights."""
+    from ealdm_torch.utils.init import random_init_ as init
 
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            v = torch.randn(p.shape, generator=gen)
-            if leaf == "embedding":
-                pass
-            elif p.dim() >= 2:
-                v /= math.sqrt(p[0].numel())
-            elif leaf == "weight":  # norm scales
-                v = 1 + 0.1 * v
-            else:
-                v *= 0.1
-            p.copy_(v)
+    init(model, seed)
 
 
 def mixed_batch(b, res, seed, device):
@@ -2563,8 +2580,163 @@ def phase_rdm(cfg_module):
                          conditioning_ms=cond_ms, **numbers, reference=ref)
 
 
+# ------------------------------------------------------------------ phase 16
+SR_STEPS = 50  # notebook_helpers.run's custom_steps; eta 1
+# the float32 reference's crop grid (ks, stride), cut from the notebook's
+# 128 / 64 so that input (a)'s encode, UNet call and decode each take
+# several crops in seconds on the host
+SR_REFERENCE_GRID = ((32, 32), (16, 16))
+
+
+def superres_inputs():
+    """{"a": the committed 64^2 example (data/example_conditioning/
+    superresolution/sample_0.png, decoded), "b": the same upsampled 4x to
+    256^2 (`get_cond`'s bilinear image, rounded to uint8), which stands in
+    for a larger photograph}, as uint8 [H, W, 3] arrays."""
+    import numpy as np
+
+    from ealdm_torch import notebook_helpers as nh
+
+    path = os.path.join(HERE, "ealdm_torch", "data", "superresolution_examples.npz")
+    small = np.load(path)["sample_0"]
+    up = nh.get_cond("superresolution", small, device="cpu")["image"][0]
+    big = ((up + 1.0) * 127.5).round().clamp(0, 255).byte().numpy()
+    return {"a": small, "b": big}
+
+
+def superres_passes(model, lr_side, steps, params):
+    """`path_census` passes of one notebook run on an LR image of lr_side^2
+    under the split-input `params`: the encode of the 4x image's crops as
+    one batch, each DDIM step's UNet call on the latent's crops, and three
+    decodes of those crops (reconstruction, sample, sample_noquant); a crop
+    grid is ((side - ks) // stride + 1)^2 after the kernel and stride are
+    clamped to the side. Returns (passes, {stage: (crops, crop side)})."""
+    from ealdm_torch.ops.patching import clamp_patch_params, grid_shape
+
+    def grid(side):
+        ks, stride = clamp_patch_params((side, side), tuple(params["ks"]),
+                                        tuple(params["stride"]))
+        ly, lx = grid_shape((side, side), ks, stride)
+        return ly * lx, ks[0]
+
+    fs, unet = model.first_stage_model, model.model.diffusion_model
+    enc, lat = grid(4 * lr_side), grid(lr_side)  # bsr_sr: the latent's side is the LR's
+    return ([(fs.encoder, *enc, 1), (unet, *lat, steps), (fs.decoder, *lat, 3)],
+            {"encode": enc, "unet": lat, "decode": lat})
+
+
+def phase_superres(cfg_module):
+    """Phase 16: `ldm/bsr_sr` (BSR_SR) through the notebook's workflow,
+    `ealdm_torch.notebook_helpers`: `get_model("superresolution")` in
+    bfloat16 and `run` with DDIM-50 at eta 1 on (a) the committed 64^2
+    example (a 256^2 output: the encode over 3x3 crops of 128^2, one crop
+    for the UNet and the decode) and (b) that example upsampled to 256^2
+    (a 1024^2 output: 15x15 encode crops, 3x3 crops of 128^2 latent for the
+    UNet, whose d=32 attention then runs at 256 rows, and for the decode,
+    at 512^2 each). Each: launches against the module tree at the crops'
+    sides, three timed runs, a profile, every kernel launch of one pass
+    (patched encode, one patched UNet call, patched decode) held. Then
+    float32 card vs CPU at batch 1, 2 steps on input (a) with the crop grid
+    cut to SR_REFERENCE_GRID."""
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch import notebook_helpers as nh
+    from ealdm_torch.ops.patching import DEFAULT_SPLIT_PARAMS
+
+    cfg = cfg_module.BSR_SR
+    ealdm_torch.enable_inference_optimizations()
+    t0 = time.perf_counter()
+    model = nh.get_model("superresolution", seed=130, dtype=torch.bfloat16)
+    parts = {k: sum(p.numel() for p in getattr(model, k).parameters())
+             for k in ("model", "first_stage_model")}
+    log(f"[superres] {cfg['zoo']}: UNet {parts['model'] / 1e6:.1f} M, VQ-f4 "
+        f"{parts['first_stage_model'] / 1e6:.1f} M parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s; DDIM-{SR_STEPS}, eta 1, split-input "
+        f"ks {DEFAULT_SPLIT_PARAMS['ks']} stride {DEFAULT_SPLIT_PARAMS['stride']}")
+    params = dict(DEFAULT_SPLIT_PARAMS)
+    patched = model.clone(split_input_params=params)
+    inputs = superres_inputs()
+    details, out = {}, {}
+    for tag, arr in inputs.items():
+        label = f"superres_{tag}"
+        side = arr.shape[0]
+        passes, grids = superres_passes(model, side, SR_STEPS, params)
+        log(f"[{label}] LR {side}^2 -> {4 * side}^2: crops (count, side) {grids}")
+        got = {}
+
+        def run():
+            got["log"] = nh.run(model, arr, custom_steps=SR_STEPS, eta=1.0, seed=131)
+
+        example = nh.get_cond("superresolution", arr, device="cuda")
+        t_mid = torch.full((1,), 500, dtype=torch.int64, device="cuda")
+
+        def one_pass():  # the patched encode, one patched UNet call, the patched decode
+            z = patched.encode_first_stage(example["image"])
+            patched.apply_model(z, t_mid, example["LR_image"])
+            patched.decode_first_stage(z)
+
+        details[label], numbers = conditional_path(label, run, path_census(passes), 1,
+                                                   one_pass)
+        sample = got["log"]["sample"]
+        check_image(label, sample, (1, 4 * side, 4 * side, 3))
+        log(f"[{label}] sample std {float(sample.float().std()):.4f}; the profiled run's "
+            f"sampler took {got['log']['time']:.4f} s of it")
+        out[label] = dict(lr_side=side, out_side=4 * side, crops=grids, **numbers)
+        del got, example
+        torch.cuda.empty_cache()
+    out["reference"] = superres_reference("superres-reference", model, inputs["a"])
+    del model, patched
+    torch.cuda.empty_cache()
+    return details, dict(steps=SR_STEPS, eta=1.0, params_m={k: v / 1e6 for k, v in parts.items()},
+                         **out)
+
+
+def superres_reference(label, bf16_model, arr, seed=132):
+    """Batch 1, 2 DDIM steps at eta 1, float32: `make_convolutional_sample`
+    on the card (its kernels) and on the CPU (the plain versions), with
+    `bf16_model`'s weights, split-input patching at SR_REFERENCE_GRID, the
+    same x_T and step noise; the final latent, the sample and the
+    reconstruction within 1e-3 of their scale, TF32 off, as phase 5."""
+    import torch
+
+    from ealdm_torch import notebook_helpers as nh
+    from ealdm_torch import zoo
+    from ealdm_torch.ops.patching import DEFAULT_SPLIT_PARAMS
+
+    ks, stride = SR_REFERENCE_GRID
+    params = dict(DEFAULT_SPLIT_PARAMS, ks=ks, stride=stride)
+    side = arr.shape[0]
+    _, grids = superres_passes(bf16_model, side, 2, params)
+    sd = {k: v.float() for k, v in bf16_model.state_dict().items()}
+    g = torch.Generator().manual_seed(seed)
+    latent = (1, side, side, 3)
+    x_T = torch.randn(latent, generator=g)
+    draws = [torch.randn(latent, generator=g) for _ in range(2)]
+    got = {}
+    t0 = time.perf_counter()
+    for dev in ("cpu", "cuda"):
+        m = zoo.build("ldm/bsr_sr", dtype=torch.float32, device=dev).eval()
+        m.load_state_dict(sd)
+        logs = nh.make_convolutional_sample(
+            nh.get_cond("superresolution", arr, device=dev), m.clone(split_input_params=params),
+            custom_steps=2, eta=1.0, x_T=x_T.to(dev), noise_fn=lambda i, shape: draws[i])
+        for key, v in (("latent", logs["progressive_row"][-1]), ("sample", logs["sample"]),
+                       ("reconstruction", logs["reconstruction"])):
+            got.setdefault(key, {})[dev] = v.float().cpu()
+        del m, logs
+    rel = {f"{k}_rel": rel_err_to_max(v["cuda"], v["cpu"]) for k, v in got.items()}
+    log(f"[{label}] float32 card vs CPU, batch 1, 2 steps, LR {side}^2, ks {ks} stride "
+        f"{stride}: crops (count, side) {grids}; "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f" (tolerance 1e-3 each; {time.perf_counter() - t0:.1f} s)")
+    if not all(v <= 1e-3 for v in rel.values()):
+        raise RuntimeError(f"{label}: the card's float32 result disagrees with the CPU")
+    return dict(ks=list(ks), stride=list(stride), crops=grids, **rel)
+
+
 def phases_paths(cfg_module):
-    """Phases 7-15. Returns ({path: launch details}, the [paths] line)."""
+    """Phases 7-16. Returns ({path: launch details}, the [paths] line)."""
     details, out = {}, {}
     details["inpaint"], out["inpaint"] = phase_inpaint(cfg_module)
     details["uncond"], out["uncond"] = phase_uncond(cfg_module)
@@ -2575,6 +2747,8 @@ def phases_paths(cfg_module):
     details["churches"], out["churches"] = phase_churches(cfg_module)
     details["inpainting_big"], out["inpainting_big"] = phase_inpainting_big(cfg_module)
     details["rdm"], out["rdm"] = phase_rdm(cfg_module)
+    sr_details, out["superres"] = phase_superres(cfg_module)
+    details.update(sr_details)
     return details, out
 
 
@@ -2673,19 +2847,24 @@ def train_batch(b, res, seed, device):
 
 
 def expected_train_launches(model, batch, cfg, remat):
-    """Kernel launches of one train step, from the module tree: the VQ
-    encoder once on the N target frames and once on the 2N conditioning
-    pair; the UNet once on the 2N CFG batch, and under "dots" or "full" once
-    more when the backward recomputes each of its blocks and its out head
-    (the kernels' outputs are not saved). The cond tower has no kernel
-    site. {(counter, detail): n} in the wrappers' terms, plus the totals by
-    counter."""
+    """Kernel launches of one train step, from the module tree: the first
+    stage's encoder once on the N target frames, and under the STDiff CFG
+    pair once more on the 2N conditioning pair; the UNet once on the N
+    samples (2N for the CFG pair), and under "dots" or "full" once more
+    when the backward recomputes each of its blocks and its out head (the
+    kernels' outputs are not saved). The cond stages (the STDiff tower, the
+    BERT, the ClassEmbedder) have no kernel site. {(counter, detail): n} in
+    the wrappers' terms, plus the totals by counter."""
     import collections
 
     unet = model.model.diffusion_model
     enc = model.first_stage_model.encoder
-    census = path_census([(unet, 2 * batch, cfg["zres"], 1 if remat == "none" else 2),
-                          (enc, batch, cfg["res"], 1), (enc, 2 * batch, cfg["res"], 1)])
+    pair = model.cond_stage_key == "mixed" and model.unconditional_guidance_scale != 1.0
+    runs = 1 if remat == "none" else 2
+    passes = [(unet, (2 if pair else 1) * batch, cfg["zres"], runs), (enc, batch, cfg["res"], 1)]
+    if pair:
+        passes.append((enc, 2 * batch, cfg["res"], 1))
+    census = path_census(passes)
     totals = collections.Counter()
     for (name, _), n in census.items():
         totals[name] += n
@@ -2739,6 +2918,37 @@ def train_profile_groups(prof):
         totals[tag] += rest
         rows.append((t, e.count, tag, e.key))
     return busy, totals, launches, sorted(rows, reverse=True)
+
+
+def profile_train_step(label, step, state, batch, seed, dt, top=20):
+    """One train step under torch.profiler: (device busy s, device s by
+    group, kernel launches, profiled wall s), logged with the idle share
+    against `dt`, the median unprofiled step, and the `top` kernels. Raises
+    where the profile shows no device time in the plain backwards or the
+    optimizer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, groups, n_kernels, rows = train_profile_groups(prof)
+    if busy <= 0:
+        raise RuntimeError(f"{label}: the profiler saw no device time in the train step")
+    log(f"[{label}] device busy {busy * 1e3:.1f} ms in {n_kernels} kernel launches; "
+        f"idle share {1 - busy / dt:.3f} of the median unprofiled step ({dt * 1e3:.1f} ms), "
+        f"{1 - busy / prof_wall:.3f} of the profiled one ({prof_wall * 1e3:.1f} ms)")
+    for tag, t in groups.items():
+        log(f"[{label}] {tag:28s} {t * 1e3:9.2f} ms = {t / busy:.3f} of device time")
+    for t, n, tag, key in rows[:top]:
+        log(f"[{label}] {t * 1e3:8.2f} ms x{n:<5d} ({tag}, ranges included) {key[:90]}")
+    for tag in ("GroupNorm backward (plain)", "attention backward (plain)", "AdamW and EMA"):
+        if groups[tag] <= 0:
+            raise RuntimeError(f"{label}: the profile attributes no device time to {tag}")
+    return busy, groups, n_kernels, prof_wall
 
 
 def phase_train(cfg_module):
@@ -2835,28 +3045,8 @@ def phase_train(cfg_module):
                  "group_norm_two_pass"):
         if not got_totals.get(name):
             raise RuntimeError(f"{name} was not launched by the train step")
-    # one profiled step: device busy, idle share, device time by group
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, torch.Generator().manual_seed(300))
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    busy, groups, n_kernels, rows = train_profile_groups(prof)
-    if busy <= 0:
-        raise RuntimeError("the profiler saw no device time in the train step")
-    log(f"[train-profile] device busy {busy * 1e3:.1f} ms in {n_kernels} kernel launches; "
-        f"idle share {1 - busy / dt:.3f} of the median unprofiled step ({dt * 1e3:.1f} ms), "
-        f"{1 - busy / prof_wall:.3f} of the profiled one ({prof_wall * 1e3:.1f} ms)")
-    for tag, t in groups.items():
-        log(f"[train-profile] {tag:28s} {t * 1e3:9.2f} ms = {t / busy:.3f} of device time")
-    for t, n, tag, key in rows[:20]:
-        log(f"[train-profile] {t * 1e3:8.2f} ms x{n:<5d} ({tag}, ranges included) {key[:90]}")
-    for tag in ("GroupNorm backward (plain)", "attention backward (plain)", "AdamW and EMA"):
-        if groups[tag] <= 0:
-            raise RuntimeError(f"the profile attributes no device time to {tag}")
+    busy, groups, n_kernels, prof_wall = profile_train_step("train-profile", step, state,
+                                                            batch, 300, dt)
     # the other remat policies, three steps each: median time, peak, launches
     policies = {}
     for policy in ("none", "full"):
@@ -2887,50 +3077,60 @@ def phase_train(cfg_module):
     return model, out
 
 
-def phase_train_reference(cfg_module, trained):
+def train_step_inputs(b, zshape, seed):
+    """The t, noise and KL posterior noise of a checked train step, drawn on
+    the host (the same on every device): t ~ U{0..999}, the noise and the
+    posterior's [b, *zshape]."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    t = torch.randint(0, 1000, (b,), generator=g)
+    noise = torch.randn(b, *zshape, generator=g)
+    return t, noise, torch.randn(b, *zshape, generator=g)
+
+
+def checked_loss(m, batch, t, noise, fs_noise, remat):
+    """The training loss of `m` on `batch` at the given t and noise, dropout
+    off, the first stage's encode (its KL posterior drawn as fs_noise)
+    without gradient and the UNet under `remat`."""
+    enc = m.encode_inputs(batch, noise=fs_noise)
+    with m.model.diffusion_model.remat_blocks(remat):
+        return m.training_loss(batch, None, t=t, noise=noise, train=False, encoded=enc)[0]
+
+
+def phase_train_reference(label, kw, remat, trained, batch, zshape, listed, seed):
     """(d) One training step's loss and gradients at full width, batch 1,
     float32, dropout off, TF32 off for the library's matmuls and
     convolutions (the flash kernel computes in split TF32, about 1e-6 from
-    float32): the card (kernels) against the CPU
-    (plain versions), same weights, batch, t and noise. The sums differ in
-    order (cuDNN and cuBLAS against oneDNN) and the attention differs in
-    form (the flash kernel against dense sdpa): loss to 1e-4 relative, the
-    grad norm to 1e-3 relative, and each listed gradient to 1e-3 of its
-    largest element."""
+    float32): the card (kernels) against the CPU (plain versions), same
+    weights, batch, t, noise and posterior noise. The sums differ in order
+    (cuDNN and cuBLAS against oneDNN) and the attention differs in form
+    (the flash kernel against dense sdpa): loss to 1e-4 relative, the grad
+    norm to 1e-3 relative, and each listed gradient to 1e-3 of its largest
+    element. `batch` is on the CPU; zshape is the latent's [h, w, c]."""
     import torch
 
     from ealdm_torch.models.ddpm import LatentDiffusion
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, tc = cfg_module.FLAGSHIP, cfg_module.FLAGSHIP_TRAIN
-    kw = cfg_module.model_kwargs(cfg)
     sd = {k: v.float() for k, v in trained.state_dict().items()}
-    batch = train_batch(1, cfg["res"], seed=31, device="cpu")
-    g = torch.Generator().manual_seed(32)
-    t = torch.randint(0, 1000, (1,), generator=g)
-    noise = torch.randn(1, cfg["zres"], cfg["zres"], 4, generator=g)
-    listed = ("model.diffusion_model.conv_in.weight",
-              "model.diffusion_model.mid_res1.out_norm.weight",
-              "model.diffusion_model.down_0_0_attn.block_0.attn1.to_q.weight",
-              "cond_stage_model.out_3.weight")
+    t, noise, fs_noise = train_step_inputs(1, zshape, seed)
     res = {}
     for dev in ("cpu", "cuda"):
         m = LatentDiffusion(**kw, dtype=torch.float32, device=dev)
         m.load_state_dict(sd)
         m.train()
-        b = {"img": batch["img"].to(dev), "mixed": {k: v.to(dev) for k, v in
-                                                    batch["mixed"].items()}}
-
+        b = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(dev)) for k, v in batch.items()}
         t0 = time.perf_counter()
-        with m.model.diffusion_model.remat_blocks(tc["remat"]):
-            loss, _ = m.training_loss(b, None, t=t.to(dev), noise=noise.to(dev), train=False)
+        loss = checked_loss(m, b, t.to(dev), noise.to(dev), fs_noise.to(dev), remat)
         loss.backward()
         grads = [p.grad for p in m.parameters() if p.requires_grad]
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))).item()
         named = dict(m.named_parameters())
         res[dev] = (loss.item(), gnorm, {k: named[k].grad.float().cpu() for k in listed})
-        log(f"[train-reference] {dev}: loss {res[dev][0]:.8f}, grad norm {gnorm:.8f} "
+        log(f"[{label}] {dev}: loss {res[dev][0]:.8f}, grad norm {gnorm:.8f} "
             f"({time.perf_counter() - t0:.1f} s)")
         del m, grads, named
     torch.cuda.empty_cache()
@@ -2938,12 +3138,19 @@ def phase_train_reference(cfg_module, trained):
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     norm_rel = abs(n_gpu - n_cpu) / abs(n_cpu)
     grad_rel = {k: rel_err_to_max(g_gpu[k], g_cpu[k]) for k in listed}
-    log(f"[train-reference] float32 card vs CPU: loss {loss_rel:.3g} relative (tolerance "
+    log(f"[{label}] float32 card vs CPU: loss {loss_rel:.3g} relative (tolerance "
         f"1e-4), grad norm {norm_rel:.3g} (1e-3), gradients / max "
         f"{ {k.split('.', 1)[1]: f'{v:.3g}' for k, v in grad_rel.items()} } (1e-3)")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and all(v <= 1e-3 for v in grad_rel.values())):
-        raise RuntimeError("the card's float32 train step disagrees with the CPU")
+        raise RuntimeError(f"{label}: the card's float32 train step disagrees with the CPU")
     return dict(loss_rel=loss_rel, grad_norm_rel=norm_rel, grad_rel_to_max=grad_rel)
+
+
+# the gradients phase 6 (d) holds one by one on the flagship
+FLAGSHIP_LISTED = ("model.diffusion_model.conv_in.weight",
+                   "model.diffusion_model.mid_res1.out_norm.weight",
+                   "model.diffusion_model.down_0_0_attn.block_0.attn1.to_q.weight",
+                   "cond_stage_model.out_3.weight")
 
 
 # a GroupNorm kernel whose output is this much too large (a systematic
@@ -2951,22 +3158,23 @@ def phase_train_reference(cfg_module, trained):
 PLANTED_GN_SCALE = 2**-5
 
 
-def phase_train_bf16_check(cfg_module, model):
-    """(e) The numbers of the step that (b) times: one bf16 step at batch 24
-    (same weights, batch, t and noise, dropout off, remat as timed) with the
-    kernels, and again with each kernel launch replaced by its plain version
-    on the card (`group_norm_plain`, `flash_attention_plain`; the backwards
-    are the same code on both sides). The two can differ only by the
-    kernels' rounding, which is of the kind bf16 compute adds everywhere, so
-    the limit comes from the bf16 step's own error: the plain bf16
-    gradient's distance from a float32 step's (plain versions, TF32 off).
-    Over the 410 M trainable elements,
+def phase_train_bf16_check(label, kw, remat, model, batch, zshape, seed):
+    """(e) The numbers of the step that is timed: one bf16 step on `batch`
+    (same weights, t, noise and posterior noise, dropout off, `remat`) with
+    the kernels, and again with each kernel launch replaced by its plain
+    version on the card (`group_norm_plain`, `flash_attention_plain`; the
+    backwards are the same code on both sides). The two can differ only by
+    the kernels' rounding, which is of the kind bf16 compute adds
+    everywhere, so the limit comes from the bf16 step's own error: the plain
+    bf16 gradient's distance from a float32 step's (plain versions, TF32
+    off). Over every trainable element (410 M on the flagship),
         |g_kernels - g_plain| <= 2 |g_plain - g_float32|
     (two bf16 runs whose roundings were independent would land sqrt(2)
     apart), and the grad norms then differ by no more (triangle
-    inequality). The loss, a mean over 98,304 outputs, must agree to 2^-8
-    relative, one bf16 rounding of the loss itself. A GroupNorm kernel with
-    its output `PLANTED_GN_SCALE` too large must fail the gradient limit."""
+    inequality). The loss, a mean over the batch's latents, must agree to
+    2^-8 relative, one bf16 rounding of the loss itself. A GroupNorm kernel
+    with its output `PLANTED_GN_SCALE` too large must fail the gradient
+    limit."""
     import contextlib
 
     import torch
@@ -2974,12 +3182,8 @@ def phase_train_bf16_check(cfg_module, model):
     from ealdm_torch.models.ddpm import LatentDiffusion
     from ealdm_torch.ops import attention, norms
 
-    cfg, tc = cfg_module.FLAGSHIP, cfg_module.FLAGSHIP_TRAIN
-    n = tc["batch_size"]
-    batch = train_batch(n, cfg["res"], seed=41, device="cuda")
-    g = torch.Generator().manual_seed(42)
-    t = torch.randint(0, 1000, (n,), generator=g).cuda()
-    noise = torch.randn(n, cfg["zres"], cfg["zres"], 4, generator=g).cuda()
+    n = next(iter(batch.values())).shape[0]
+    t, noise, fs_noise = (v.cuda() for v in train_step_inputs(n, zshape, seed))
     kernel_gn, kernel_flash = norms.group_norm_kernel, attention.flash_attention_kernel
 
     def plain_gn(x, scale, bias, num_groups, eps, fuse_silu, pre_bias=None):
@@ -2998,20 +3202,18 @@ def phase_train_bf16_check(cfg_module, model):
         finally:
             norms.group_norm_kernel, attention.flash_attention_kernel = kernel_gn, kernel_flash
 
-    def step(m, remat):
+    def step(m, remat_):
         """(loss, every trainable gradient as one float32 vector)."""
         m.train()
         params = [p for p in m.parameters() if p.requires_grad]
-        with m.model.diffusion_model.remat_blocks(remat):
-            loss, _ = m.training_loss(batch, None, t=t, noise=noise, train=False)
+        loss = checked_loss(m, batch, t, noise, fs_noise, remat_)
         return loss.item(), torch.cat([x.float().flatten()
                                        for x in torch.autograd.grad(loss, params)])
 
     t0 = time.perf_counter()
     with launches(plain_gn, attention.flash_attention_plain):
-        l_plain, g_plain = step(model, tc["remat"])
-        ref = LatentDiffusion(**cfg_module.model_kwargs(cfg), dtype=torch.float32,
-                              device="cuda")
+        l_plain, g_plain = step(model, remat)
+        ref = LatentDiffusion(**kw, dtype=torch.float32, device="cuda")
         ref.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
         l_ref, g_ref = step(ref, "none")
         del ref
@@ -3019,10 +3221,11 @@ def phase_train_bf16_check(cfg_module, model):
     bf16_err = (g_plain - g_ref).norm().item() / ref_norm
     del g_ref
     res = {"loss_float32": l_ref, "loss_plain": l_plain, "grad_norm_plain": g_plain.norm().item(),
-           "plain_vs_float32": bf16_err, "limit": 2 * bf16_err}
+           "plain_vs_float32": bf16_err, "limit": 2 * bf16_err,
+           "trainable_elements": g_plain.numel()}
     for name, gn in (("kernels", kernel_gn), ("planted_fault", faulty_gn)):
         with launches(gn, kernel_flash):
-            loss, grad = step(model, tc["remat"])
+            loss, grad = step(model, remat)
         res[name] = {"loss": loss, "loss_rel": abs(loss - l_plain) / abs(l_plain),
                      "grad_norm": grad.norm().item(),
                      "grad_vs_plain": (grad - g_plain).norm().item() / ref_norm}
@@ -3030,37 +3233,188 @@ def phase_train_bf16_check(cfg_module, model):
     del g_plain
     torch.cuda.empty_cache()
     k, f = res["kernels"], res["planted_fault"]
-    log(f"[train-bf16] batch {n}, {tc['dtype']}, remat {tc['remat']!r} "
-        f"({time.perf_counter() - t0:.1f} s): "
+    log(f"[{label}] batch {n}, bfloat16, remat {remat!r}, {res['trainable_elements']} "
+        f"trainable elements ({time.perf_counter() - t0:.1f} s): "
         f"loss kernels {k['loss']:.8f}, plain {l_plain:.8f}, float32 {l_ref:.8f}; "
         f"|g_kernels - g_plain| = {k['grad_vs_plain']:.4g} of |g_float32|, limit "
         f"{res['limit']:.4g} (twice |g_plain - g_float32| = {bf16_err:.4g}); loss "
         f"{k['loss_rel']:.3g} relative (limit {2**-8:.3g}); grad norms {k['grad_norm']:.6f} "
         f"/ {res['grad_norm_plain']:.6f}")
-    log(f"[train-bf16] planted fault (GroupNorm output x (1 + {PLANTED_GN_SCALE:g})): "
+    log(f"[{label}] planted fault (GroupNorm output x (1 + {PLANTED_GN_SCALE:g})): "
         f"{f['grad_vs_plain']:.4g} of |g_float32| against the limit {res['limit']:.4g}; "
         f"loss {f['loss_rel']:.3g} relative")
     if not (k["grad_vs_plain"] <= res["limit"] and k["loss_rel"] <= 2**-8):
-        raise RuntimeError("the bf16 train step with the kernels disagrees with the plain one")
+        raise RuntimeError(f"{label}: the bf16 train step with the kernels disagrees with the "
+                           "plain one")
     if f["grad_vs_plain"] <= res["limit"]:
-        raise RuntimeError("the planted GroupNorm fault passed the bf16 step's limit")
+        raise RuntimeError(f"{label}: the planted GroupNorm fault passed the bf16 step's limit")
     return res
+
+
+# phase 6 (f): the conditional configs' train steps, by name: (config,
+# training settings, seed, the gradients (d) holds one by one)
+TRAIN_COND = {
+    "cin256": ("CIN256", "CIN256_TRAIN", 140,
+               ("model.diffusion_model.conv_in.weight",
+                "model.diffusion_model.mid_res1.out_norm.weight",
+                "model.diffusion_model.down_1_0_attn.block_0.attn1.to_q.weight",
+                "cond_stage_model.embedding.embedding")),
+    "txt2img": ("TXT2IMG", "TXT2IMG_TRAIN", 150,
+                ("model.diffusion_model.conv_in.weight",
+                 "model.diffusion_model.mid_res1.out_norm.weight",
+                 "model.diffusion_model.down_0_0_attn.block_0.attn1.to_q.weight",
+                 "cond_stage_model.transformer.layer_31_attn.to_q.weight")),
+}
+
+
+def cond_train_batch(model, cfg, b, seed, device):
+    """A seeded batch for the conditional configs' step: b images in [-1, 1]
+    under the first-stage key and, under the cond-stage key, class ids
+    below 1000 or the token ids of b prompts from the host tokenizer."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    batch = {model.first_stage_key: torch.rand(b, cfg["res"], cfg["res"], 3, generator=g) * 2 - 1}
+    if model.cond_stage_key == "class_label":
+        batch["class_label"] = torch.randint(0, 1000, (b,), generator=g)
+    else:
+        words = TXT2IMG_PROMPT.split()
+        prompts = [" ".join(words[i % len(words):] + words[:i % len(words)]) for i in range(b)]
+        batch[model.cond_stage_key] = model.cond_stage_model.tokenize(prompts)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def phase_train_cond(cfg_module, name):
+    """(f) A conditional config's train step (TRAIN_COND[name]) at full
+    width in bfloat16: the cond stage (ClassEmbedder or the 32-layer BERT)
+    trains with the UNet, the first stage is frozen. One warm-up step and
+    three timed ones (img/s of the median, peak GiB), launches per step
+    against the module tree, gradient completeness after the first step,
+    one profiled step (device busy, idle share); then (e) and (d) on this
+    config. Returns (the first timed step's launch details, numbers)."""
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch import kernels
+    from ealdm_torch.models.ddpm import LatentDiffusion
+    from ealdm_torch.training import init_train_state, make_train_step
+
+    cfg_key, tc_key, seed, listed = TRAIN_COND[name]
+    cfg, tc = getattr(cfg_module, cfg_key), getattr(cfg_module, tc_key)
+    kw = cfg_module.model_kwargs(cfg)
+    label, n = f"train-{name}", tc["batch_size"]
+    zshape = (cfg["zres"], cfg["zres"], cfg["zch"])
+    ealdm_torch.enable_inference_optimizations()
+    t0 = time.perf_counter()
+    model = LatentDiffusion(**kw, dtype=getattr(torch, tc["dtype"]), device="cuda")
+    random_init_(model, seed=seed)
+    state, opt = init_train_state(model, learning_rate=tc["learning_rate"],
+                                  use_ema=tc["use_ema"])
+    step = make_train_step(model, opt, remat=tc["remat"])
+    trainable = {k for k in state.opt_state.mu}
+    n_cond = sum(p.numel() for k, p in state.params.items()
+                 if k in trainable and k.startswith("cond_stage_model"))
+    log(f"[{label}] {cfg_key} {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"parameters, {sum(state.params[k].numel() for k in trainable) / 1e6:.1f} M trainable "
+        f"(cond stage {n_cond / 1e6:.1f} M); batch {n}, {tc['dtype']} compute, remat "
+        f"{tc['remat']!r}, lr {tc['learning_rate']}, EMA {tc['use_ema']}; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = cond_train_batch(model, cfg, n, seed + 1, "cuda")
+    want, want_totals = expected_train_launches(model, n, cfg, tc["remat"])
+    before = {k: p.detach().clone() for k, p in state.params.items()
+              if k.startswith(("first_stage_model", "cond_stage_model"))}
+
+    def run_step(i):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, m = step(state, batch, torch.Generator().manual_seed(seed + 10 + i))
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, loss, dict(kernels.launch_details)
+
+    warm_s, loss0, details0 = run_step(0)
+    # every trainable tensor has a finite gradient, no frozen one has any
+    bad = [k for k, p in state.params.items() if (k in trainable) != (p.grad is not None)
+           or (p.grad is not None and not bool(torch.isfinite(p.grad).all()))]
+    moved = {k: not torch.equal(state.params[k], p) for k, p in before.items()}
+    frozen_moved = [k for k, v in moved.items() if v and k.startswith("first_stage_model")]
+    cond_still = [k for k, v in moved.items() if not v and k.startswith("cond_stage_model")]
+    log(f"[{label}] after the first step: {len(trainable)} trainable tensors; missing, "
+        f"non-finite or unexpected grads {bad[:4]}; cond-stage tensors that did not "
+        f"move {cond_still[:4]} of {sum(k.startswith('cond') for k in moved)}; first-stage "
+        f"tensors moved {frozen_moved[:4]}")
+    if bad or frozen_moved or cond_still or not n_cond:
+        raise RuntimeError(f"{label}: gradient completeness failed after the first step")
+    del before
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = [run_step(1 + i) for i in range(3)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walls = [r[0] for r in steps]
+    dt = sorted(walls)[1]
+    totals = {}
+    for (counter, _), c in steps[0][2].items():
+        totals[counter] = totals.get(counter, 0) + c
+    log(f"[{label}] warm-up step {warm_s:.2f} s (loss {loss0:.6f}); timed steps "
+        f"{[round(w, 4) for w in walls]} s: median {dt * 1e3:.1f} ms = {n / dt:.3f} img/s; "
+        f"peak {peak:.2f} GiB; losses {[round(r[1], 6) for r in steps]}")
+    log(f"[{label}] launches per step {totals} (module tree: {want_totals})")
+    for i, r in enumerate([(warm_s, loss0, details0), *steps]):
+        if r[2] != want:
+            check_launches(f"{label} step {i}", want, r[2])
+        if not math.isfinite(r[1]):
+            raise RuntimeError(f"{label} step {i}: non-finite loss")
+    busy, groups, n_kernels, prof_wall = profile_train_step(f"{label}-profile", step, state,
+                                                            batch, seed + 20, dt, top=8)
+    out = dict(batch=n, dtype=tc["dtype"], remat=tc["remat"], step_ms=dt * 1e3, walls_s=walls,
+               img_per_s=n / dt, warmup_s=warm_s, peak_gib=peak,
+               losses=[loss0] + [r[1] for r in steps], launches_per_step=totals,
+               trainable_m=sum(state.params[k].numel() for k in trainable) / 1e6,
+               cond_stage_trainable_m=n_cond / 1e6, device_busy_ms=busy * 1e3,
+               idle_share=1 - busy / dt, kernel_launches=n_kernels,
+               profiled_wall_ms=prof_wall * 1e3,
+               device_ms_by_group={k: v * 1e3 for k, v in groups.items()})
+    del state, opt, step
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    out["bf16_check"] = phase_train_bf16_check(
+        f"{label}-bf16", kw, tc["remat"], model, cond_train_batch(model, cfg, n, seed + 2, "cuda"),
+        zshape, seed=seed + 3)
+    out["reference"] = phase_train_reference(
+        f"{label}-reference", kw, tc["remat"], model,
+        cond_train_batch(model, cfg, 1, seed + 4, "cpu"), zshape, listed, seed=seed + 5)
+    del model
+    torch.cuda.empty_cache()
+    return steps[0][2], out
 
 
 def phases_train(cfg_module):
     """Phase 6, training: (a) gradient checks, (b) + (c) the flagship train
     step, (e) its bf16 numbers against the plain versions', (d) float32
-    card vs CPU. Returns the [train] line's dict."""
+    card vs CPU; (f) the cin256-v2 and txt2img steps with their (e) and
+    (d). Returns ({path: launches of one step}, the [train] line's dict)."""
     import torch
 
+    cfg, tc = cfg_module.FLAGSHIP, cfg_module.FLAGSHIP_TRAIN
+    kw = cfg_module.model_kwargs(cfg)
+    zshape = (cfg["zres"], cfg["zres"], 4)
     grads = phase_train_grads()
     model, out = phase_train(cfg_module)
     out["grad_check_worst"] = grads
-    out["bf16_check"] = phase_train_bf16_check(cfg_module, model)
-    out["reference"] = phase_train_reference(cfg_module, model)
+    out["bf16_check"] = phase_train_bf16_check(
+        "train-bf16", kw, tc["remat"], model,
+        train_batch(tc["batch_size"], cfg["res"], seed=41, device="cuda"), zshape, seed=42)
+    out["reference"] = phase_train_reference(
+        "train-reference", kw, tc["remat"], model, train_batch(1, cfg["res"], seed=31,
+                                                                device="cpu"),
+        zshape, FLAGSHIP_LISTED, seed=32)
     del model
     torch.cuda.empty_cache()
-    return out
+    details = {}
+    for name in ("cin256", "txt2img"):
+        details[f"train_{name}"], out[name] = phase_train_cond(cfg_module, name)
+    return details, out
 
 
 def main(argv):
@@ -3131,10 +3485,15 @@ def main(argv):
         path_details, paths = phases_paths(cfg_module)
         launches_by_path.update(path_details)
         paths["flash_grad_worst"] = head_dim_grads
+    train = None
+    if not {"--kernels", "--groupnorm", "--paths"} & set(argv):
+        train_details, train = phases_train(cfg_module)
+        launches_by_path.update(train_details)
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
-        # shape's row); a row the flagship does not reach reads the first
-        # path that launches it (phases 7-15 in order), else 0
+        # shape's row; a train path's: one step); a row the flagship does
+        # not reach reads the first path that launches it (phases 7-16,
+        # then 6 (f), in order), else 0
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {
             path: (d.get(counter, 0) if isinstance(counter, tuple)
@@ -3142,9 +3501,6 @@ def main(argv):
             for path, d in launches_by_path.items()}
         if row["launches"] is None and launches_by_path:
             row["launches"] = next((c for c in row["launches_by_path"].values() if c), 0)
-    train = None
-    if not {"--kernels", "--groupnorm", "--paths"} & set(argv):
-        train = phases_train(cfg_module)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if paths is not None:
         log(f"[paths] {json.dumps(paths)}")

@@ -26,6 +26,13 @@ Two entries of the model zoo (`zoo.py`, the published `models/ldm/*`):
   INPAINT_BIG `ldm/inpainting_big`: concat conditioning on the VQ-f4
               (attention-free) encoding of the masked image and the mask
               (7 input channels), ResBlock resampling (64^2 x 3 latents).
+Super-resolution (the zoo entry the notebook's superresolution mode runs):
+  BSR_SR   `ldm/bsr_sr`: the LR image through an Identity cond stage, joined
+           to the latent's channels (6 input channels), a UNet of 160
+           channels with 32-wide heads at ds 8, VQ-f4 with its d = 512 mid
+           attention; the image side is the input's (64^2 LR -> 256^2).
+Training steps of the conditional configs, as FLAGSHIP_TRAIN:
+  CIN256_TRAIN, TXT2IMG_TRAIN  their YAML's base_learning_rate and use_ema.
 Retrieval-augmented diffusion:
   RDM768   `configs/retrieval-augmented-diffusion/768x768.yaml`: a UNet of
            448 channels with 32-wide heads cross-attending to a [query;
@@ -251,11 +258,23 @@ CIN256 = dict(
 )
 
 
+# the conditional configs' train steps (cin256-v2.yaml, txt2img-1p4B-eval.yaml:
+# base_learning_rate, use_ema false), with FLAGSHIP_TRAIN's bfloat16 compute
+# and remat; the batch a card holds with room to spare
+CIN256_TRAIN = dict(batch_size=8, dtype="bfloat16", learning_rate=1e-4, use_ema=False,
+                    remat="dots")
+TXT2IMG_TRAIN = dict(batch_size=8, dtype="bfloat16", learning_rate=5e-5, use_ema=False,
+                     remat="dots")
+
+
 # 256^2 images through the zoo's own keyword arguments
 CHURCHES = dict(res=256, zres=32, zch=4, zoo="ldm/lsun_churches256",
                 model=zoo.model_kwargs("ldm/lsun_churches256"))
 INPAINT_BIG = dict(res=256, zres=64, zch=3, zoo="ldm/inpainting_big",
                    model=zoo.model_kwargs("ldm/inpainting_big"))
+# 64^2 LR -> 256^2 images, 64^2 x 3 latents (the notebook's example); the
+# model takes any side a multiple of 8 latents
+BSR_SR = dict(res=256, zres=64, zch=3, zoo="ldm/bsr_sr", model=zoo.model_kwargs("ldm/bsr_sr"))
 
 
 # 768^2 images, 48^2 x 16 latents (768x768.yaml model.params, as TXT2IMG)

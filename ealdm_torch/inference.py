@@ -59,11 +59,12 @@ def hoist_invariants(model: LatentDiffusion, ddim: DDIMSchedule, cond=None,
     Returns (eps_fn, cond', uncond', extra_tables) for `ddim_sample`.
     want_emb_tables=False (PLMS, which evaluates off the per-step grid)
     skips the tables; extra_tables is then None. Where hoisting does not
-    apply (a conditioning_key other than None and crossattn, or a
-    class-conditional UNet) it returns the plain eps_fn with cond and
-    uncond unchanged and no tables."""
+    apply (a conditioning_key other than None and crossattn, split-input
+    patching, or a class-conditional UNet) it returns the plain eps_fn with
+    cond and uncond unchanged and no tables."""
     unet = model.model.diffusion_model
-    if model.conditioning_key not in (None, "crossattn") or unet.num_classes is not None:
+    if (model.conditioning_key not in (None, "crossattn")
+            or model.split_input_params is not None or unet.num_classes is not None):
         return make_eps_fn(model), cond, uncond, None
     emb_tables = precompute_emb_tables(unet, ddim.timesteps) if want_emb_tables else None
     kv = model.conditioning_key == "crossattn" and unet.use_spatial_transformer

@@ -6,14 +6,17 @@ of `encoders.py`, or the `__is_unconditional__` / `__is_first_stage__`
 sentinels), DiffusionWrapper with every conditioning key (None, concat,
 crossattn, hybrid, adm), the learned conditioning of any cond_stage_key and
 the STDiff CFG pair, apply_model with the hoisted step invariants, the
-first-stage encode and decode, and the training objective:
-q_sample and the posterior algebra, the eps or x0 loss with training-time
-CFG (one 2N-batched UNet call, [c_neg, c_pos] order), the logvar table, the
-VLB weighting and the shortened conditioning schedule. `DDPM` is the
-pixel-space model: identity first stage, no conditioning.
+first-stage encode and decode, split-input patching of all three
+(`split_input_params`, `ops/patching.py`), and the training objective under
+any cond_stage_key: q_sample and the posterior algebra, the eps or x0 loss
+with training-time CFG for `mixed` (one 2N-batched UNet call, [c_neg,
+c_pos] order), the logvar table, the VLB weighting and the shortened
+conditioning schedule. `DDPM` is the pixel-space model: identity first
+stage, no conditioning.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Dict, Optional
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.patching import clamp_patch_params, patched_apply, unfold2d
 from ..ops.schedules import DiffusionSchedule, extract
 from ..utils.device import resolve_device
 from .distributions import normal_kl
@@ -129,7 +133,9 @@ class LatentDiffusion(nn.Module):
     unless the caller asks for another; "meta" builds shapes only). The
     first stage never trains: its parameters are built with
     requires_grad=False, as the reference freezes it, and the cond stage
-    too when `cond_stage_trainable` is false."""
+    too when `cond_stage_trainable` is false. `split_input_params` (keys as
+    `ops.patching.DEFAULT_SPLIT_PARAMS`) runs the denoiser, and with
+    `patch_distributed_vq` the first stage, over an overlapping crop grid."""
 
     def __init__(self, unet_config, first_stage_config=None,
                  cond_stage_config="__is_unconditional__", timesteps: int = 1000,
@@ -142,6 +148,7 @@ class LatentDiffusion(nn.Module):
                  scale_factor: float = 1.0, unconditional_guidance_scale: float = 2.0,
                  learn_logvar: bool = False, logvar_init: float = 0.0,
                  l_simple_weight: float = 1.0, original_elbo_weight: float = 0.0,
+                 split_input_params: Optional[Dict[str, Any]] = None,
                  dtype=torch.float32, device=None):
         super().__init__()
         if parameterization not in ("eps", "x0"):
@@ -162,6 +169,7 @@ class LatentDiffusion(nn.Module):
         self.unconditional_guidance_scale = unconditional_guidance_scale
         self.l_simple_weight = l_simple_weight
         self.original_elbo_weight = original_elbo_weight
+        self.split_input_params = split_input_params
         self.unet_config = dict(unet_config)
         self.dtype = dtype
         feat_hw = None
@@ -199,31 +207,63 @@ class LatentDiffusion(nn.Module):
         self.cond_ids = cond_ids.to(dev)
         self.shorten_cond_schedule = num_timesteps_cond > 1
 
+    def clone(self, *, split_input_params):
+        """This model with other `split_input_params` (flax's `clone`): a
+        shallow copy that shares every parameter, buffer and submodule."""
+        m = copy.copy(self)
+        m.split_input_params = split_input_params
+        return m
+
     # ------------------------------------------------------------- first stage
+    def _patching(self) -> Optional[Dict[str, Any]]:
+        """The split_input_params that patch the first stage, or None."""
+        p = self.split_input_params
+        if p is not None and p.get("patch_distributed_vq"):
+            return p
+        return None
+
     def encode_first_stage(self, x, generator=None, sample_posterior: bool = True,
                            noise=None):
         """Image [N, H, W, 3] -> latent, without gradient: VQ's un-quantized
-        latent, a KL posterior's sample (from `generator`, or `noise` when
-        given) or mode, or the image itself (identity)."""
-        fs = self.first_stage_model
+        latent, a KL posterior's sample (from `generator`, or `noise` of the
+        raw encode's shape when given) or mode, or the image itself
+        (identity). With patching, the crops of the image are encoded as one
+        batch (`noise`: [N*L, ...]) and stitched."""
+        p = self._patching()
         with torch.no_grad():
-            if isinstance(fs, VQModel):
-                return fs.encode_prequant(x)
-            if isinstance(fs, AutoencoderKL):
-                posterior = fs.encode(x)
-                return posterior.sample(generator, noise) if sample_posterior else posterior.mode()
-            return fs.encode(x)
+            if p is not None and x.dim() == 4:
+                return patched_apply(
+                    lambda crops: self._encode_raw(crops, generator, sample_posterior, noise),
+                    x, p, df=int(p.get("vqf", 1)))
+            return self._encode_raw(x, generator, sample_posterior, noise)
+
+    def _encode_raw(self, x, generator=None, sample_posterior: bool = True, noise=None):
+        fs = self.first_stage_model
+        if isinstance(fs, VQModel):
+            return fs.encode_prequant(x)
+        if isinstance(fs, AutoencoderKL):
+            posterior = fs.encode(x)
+            return posterior.sample(generator, noise) if sample_posterior else posterior.mode()
+        return fs.encode(x)
 
     def get_first_stage_encoding(self, z):
         return self.scale_factor * z
 
-    def decode_first_stage(self, z):
+    def decode_first_stage(self, z, force_not_quantize: bool = False):
         """Latent [N, h, w, c] -> image [N, H, W, 3]; a VQ latent is
-        quantized first."""
+        quantized first unless `force_not_quantize`. With patching, the
+        latent's crops are decoded as one batch and stitched."""
         z = (1.0 / self.scale_factor) * z
+        p = self._patching()
+        if p is not None and z.dim() == 4:
+            return patched_apply(lambda crops: self._decode_raw(crops, force_not_quantize),
+                                 z, p, uf=int(p.get("vqf", 1)))
+        return self._decode_raw(z, force_not_quantize)
+
+    def _decode_raw(self, z, force_not_quantize: bool = False):
         fs = self.first_stage_model
         if isinstance(fs, VQModel):
-            return fs.decode_interface(z)
+            return fs.decode_interface(z, force_not_quantize)
         return fs.decode(z)
 
     def quantize_latent(self, z):
@@ -240,8 +280,8 @@ class LatentDiffusion(nn.Module):
 
     def _check_mixed(self):
         if self.cond_stage_key != "mixed":
-            raise NotImplementedError("the CFG pair and training take only the 'mixed' "
-                                      "STDiff conditioning")
+            raise NotImplementedError("the CFG pair takes only the 'mixed' STDiff "
+                                      "conditioning")
 
     def get_learned_conditioning(self, cond, fuse_env: bool = True, generator=None,
                                  features=None):
@@ -280,12 +320,55 @@ class LatentDiffusion(nn.Module):
     # ------------------------------------------------------------- denoiser
     def apply_model(self, x_noisy, t, cond_context, context_kv=None, emb_tables=None):
         """The denoiser on already-encoded conditioning; context_kv /
-        emb_tables are the hoisted step invariants (inference.hoist_invariants)."""
+        emb_tables are the hoisted step invariants (inference.hoist_invariants),
+        which the split-input path refuses."""
+        if self.split_input_params is not None and x_noisy.dim() == 4:
+            if context_kv is not None or emb_tables is not None:
+                raise ValueError("hoisted invariants are not supported on the split-input "
+                                 "patched path")
+            return self._apply_model_patched(x_noisy, t, cond_context)
+        return self._apply_model_dense(x_noisy, t, cond_context, context_kv, emb_tables)
+
+    def _apply_model_dense(self, x_noisy, t, cond_context, context_kv=None, emb_tables=None):
         hoist = dict(context_kv=context_kv, emb_tables=emb_tables)
         if self.conditioning_key is None or cond_context is None:
             return self.model(x_noisy, t, **hoist)
         cc, ca = self._split_context(cond_context)
         return self.model(x_noisy, t, c_concat=cc, c_crossattn=ca, **hoist)
+
+    def _apply_model_patched(self, x_noisy, t, cond_context):
+        """The denoiser over an overlapping crop grid of x_noisy, all L
+        crops of the B samples as one [B*L, ...] UNet call, stitched. Concat
+        maps are cut on the same grid; cross-attention and class context
+        is repeated for each crop of its sample."""
+        p = dict(self.split_input_params)
+        p["ks"], p["stride"] = clamp_patch_params(tuple(x_noisy.shape[1:3]), tuple(p["ks"]),
+                                                  tuple(p["stride"]))
+        b = x_noisy.shape[0]
+        cc = ca = cc_flat = None
+        if cond_context is not None:
+            cc, ca = self._split_context(cond_context)
+        if cc is not None:
+            for m in cc:
+                if (m.dim() != 4 or tuple(m.shape[:3]) != tuple(x_noisy.shape[:3])
+                        or m.device != x_noisy.device):
+                    raise ValueError("concat conditioning must be a [B, H, W, C] map on the "
+                                     f"input's grid and device, got {tuple(m.shape)} on "
+                                     f"{m.device} for {tuple(x_noisy.shape)} on "
+                                     f"{x_noisy.device}")
+            cc_flat = [unfold2d(m, p["ks"], p["stride"]).reshape(-1, *p["ks"], m.shape[-1])
+                       for m in cc]
+
+        def fn(crops):
+            length = crops.shape[0] // b
+            ctx = None
+            if cond_context is not None:
+                ctx = {"c_concat": cc_flat,
+                       "c_crossattn": None if ca is None
+                       else [a.repeat_interleave(length, dim=0) for a in ca]}
+            return self._apply_model_dense(crops, t.repeat_interleave(length), ctx)
+
+        return patched_apply(fn, x_noisy, p)
 
     def _split_context(self, cond_context):
         """(c_concat, c_crossattn) lists of a context: "hybrid" takes a dict
@@ -382,31 +465,47 @@ class LatentDiffusion(nn.Module):
         return (self.conditioning_key is not None and self.cond_stage_key == "mixed"
                 and self.unconditional_guidance_scale != 1.0)
 
-    def encode_inputs(self, batch: Dict[str, Any], generator=None) -> Dict[str, Any]:
-        """The frozen first-stage work of a training batch, without
-        gradient: "z", the scaled latent of the target frames (a KL
-        posterior sampled from `generator`), and "features", the encoder
-        features of the conditioning images (the 2N [img, img_random] pair
-        under training-time CFG) or None."""
+    def _cond_trains(self) -> bool:
+        return self.cond_stage_model is not None and any(
+            p.requires_grad for p in self.cond_stage_model.parameters())
+
+    def encode_inputs(self, batch: Dict[str, Any], generator=None,
+                      noise=None) -> Dict[str, Any]:
+        """The frozen work of a training batch, without gradient: "z", the
+        scaled latent of the target frames (`batch["img"]`, else
+        `batch[first_stage_key]`; a KL posterior sampled from `generator`,
+        or `noise` when given);
+        "features", the encoder features of the `mixed` conditioning images
+        (the 2N [img, img_random] pair under training-time CFG) or None;
+        "cond", the context of `batch[cond_stage_key]` when the cond stage
+        does not train (a sentinel, Identity or a frozen module), else
+        None."""
         x = batch.get("img", batch.get(self.first_stage_key))
-        z = self.get_first_stage_encoding(self.encode_first_stage(x, generator))
-        features = None
+        z = self.get_first_stage_encoding(self.encode_first_stage(x, generator, noise=noise))
+        features = cond = None
         if self.conditioning_key is not None and self.cond_stage_key == "mixed":
             mixed = batch["mixed"]
             imgs = (torch.cat([mixed["img"], mixed["img_random"]], dim=0)
                     if self._cfg_pair() else mixed["img"])
             features = self._mixed_image_features(imgs)
-        return {"z": z, "features": features}
+        elif self.conditioning_key is not None and not self._cond_trains():
+            with torch.no_grad():
+                cond = self.get_learned_conditioning(batch[self.cond_stage_key])
+        return {"z": z, "features": features, "cond": cond}
 
     def training_loss(self, batch: Dict[str, Any], generator: Optional[torch.Generator],
-                      *, t=None, noise=None, train: bool = True, encoded=None):
-        """The EALDM training objective of one batch: (loss, metrics).
+                      *, t=None, noise=None, cond_noise=None, train: bool = True,
+                      encoded=None):
+        """The training objective of one batch: (loss, metrics).
 
-        batch: {"img": [N, H, W, 3] target frames, "mixed": {...}} for the
-        conditional model. t and noise are drawn from `generator` unless
-        given; with `train` (and the module in train() mode) the cond tower's
-        dropout draws from it too. encoded: `encode_inputs(batch)`, if the
-        caller already ran it."""
+        batch: the target frames under "img" (or `first_stage_key`) and the
+        conditioning under `cond_stage_key`: {"img", "img_random", "flow",
+        "weather", "time"} for `mixed`, class ids, token ids, an LR image, a
+        masked image, ... on the model's device. t, noise and, under the
+        shortened conditioning schedule, cond_noise are drawn from
+        `generator` unless given; with `train` (and the module in train()
+        mode) the STDiff tower's dropout draws from it too. encoded:
+        `encode_inputs(batch)`, if the caller already ran it."""
         enc = self.encode_inputs(batch, generator) if encoded is None else encoded
         z = enc["z"]
         if t is None:
@@ -416,8 +515,7 @@ class LatentDiffusion(nn.Module):
             noise = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
         drop = generator if train else None
         cond_context = None
-        if self.conditioning_key is not None:
-            self._check_mixed()
+        if self.conditioning_key is not None and self.cond_stage_key == "mixed":
             mixed = batch["mixed"]
             if self._cfg_pair():
                 c_neg, c_pos = self.get_learned_conditioning_pair(
@@ -426,15 +524,20 @@ class LatentDiffusion(nn.Module):
             else:
                 cond_context = self.get_learned_conditioning(
                     mixed, fuse_env=True, generator=drop, features=enc["features"])
+        elif self.conditioning_key is not None:
+            cond_context = enc.get("cond")
+            if cond_context is None:
+                cond_context = self.get_learned_conditioning(batch[self.cond_stage_key])
         if (self.shorten_cond_schedule and cond_context is not None
                 and cond_context.is_floating_point()):
             # noise the conditioning at the shortened schedule's timestep
             tc = self.cond_ids[t]
-            c_noise = torch.randn(cond_context.shape, generator=generator,
-                                  device=cond_context.device)
+            if cond_noise is None:
+                cond_noise = torch.randn(cond_context.shape, generator=generator,
+                                         device=cond_context.device)
             if cond_context.shape[0] == 2 * t.shape[0]:
                 tc = torch.cat([tc, tc])
-            cond_context = self.q_sample(cond_context, tc, c_noise)
+            cond_context = self.q_sample(cond_context, tc, cond_noise)
         return self.p_losses(z, cond_context, t, noise)
 
 

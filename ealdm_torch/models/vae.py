@@ -244,9 +244,10 @@ class VQModel(nn.Module):
     def decode(self, quant):
         return self.decoder(_nhwc(self.post_quant_conv(_nchw(quant))))
 
-    def decode_interface(self, h):
-        """`VQModelInterface.decode`: quantize the latent, then decode."""
-        return self.decode(self.quantize(h)[0])
+    def decode_interface(self, h, force_not_quantize: bool = False):
+        """`VQModelInterface.decode`: quantize the latent (unless
+        `force_not_quantize`), then decode."""
+        return self.decode(h if force_not_quantize else self.quantize(h)[0])
 
 
 class AutoencoderKL(nn.Module):

@@ -5,9 +5,10 @@
   the fields of the module JAX's `zoo.build` makes;
 - every `ealdm_tpu.zoo.names()` entry builds in the port on torch's "meta"
   device;
-- for the four entries this slice opened (`ldm/lsun_churches256`,
+- for the entries the port's chip paths run (`ldm/lsun_churches256`,
   `ldm/inpainting_big`, `ldm/semantic_synthesis256`,
-  `first_stage_models/vq-f4-noattn`) the port's parameters have exactly the
+  `first_stage_models/vq-f4-noattn`, `ldm/bsr_sr`) the port's parameters
+  have exactly the
   names and shapes of `flax_to_state_dict` of `jax.eval_shape` of the JAX
   init. (`jax.eval_shape` of one full-width zoo init takes 2-4 s here, so
   the other entries build without the comparison.)
@@ -70,14 +71,16 @@ def _jax_shapes(name):
     x = jax.ShapeDtypeStruct((1, side, side, spec["unet"]["out_channels"]), jnp.float32)
     t = jax.ShapeDtypeStruct((1,), jnp.int32)
     cond = {"segmentation": jax.ShapeDtypeStruct((1, 256, 256, 182), jnp.float32),
-            "masked_image": img}.get(spec.get("cond_stage_key"))
+            "masked_image": img,
+            "LR_image": jax.ShapeDtypeStruct((1, side, side, 3), jnp.float32),
+            }.get(spec.get("cond_stage_key"))
     return jax.eval_shape(lambda r, *a: jm.init(r, *a, method=_touch_ldm), key, img, x, t,
                           cond)
 
 
 @pytest.mark.parametrize("name", ["ldm/lsun_churches256", "ldm/inpainting_big",
                                   "ldm/semantic_synthesis256",
-                                  "first_stage_models/vq-f4-noattn"])
+                                  "first_stage_models/vq-f4-noattn", "ldm/bsr_sr"])
 def test_opened_entries_match_the_jax_tree(name):
     # zero-stride views stand in for the arrays: the bridge only transposes them
     tree = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.float32(0), s.shape),
