@@ -6,6 +6,7 @@
     python3 chip_smoke.py --groupnorm  # the build and phase 2's GroupNorm part only
     python3 chip_smoke.py --train      # the build and phase 6 (training) only
     python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-16 only
+    python3 chip_smoke.py --ae         # the build and phase 17 (first-stage training) only
     python3 chip_smoke.py --host       # the build and the flash wrapper's host cost
 
 Phases, each of which raises (non-zero exit) on failure:
@@ -136,18 +137,38 @@ Phases, each of which raises (non-zero exit) on failure:
      runs, a profile, `hold_sites`; float32 card vs CPU at batch 1, 2 steps
      on (a) with the grid cut to 32^2 crops, stride 16 (multi-crop encode,
      UNet and decode).
+  17. first-stage VAE-GAN training (`training/vae_trainer.py`), float32 at
+     full width, for `config.VQ_F8_AE_TRAIN` (the zoo's vq-f8, disc_start 1)
+     and `config.KL_F8_AE_TRAIN` (autoencoder_kl_32x32x4.yaml, disc_start
+     50,001): the kernels at the step's shapes (flash [12,1,1024,512], the
+     autoencoder's and the discriminator's GroupNorms, 63^2 and 31^2 among
+     them) held and timed; then for each (a) one step at batch 1 on the card
+     against the CPU (loss 1e-4, every trained gradient 1e-3, d_weight and
+     the logs), (b) the discriminator's warm-up (bit-frozen before
+     disc_start, moving from it; LPIPS and logvar never move), (c) a
+     warm-up and five timed steps at batch 12, 256^2 (step ms, img/s, peak
+     GiB), launches per step against the module tree, a profile with the
+     plain backwards' ranges, (d) one step with every kernel launch held
+     against its plain version, (e) main.py's loop (MetricLogger's JSONL and
+     TensorBoard events, an eval step, a checkpoint save and a bit-equal
+     restore, the reconstruction grid through the zlib PNG writer, the
+     YAML config; no PyYAML or PIL imported); and the two convergence
+     oracles of tests/test_convergence.py on the port at micro size.
   Each of phases 7-16 also holds every kernel launch of one bfloat16 pass
   (7, 14, 16: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet
   call and a decode; 9: one UNet call; 10: one round trip) against its
   plain version on the same inputs, at the shapes and strides the path
   gives it (`hold_sites`); 11-16 also report img/s (median of three runs),
   peak GiB and the device's busy time and idle share from one profile.
-  Phases 7-16 run after phase 5 and before phase 6.
+  Phases 7-16 run after phase 5 and before phase 6; phase 17 runs last.
 
-The last lines of output are a `[paths]` JSON line with phases 7-16's
-numbers, a `[train]` JSON line with phase 6's numbers,
-the card's name and power limit, a JSON line with every kernel's numbers
-(not with --train), and {"ok": true, "device": {...}}.
+The last lines of output are a `[phase-seconds]` line (the wall seconds
+of each phase or group of phases), `[done]`, a `[paths]` JSON line with
+phases 7-16's numbers, a `[train]` JSON line with phase 6's numbers, an
+`[ae_train_vq_f8]`, `[ae_train_kl_f8]`, `[convergence]` and
+`[ae_train_seconds]` line with phase 17's, the card's name and power
+limit, a JSON line with every kernel's numbers (not with --train), and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1010,9 +1031,11 @@ def float32_heads(res, errs, randn):
     `probe_flash.F32_SHAPES`, held to 1e-4 against the plain version and
     timed in device time beside the plain version and the library call,
     with the bound of three TF32 terms a product at 495 TFLOP/s. A row
-    each, with 0 launches: the paths run bfloat16 (the float32 card-vs-CPU
-    passes are checks, not paths). Then bfloat16 at [2, 2, 1024, 1928], past
-    the deep wgmma kernel's 1,920, on the same kernel (S in one term,
+    each, under the float32 counter at its rows (of the paths, only
+    first-stage training runs float32 flash: d = 512 at 1,024 rows; the
+    float32 card-vs-CPU passes are checks, not paths). Then bfloat16 at
+    [2, 2, 1024, 1928], past the deep wgmma kernel's 1,920, on the same
+    kernel (S in one term,
     bfloat16 being exact in TF32, P V in two), held to both bf16 limits and
     bound by the bfloat16 function's operations at 989 TFLOP/s, as every
     other bfloat16 row is."""
@@ -1020,7 +1043,7 @@ def float32_heads(res, errs, randn):
     import torch.nn.functional as F
 
     from ealdm_torch.kernels.probe_flash import BF16_DEEP_SHAPE, F32_SHAPES
-    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain
+    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
 
     for shape, dtype in [*((s, torch.float32) for s in F32_SHAPES),
                          (BF16_DEEP_SHAPE, torch.bfloat16)]:
@@ -1047,8 +1070,7 @@ def float32_heads(res, errs, randn):
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(*qkv)),
             event_ms=cuda_ms(lambda: flash_attention(*qkv)), kernel=seen, shape=list(shape),
             layout="contiguous [B,H,N,D]", dtype=str(dtype).removeprefix("torch."),
-            # the counters do not tell the dtypes apart; no path runs these
-            counter=(f"{row} (on no path)", n))
+            counter=(flash_counter(d, dtype=dtype), n))
         log(f"[route] {str(dtype)[6:]} {list(shape)}: {seen} {ms:.4f} ms, plain "
             f"{res[row]['plain_ms']:.4f} ms, library {res[row]['library_ms']:.4f} ms, "
             f"bound {bms:.4f} ms ({by}), max_abs_err {errs[row]:.3g}")
@@ -1479,13 +1501,15 @@ def phase_reference(cfg_module, bf16_model):
 
 
 # ------------------------------------------------------------------ phases 7-10
-def flash_sites(module, side, runs, census):
-    """Add to `census` the flash launches of `runs` forwards of `module` on
-    a [N, C, side, side] input: every eligible self-attention site
+def flash_sites(module, side, runs, census, dtype="bfloat16"):
+    """Add to `census` the flash launches of `runs` forwards of `module` in
+    `dtype` on a [N, C, side, side] input: every eligible self-attention site
     (AttentionBlock, SpatialTransformer per depth, VaeAttnBlock) under its
     head dim's counter and the tokens of the side it runs at
     (`child_sides`; not the module's build-time `tokens`: a VAE decodes
     latents larger than its config's resolution)."""
+    import torch
+
     from ealdm_torch.models.layers import AttentionBlock, SpatialTransformer, flash_eligible
     from ealdm_torch.models.vae import VaeAttnBlock
     from ealdm_torch.ops.attention import flash_counter
@@ -1501,11 +1525,11 @@ def flash_sites(module, side, runs, census):
             else:
                 continue
             if flash_eligible(s * s, s * s):
-                census[(flash_counter(d), s * s)] += k * runs
+                census[(flash_counter(d, dtype=getattr(torch, dtype)), s * s)] += k * runs
 
 
-def path_census(passes):
-    """{(counter, detail): launches} of a bfloat16 run whose forwards are
+def path_census(passes, dtype="bfloat16"):
+    """{(counter, detail): launches} of a run in `dtype` whose forwards are
     `passes` = [(module, batch, input side, runs)], from the module tree:
     each GroupNorm32 once a forward on the path `group_norm_path` gives its
     channels_last shape, each eligible attention site once."""
@@ -1519,9 +1543,9 @@ def path_census(passes):
     for module, n, side, runs in passes:
         for c, s, groups in group_norm_sites(module, side):
             shape = (n, c, s, s)
-            path = group_norm_path(shape, torch.bfloat16, resolve_num_groups(c, groups))
-            census[(path, ("channels_last", shape, "bfloat16"))] += runs
-        flash_sites(module, side, runs, census)
+            path = group_norm_path(shape, getattr(torch, dtype), resolve_num_groups(c, groups))
+            census[(path, ("channels_last", shape, dtype))] += runs
+        flash_sites(module, side, runs, census, dtype)
     return dict(census)
 
 
@@ -1546,13 +1570,16 @@ def check_launches(label, want, got=None):
     return got
 
 
-def hold_sites(label, fn):
-    """Run fn under no_grad with every GroupNorm and flash kernel launch held
-    against its plain version on the same inputs (the shapes, strides and
-    layouts the path gives it): bfloat16 flash by both limits of
-    `bf16_attention_shares`, the rest by `tolerance`. Logs each site's worst
-    share and raises if any exceeds 1, or if a launch went unheld.
-    Returns {site: worst share}."""
+def hold_sites(label, fn, grad=False):
+    """Run fn (under no_grad unless `grad`: a train step) with every
+    GroupNorm and flash kernel launch held against its plain version on the
+    same inputs (the shapes, strides and layouts the path gives it):
+    bfloat16 flash by both limits of `bf16_attention_shares`, the rest by
+    `tolerance`. Logs each site's worst share and raises if any exceeds 1,
+    or if a launch went unheld (a float32 flash launch's key-split combine
+    is part of it). Returns {site: worst share}."""
+    import contextlib
+
     import torch
 
     from ealdm_torch import kernels
@@ -1582,7 +1609,8 @@ def hold_sites(label, fn):
             share = max(attention.bf16_attention_shares(o, q, k, v, want, scale=scale))
         else:
             share = ((o.float() - want.float()).abs() / tolerance(q.dtype, want)).max().item()
-        note((attention.flash_counter(q.shape[3]), tuple(q.shape), f"strides {q.stride()}"),
+        note((attention.flash_counter(q.shape[3], dtype=q.dtype), tuple(q.shape),
+              f"strides {q.stride()}"),
              share)
         del want
         return o
@@ -1590,12 +1618,12 @@ def hold_sites(label, fn):
     kernels.reset_launch_counts()
     norms.group_norm_kernel, attention.flash_attention_kernel = gn, flash
     try:
-        with torch.no_grad():
+        with contextlib.nullcontext() if grad else torch.no_grad():
             fn()
     finally:
         norms.group_norm_kernel, attention.flash_attention_kernel = kernel_gn, kernel_flash
     torch.cuda.synchronize()
-    launched = sum(kernels.launches.values())
+    launched = sum(n for k, n in kernels.launches.items() if k != attention.COMBINE_COUNTER)
     for key, share in sorted(sites.items(), key=str):
         log(f"  {key[0]:24s} {str(list(key[1])):22s} {key[2]:30s} {share:.3g} of the limit")
     worst = max(sites.values())
@@ -2736,19 +2764,21 @@ def superres_reference(label, bf16_model, arr, seed=132):
 
 
 def phases_paths(cfg_module):
-    """Phases 7-16. Returns ({path: launch details}, the [paths] line)."""
-    details, out = {}, {}
-    details["inpaint"], out["inpaint"] = phase_inpaint(cfg_module)
-    details["uncond"], out["uncond"] = phase_uncond(cfg_module)
-    details["pixel"], out["pixel"] = phase_pixel(cfg_module)
-    details["kl"], out["kl"] = phase_kl(cfg_module)
-    details["txt2img"], out["txt2img"] = phase_txt2img(cfg_module)
-    details["cin256"], out["cin256"] = phase_cin256(cfg_module)
-    details["churches"], out["churches"] = phase_churches(cfg_module)
-    details["inpainting_big"], out["inpainting_big"] = phase_inpainting_big(cfg_module)
-    details["rdm"], out["rdm"] = phase_rdm(cfg_module)
+    """Phases 7-16. Returns ({path: launch details}, the [paths] line, with
+    each phase's wall seconds under "seconds")."""
+    details, out, seconds = {}, {}, {}
+    for name, phase in (("inpaint", phase_inpaint), ("uncond", phase_uncond),
+                        ("pixel", phase_pixel), ("kl", phase_kl), ("txt2img", phase_txt2img),
+                        ("cin256", phase_cin256), ("churches", phase_churches),
+                        ("inpainting_big", phase_inpainting_big), ("rdm", phase_rdm)):
+        t0 = time.perf_counter()
+        details[name], out[name] = phase(cfg_module)
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     sr_details, out["superres"] = phase_superres(cfg_module)
+    seconds["superres"] = time.perf_counter() - t0
     details.update(sr_details)
+    out["seconds"] = seconds
     return details, out
 
 
@@ -2871,8 +2901,27 @@ def expected_train_launches(model, batch, cfg, remat):
     return census, dict(totals)
 
 
+def device_union_s(prof, skip=()):
+    """Seconds in which the device ran anything in the profile: the union
+    of its activities' intervals (kernels, copies, sets), so that two that
+    overlap count once; a range's span on the device track (a user
+    annotation, or a name in `skip`) is not an activity."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name not in skip
+                   and not getattr(e, "is_user_annotation", False))
+    total, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e6
+
+
 def train_profile_groups(prof):
-    """Device seconds of one profiled train step by group. Kernels launched
+    """Device seconds of one profiled train step: busy (`device_union_s`),
+    the kernels' summed, and that sum by group. Kernels launched
     inside the `ealdm::group_norm_vjp`, `ealdm::flash_attention_vjp`,
     `ealdm::adamw` and `ealdm::ema` ranges (the plain backwards, the
     optimizer, the EMA) count there, whatever they are; the others by
@@ -2903,27 +2952,29 @@ def train_profile_groups(prof):
             for k in subtree(e):
                 totals[ranges[e.name]] += k.duration / 1e6
                 in_range[k.name] = in_range.get(k.name, 0.0) + k.duration / 1e6
-    busy, launches, rows = 0.0, 0, []
+    summed, launches, rows = 0.0, 0, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         if e.key in ranges or getattr(e, "is_user_annotation", False):
             continue  # a range's span on the device track, not a kernel
         t = e.self_device_time_total / 1e6
-        busy += t
+        summed += t
         launches += e.count
         rest = t - in_range.get(e.key, 0.0)
         tag = next((g for g, names in by_name.items() if any(n in e.key for n in names)),
                    "other")
         totals[tag] += rest
         rows.append((t, e.count, tag, e.key))
-    return busy, totals, launches, sorted(rows, reverse=True)
+    return device_union_s(prof, ranges), summed, totals, launches, sorted(rows, reverse=True)
 
 
 def profile_train_step(label, step, state, batch, seed, dt, top=20):
     """One train step under torch.profiler: (device busy s, device s by
-    group, kernel launches, profiled wall s), logged with the idle share
-    against `dt`, the median unprofiled step, and the `top` kernels. Raises
+    group, kernel launches, profiled wall s), logged with the idle share of
+    the profiled step (busy, the union of the device's activities, against
+    that step's own wall), `dt` (the median unprofiled step) beside it, and
+    the `top` kernels. Raises
     where the profile shows no device time in the plain backwards or the
     optimizer."""
     import torch
@@ -2935,14 +2986,14 @@ def profile_train_step(label, step, state, batch, seed, dt, top=20):
         step(state, batch, torch.Generator().manual_seed(seed))
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    busy, groups, n_kernels, rows = train_profile_groups(prof)
+    busy, summed, groups, n_kernels, rows = train_profile_groups(prof)
     if busy <= 0:
         raise RuntimeError(f"{label}: the profiler saw no device time in the train step")
-    log(f"[{label}] device busy {busy * 1e3:.1f} ms in {n_kernels} kernel launches; "
-        f"idle share {1 - busy / dt:.3f} of the median unprofiled step ({dt * 1e3:.1f} ms), "
-        f"{1 - busy / prof_wall:.3f} of the profiled one ({prof_wall * 1e3:.1f} ms)")
+    log(f"[{label}] device busy {busy * 1e3:.1f} ms (kernels summed {summed * 1e3:.1f} ms) in "
+        f"{n_kernels} kernel launches; idle share {1 - busy / prof_wall:.4f} of the profiled "
+        f"step ({prof_wall * 1e3:.1f} ms; the median unprofiled one {dt * 1e3:.1f} ms)")
     for tag, t in groups.items():
-        log(f"[{label}] {tag:28s} {t * 1e3:9.2f} ms = {t / busy:.3f} of device time")
+        log(f"[{label}] {tag:28s} {t * 1e3:9.2f} ms = {t / summed:.3f} of kernel time")
     for t, n, tag, key in rows[:top]:
         log(f"[{label}] {t * 1e3:8.2f} ms x{n:<5d} ({tag}, ranges included) {key[:90]}")
     for tag in ("GroupNorm backward (plain)", "attention backward (plain)", "AdamW and EMA"):
@@ -3069,7 +3120,7 @@ def phase_train(cfg_module):
                step_ms=dt * 1e3, walls_s=walls, img_per_s=batch_size / dt,
                warmup_s=warm_s, peak_gib=peak_gib, losses=[loss0] + [s[1] for s in steps],
                grad_norms=[gnorm0] + [s[2] for s in steps], launches_per_step=got_totals,
-               device_busy_ms=busy * 1e3, idle_share=1 - busy / dt,
+               device_busy_ms=busy * 1e3, idle_share=1 - busy / prof_wall,
                kernel_launches=n_kernels,
                profiled_wall_ms=prof_wall * 1e3,
                device_ms_by_group={k: v * 1e3 for k, v in groups.items()},
@@ -3371,7 +3422,7 @@ def phase_train_cond(cfg_module, name):
                losses=[loss0] + [r[1] for r in steps], launches_per_step=totals,
                trainable_m=sum(state.params[k].numel() for k in trainable) / 1e6,
                cond_stage_trainable_m=n_cond / 1e6, device_busy_ms=busy * 1e3,
-               idle_share=1 - busy / dt, kernel_launches=n_kernels,
+               idle_share=1 - busy / prof_wall, kernel_launches=n_kernels,
                profiled_wall_ms=prof_wall * 1e3,
                device_ms_by_group={k: v * 1e3 for k, v in groups.items()})
     del state, opt, step
@@ -3417,6 +3468,712 @@ def phases_train(cfg_module):
     return details, out
 
 
+# ------------------------------------------------------------------ phase 17
+# the trainable first stages, by name: (config, seed, the AE tensors (a)
+# names in its log)
+AE_TRAIN = {"vq_f8": ("VQ_F8_AE_TRAIN", 170), "kl_f8": ("KL_F8_AE_TRAIN", 180)}
+AE_CHECK_BATCH = 1  # (a)'s float32 step, card against CPU, at full width
+# (a)'s bound on the L1 elements whose sign(rec - x) the card's and the CPU's
+# forwards disagree on, a batch image: float32 rounding moves a few across x
+# (0-1 seen at 256^2); a wrong forward moves many
+AE_MAX_SIGN_FLIPS = 4
+AE_LOOP_BATCH = 2   # (e)'s loop
+
+
+def ae_modules(cfg, seed, device):
+    """(autoencoder, loss module) of a trainable first-stage config in
+    float32 with seeded random weights: `random_init_` for the autoencoder
+    and the VGG trunk, the discriminator's N(0, 0.02^2), LPIPS's heads at
+    JAX's 1/C and logvar at its initial value, as built."""
+    import torch
+
+    from ealdm_torch.training import build_autoencoder
+
+    vae, loss = build_autoencoder(cfg["model"], torch.float32, device)
+    random_init_(vae, seed)
+    random_init_(loss.perceptual.vgg, seed + 1)
+    loss.discriminator.init_weights_(torch.Generator().manual_seed(seed + 2))
+    return vae, loss
+
+
+def ae_images(b, res, seed):
+    """b host images in [-1, 1], [b, res, res, 3]."""
+    import torch
+
+    return torch.rand(b, res, res, 3, generator=torch.Generator().manual_seed(seed)) * 2 - 1
+
+
+def ae_noise(vae, b, res, seed):
+    """Host posterior noise of a KL autoencoder's [b, h, w, embed_dim]
+    latent, None for a VQ one."""
+    import torch
+
+    from ealdm_torch.models.vae import AutoencoderKL
+
+    if not isinstance(vae, AutoencoderKL):
+        return None
+    f = 2 ** (vae.encoder.num_levels - 1)
+    c = vae.post_quant_conv.weight.shape[1]
+    return torch.randn(b, res // f, res // f, c, generator=torch.Generator().manual_seed(seed))
+
+
+def disc_sites(disc, side):
+    """(C, side, groups) of each GroupNorm of the discriminator on a side^2
+    input: 4x4 convolutions with padding 1, stride 2 up to the last."""
+    sites = []
+    side = (side - 2) // 2 + 1  # conv_in
+    for n in range(1, disc.n_layers + 1):
+        side = (side - 2) // (2 if n < disc.n_layers else 1) + 1
+        norm = getattr(disc, f"norm_{n}")
+        sites.append((norm.weight.numel(), side, norm.num_groups))
+    return sites
+
+
+def f32_flash_splits(b, h, n, d):
+    """The key split the float32 flash entry point takes at [b, h, n, d]."""
+    import torch
+
+    from ealdm_torch.kernels import build
+    from ealdm_torch.ops.attention import tf32x3_tiling
+
+    lib = build.library("flash_attention_sm90_f32")
+    return lib.ealdm_flash_attention_sm90_f32_splits(
+        0, *tf32x3_tiling(d, torch.float32), b, h, n, n, d)
+
+
+def ae_train_census(vae, loss, b, res):
+    """Kernel launches of one float32 VAE-GAN step at batch b, from the
+    module tree: the encoder and the decoder once (the d_weight gradients
+    and the backward rerun no kernel: the backwards are the plain vjps), the
+    discriminator three times (the GAN loss on the reconstruction, then the
+    real and fake logits of its own update), the key-split combine beside
+    each float32 flash launch that splits. LPIPS has no kernel site.
+    {(counter, detail): n}, and the totals by counter."""
+    import collections
+
+    import torch
+
+    from ealdm_torch.ops.attention import COMBINE_COUNTER, flash_counter
+    from ealdm_torch.ops.norms import group_norm_path, resolve_num_groups
+
+    f = 2 ** (vae.encoder.num_levels - 1)
+    census = collections.Counter(path_census(
+        [(vae.encoder, b, res, 1), (vae.decoder, b, res // f, 1)], "float32"))
+    for c, s, groups in disc_sites(loss.discriminator, res):
+        shape = (b, c, s, s)
+        path = group_norm_path(shape, torch.float32, resolve_num_groups(c, groups))
+        census[(path, ("channels_last", shape, "float32"))] += 3
+    for (name, rows), n in list(census.items()):
+        if name.startswith("flash_attention"):
+            d = int(name.rsplit("_d", 1)[1])
+            if name == flash_counter(d, dtype=torch.float32) and f32_flash_splits(
+                    b, 1, rows, d) > 1:
+                census[(COMBINE_COUNTER, rows)] += n
+    totals = collections.Counter()
+    for (name, _), n in census.items():
+        totals[name] += n
+    return dict(census), dict(totals)
+
+
+def ae_forward(vae, x, noise):
+    """The reconstruction of a train step's forward (a KL posterior sample
+    drawn as `noise`)."""
+    from ealdm_torch.models.vae import AutoencoderKL
+
+    return vae(x, None, noise=noise)[0] if isinstance(vae, AutoencoderKL) else vae(x)[0]
+
+
+def l1_flip_correction(loss, x, rec_cpu, rec_gpu, params):
+    """The L1 pixel loss's gradient is discontinuous where a reconstructed
+    element equals its input: an element whose sign(rec - x) differs between
+    the card's forward and the CPU's (about one at batch 1, 256^2, where the
+    two reconstructions differ by float32 rounding) moves the loss's
+    gradient with respect to rec by 2 * its coefficient, and every parameter
+    gradient by that vector's vjp. Returns (the elements whose sign
+    differs, {name: the vjp through the CPU's graph}), so that the CPU's
+    gradients plus the vjp are what the card's signs give."""
+    import torch
+
+    s_gpu, s_cpu = torch.sign(rec_gpu - x), torch.sign(rec_cpu.detach() - x)
+    flips = int((s_gpu != s_cpu).sum())
+    if not flips or getattr(loss, "pixel_loss", "l1") != "l1":
+        return flips, {}
+    if hasattr(loss, "logvar"):  # the KL loss: NLL summed over pixels, / B, / exp(logvar)
+        coef = loss.pixelloss_weight / float(torch.exp(loss.logvar.detach())) / x.shape[0]
+    else:  # the VQ loss: the mean over every element
+        coef = loss.pixelloss_weight / x.numel()
+    names = list(params)
+    grads = torch.autograd.grad(rec_cpu, [params[k] for k in names], (s_gpu - s_cpu) * coef,
+                                allow_unused=True)
+    return flips, {k: g for k, g in zip(names, grads) if g is not None}
+
+
+def disc_grads_f64(cfg, loss_sd, x, rec, step):
+    """{name: gradient} of the discriminator's update loss at global step
+    `step` on the CPU, computed in float64 (GroupNorm statistics too; the
+    float32 parameters are cast to it, so each gradient is rounded to
+    float32 once), with the weights of `loss_sd`, on images x and the
+    reconstruction rec."""
+    import torch
+
+    from ealdm_torch.losses import build_loss
+    from ealdm_torch.ops.norms import set_norm_stats_precision
+
+    lm = build_loss(cfg["model"]["params"]["lossconfig"], torch.float64, "cpu")
+    lm.load_state_dict(loss_sd)
+    params = dict(lm.discriminator.named_parameters())
+    set_norm_stats_precision("native")
+    try:
+        d_total, _ = lm.discriminator_loss(x.double(), rec.double(), step)
+        grads = torch.autograd.grad(d_total, list(params.values()))
+    finally:
+        set_norm_stats_precision("fp32")
+    return {f"discriminator.{k}": g for k, g in zip(params, grads)}
+
+
+def ae_checked_step(label, cfg, vae, loss, seed):
+    """(a) One float32 step at full width and batch AE_CHECK_BATCH, the card
+    (kernels, TF32 off for the library) against the CPU (plain versions):
+    the same weights, images and posterior noise, at global step disc_start
+    so that the GAN term, d_weight's share of the decoder's gradient and
+    the discriminator's update are live on both sides. After one step from
+    zero moments Adam's mu is (1 - b1) g, so the gradients are held through it:
+    each trained tensor within 1e-3 of its largest element plus 1e-6 of the
+    optimizer's largest (the float32 rounding of a gradient that is zero but
+    for it: a bias ahead of a GroupNorm, the attention's key bias), after
+    the CPU's gradients take the vjp of the L1 elements whose sign the two
+    forwards disagree on (`l1_flip_correction`), of which there may be at
+    most AE_MAX_SIGN_FLIPS an image. The discriminator's gradients are held
+    the same way against its update in float64 on the CPU from the same
+    weights, x and the card's reconstruction (`disc_grads_f64`): they move
+    by up to 2e-3 of their largest between the card's reconstruction and
+    the CPU's, which differ by float32 rounding, and a float32 sum (the
+    card's or the CPU's) lies up to about 1e-3 from float64 where a
+    difference of the real and the fake terms cancels behind a GroupNorm.
+    Each is held within 1e-3 of its largest plus the floor, or within twice
+    the CPU's own float32 error against float64 (on its reconstruction),
+    whichever is larger. The total loss within 1e-4
+    relative; d_weight and every other logged metric within 1e-4 relative
+    plus 1e-6."""
+    import torch
+
+    from ealdm_torch.training import (build_autoencoder, init_vae_train_state,
+                                      make_vae_train_step)
+
+    b, res = AE_CHECK_BATCH, cfg["res"]
+    cfg_step = loss.disc_start
+    x = ae_images(b, res, seed)
+    noise = ae_noise(vae, b, res, seed + 1)
+    sds = (vae.state_dict(), loss.state_dict())
+    out, recs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            v, lm = vae, loss
+        else:
+            v, lm = build_autoencoder(cfg["model"], torch.float32, "cpu")
+            v.load_state_dict(sds[0])
+            lm.load_state_dict(sds[1])
+        state, oa, od = init_vae_train_state(v, lm, cfg["learning_rate"],
+                                             cfg["lr_g_factor"], device=dev)
+        state.step = cfg_step  # the first step with the GAN terms on
+        xd, nd = x.to(dev), None if noise is None else noise.to(dev)
+        step = make_vae_train_step(v, lm, oa, od, device=dev)
+        with torch.no_grad():
+            saved = {k: p.clone() for k, p in {**state.ae_params, **state.loss_params}.items()}
+        _, m = step(state, {"image": xd}, None, nd)
+        out[dev] = ({k: float(t) for k, t in m.items()},
+                    {k: t.float().cpu() for k, t in {**state.opt_ae_state.mu,
+                                                     **state.opt_disc_state.mu}.items()})
+        log(f"[{label}] (a) {dev}: aeloss {out[dev][0]['aeloss']:.8f}, d_weight "
+            f"{out[dev][0]['train/d_weight']:.8f} ({time.perf_counter() - t0:.1f} s)")
+        with torch.no_grad():  # the modules as they were (the card's go on to (b)-(e))
+            for k, p in {**state.ae_params, **state.loss_params}.items():
+                p.copy_(saved[k])
+        with torch.set_grad_enabled(dev == "cpu"):  # the step's reconstruction; the
+            recs[dev] = ae_forward(v, xd, nd)       # CPU's graph serves the vjp
+        params = dict(v.named_parameters())
+        del state, step, saved
+    flips, corr = l1_flip_correction(lm, x, recs["cpu"], recs["cuda"].cpu(), params)
+    g64 = {dev: disc_grads_f64(cfg, sds[1], x, recs[dev].detach().cpu(), cfg_step)
+           for dev in ("cuda", "cpu")}
+    del recs, v, lm, params
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out["cuda"]
+    if flips > AE_MAX_SIGN_FLIPS * b:
+        raise RuntimeError(f"{label}: the card's reconstruction and the CPU's lie on "
+                           f"opposite sides of x at {flips} elements (at most "
+                           f"{AE_MAX_SIGN_FLIPS * b})")
+    if m_cpu["train/disc_factor"] != 1.0 or not any(
+            t.abs().max() > 0 for k, t in g_cpu.items() if k.startswith("discriminator.")):
+        raise RuntimeError(f"{label}: the checked step ran with the GAN terms off")
+    for k, c in corr.items():
+        g_cpu[k] = g_cpu[k] + (1 - oa.b1) * c
+    loss_rel = abs(m_gpu["aeloss"] - m_cpu["aeloss"]) / abs(m_cpu["aeloss"])
+    bad_metrics = {k: (m_gpu[k], v) for k, v in m_cpu.items()
+                   if not abs(m_gpu[k] - v) <= 1e-4 * abs(v) + 1e-6}
+    floor = {part: 1e-6 * max(t.abs().max().item() for k, t in g_cpu.items()
+                              if k.startswith("discriminator.") == (part == "disc"))
+             for part in ("ae", "disc")}
+    grad_rel, bad_grads, disc_rel = {}, [], {}
+    for k, want in g_cpu.items():
+        disc = k.startswith("discriminator.")
+        if disc:  # against float64; the CPU's float32 beside it
+            want64 = ((1 - od.b1) * g64["cuda"][k]).float()
+            cpu64 = ((1 - od.b1) * g64["cpu"][k]).float()
+            scale = want64.abs().max().item()
+            disc_rel[k] = tuple((a - c).abs().max().item() / scale for a, c in (
+                (g_gpu[k], want64), (want, cpu64), (g_gpu[k], want)))
+            want = want64
+        err = (g_gpu[k] - want).abs().max().item()
+        scale = want.abs().max().item()
+        grad_rel[k] = err / scale if scale else err
+        limit = max(1e-3, 2 * disc_rel[k][1]) if disc else 1e-3
+        if not err <= limit * scale + floor["disc" if disc else "ae"]:
+            bad_grads.append((k, err, scale))
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[{label}] (a) discriminator gradients, of their largest: card vs float64, CPU "
+        f"float32 vs float64, card vs CPU float32: "
+        f"{[(k.removeprefix('discriminator.'), [f'{e:.3g}' for e in v])
+           for k, v in disc_rel.items()]}")
+    log(f"[{label}] (a) float32 card vs CPU, batch {b}: aeloss {loss_rel:.3g} relative "
+        f"(1e-4) at global step {cfg_step}; metrics outside 1e-4 {bad_metrics}; L1 signs that "
+        f"differ {flips} (at most {AE_MAX_SIGN_FLIPS * b}; their vjp added to the CPU's "
+        f"gradients); {len(g_cpu)} trained gradients, outside their limits (1e-3 of their "
+        f"largest + 1e-6 of the optimizer's; the discriminator's against float64): "
+        f"{bad_grads[:4]}; largest relative {[(k, f'{v:.3g}') for k, v in worst]}")
+    if not (loss_rel <= 1e-4 and not bad_metrics and not bad_grads):
+        raise RuntimeError(f"{label}: the card's float32 train step disagrees with the CPU")
+    return dict(aeloss_rel=loss_rel, global_step=cfg_step, d_weight=m_gpu["train/d_weight"],
+                d_weight_cpu=m_cpu["train/d_weight"], l1_sign_flips=flips,
+                l1_sign_flips_max=AE_MAX_SIGN_FLIPS * b,
+                metrics_rel_max=max(abs(m_gpu[k] - v) / max(abs(v), 1e-30)
+                                    for k, v in m_cpu.items()),
+                grad_rel_max=max(grad_rel.values()), gradients=len(g_cpu),
+                disc_rel_max={what: max(v[i] for v in disc_rel.values()) for i, what in enumerate(
+                    ("card_vs_f64", "cpu_f32_vs_f64", "card_vs_cpu_f32"))})
+
+
+def ae_loop(label, cfg, vae, loss, state, step, eval_step, seed):
+    """(e) main.py's `train_autoencoder` sequence on the card at batch
+    AE_LOOP_BATCH: SetupCallback's YAML, three steps logged through
+    MetricLogger (JSONL and TensorBoard events), DeviceStatsCallback around
+    them, one eval step logged, a CheckpointManager save, a step that moves
+    the state, a restore that must give back the saved parameters and Adam
+    moments bit for bit, and the reconstruction grid through the zlib PNG
+    writer (read back here by inflating it). PyYAML and PIL must not have
+    been imported."""
+    import shutil
+    import struct
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from ealdm_torch.models.vae import AutoencoderKL
+    from ealdm_torch.training import (CheckpointManager, DeviceStatsCallback, MetricLogger,
+                                      SetupCallback, save_png, to_uint8_grid)
+
+    logdir = os.path.join(OUT_DIR, f"ae_train_{label}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    cfg_path = SetupCallback(logdir, {"model": cfg["model"]}).on_start("now")
+    with open(cfg_path) as f:
+        text = f.read()
+    lossp = cfg["model"]["params"]["lossconfig"]["params"]
+    if "kl_weight" in lossp and '"kl_weight": 1.0e-06' not in text:
+        raise RuntimeError(f"{label}: the YAML does not spell kl_weight as a float")
+    logger, stats = MetricLogger(logdir), DeviceStatsCallback("cuda")
+    ckpt = CheckpointManager(os.path.join(logdir, "checkpoints"), monitor="val/rec_loss")
+    x = ae_images(AE_LOOP_BATCH, cfg["res"], seed).cuda()
+    stats.on_epoch_start()
+    for i in range(3):
+        _, m = step(state, {"image": x}, torch.Generator().manual_seed(seed + i))
+        logger.log(state.step, m)
+    sys_stats = stats.on_epoch_end()
+    logger.log(state.step, sys_stats, prefix="sys/")
+    val = eval_step(state, {"image": x}, torch.Generator().manual_seed(seed + 9))
+    logger.log(state.step, val)
+    ckpt.save(state.step, state, val)
+    saved = {k: v.clone() for k, v in {**state.ae_params, **state.loss_params,
+                                       **{f"mu/{k}": t for k, t in state.opt_ae_state.mu.items()},
+                                       **{f"nu/{k}": t for k, t in state.opt_ae_state.nu.items()},
+                                       **{f"dmu/{k}": t for k, t in state.opt_disc_state.mu.items()}
+                                       }.items()}
+    saved_step = state.step
+    step(state, {"image": x}, torch.Generator().manual_seed(seed + 20))  # moves the state
+    ckpt.restore(state)
+    now = {**state.ae_params, **state.loss_params,
+           **{f"mu/{k}": t for k, t in state.opt_ae_state.mu.items()},
+           **{f"nu/{k}": t for k, t in state.opt_ae_state.nu.items()},
+           **{f"dmu/{k}": t for k, t in state.opt_disc_state.mu.items()}}
+    differ = [k for k, v in saved.items() if not torch.equal(now[k], v)]
+    if differ or state.step != saved_step or ckpt.best_step() != saved_step:
+        raise RuntimeError(f"{label}: the checkpoint restore differs at {differ[:4]} "
+                           f"(step {state.step}, saved {saved_step})")
+    with torch.no_grad():  # the reference's log_images reconstruction
+        rec = (vae(x, torch.Generator(device="cuda").manual_seed(seed))[0]
+               if isinstance(vae, AutoencoderKL) else vae(x)[0])
+    grid = to_uint8_grid(rec)
+    png = os.path.join(logdir, "images", "val", f"recon_gs-{state.step:06d}.png")
+    save_png(png, grid)
+    with open(png, "rb") as f:
+        data = f.read()
+    w, h = struct.unpack(">II", data[16:24])
+    idat = data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * 3)
+    if (w, h) != grid.shape[1::-1] or not np.array_equal(rows[:, 1:].reshape(grid.shape), grid):
+        raise RuntimeError(f"{label}: the PNG does not read back to its grid")
+    with open(logger.path) as f:
+        lines = [json.loads(line) for line in f]
+    tb = [p for p in os.listdir(os.path.join(logdir, "tb")) if p.startswith("events.out")]
+    if len(lines) != 5 or "val/rec_loss" not in lines[-1] or len(tb) != 1:
+        raise RuntimeError(f"{label}: {len(lines)} JSONL rows, TB files {tb}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("yaml", "PIL"))
+    if loaded:
+        raise RuntimeError(f"{label}: the loop imported {loaded}")
+    out = dict(jsonl_rows=len(lines), tb_bytes=os.path.getsize(os.path.join(logdir, "tb", tb[0])),
+               png_bytes=len(data), checkpoint_step=saved_step, restored_tensors=len(saved),
+               val_rec_loss=float(val["val/rec_loss"]), epoch_peak_gib=sys_stats.get(
+                   "peak_bytes_in_use", 0) / 2**30, seconds=time.perf_counter() - t0)
+    log(f"[{label}] (e) loop: {out}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    return out
+
+
+def ae_disc_snapshot(loss):
+    return {k: p.detach().clone() for k, p in loss.discriminator.named_parameters()}
+
+
+def ae_moved(a, b):
+    """Whether any tensor of snapshot a differs from b's, bit for bit."""
+    import torch
+
+    return any(not torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_ae_train(cfg_module, name):
+    """Phase 17 on one trainable first stage (AE_TRAIN[name]) at full width
+    in float32: (a) `ae_checked_step`; (b) the discriminator's warm-up: its
+    parameters bit-equal after each step before disc_start and moved after
+    the first one from it, disc_factor 0 before it, LPIPS and logvar never
+    moving; (c) a warm-up and five timed steps at the config's batch (step
+    ms, training img/s, peak GiB), launches per step against
+    `ae_train_census`, one profiled step (device busy, idle share, groups,
+    the plain backwards among them); (d) one step with every kernel launch
+    held against its plain version (float32 limits); (e) `ae_loop`.
+    Returns (one step's launch details, numbers)."""
+    import torch
+
+    import ealdm_torch
+    from ealdm_torch import kernels
+    from ealdm_torch.ops.attention import flash_counter
+    from ealdm_torch.training import init_vae_train_state, make_vae_eval_step, make_vae_train_step
+
+    cfg_key, seed = AE_TRAIN[name]
+    cfg = getattr(cfg_module, cfg_key)
+    label, n, res = f"ae_train_{name}", cfg["batch_size"], cfg["res"]
+    ealdm_torch.enable_inference_optimizations()  # flash at the eligible VAE attention sites
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    vae, loss = ae_modules(cfg, seed, "cuda")
+    n_ae = sum(p.numel() for p in vae.parameters())
+    n_disc = sum(p.numel() for p in loss.discriminator.parameters())
+    n_lpips = sum(p.numel() for p in loss.perceptual.parameters())
+    log(f"[{label}] {cfg_key}: autoencoder {n_ae / 1e6:.2f} M, discriminator "
+        f"{n_disc / 1e6:.2f} M, LPIPS {n_lpips / 1e6:.2f} M (frozen); batch {n}, {res}^2, "
+        f"float32, lr {cfg['learning_rate']:.3g}, disc_start {loss.disc_start}; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"reference": ae_checked_step(label, cfg, vae, loss, seed + 3)}
+    state, opt_ae, opt_disc = init_vae_train_state(vae, loss, cfg["learning_rate"],
+                                                   cfg["lr_g_factor"])
+    step = make_vae_train_step(vae, loss, opt_ae, opt_disc)
+    x = ae_images(n, res, seed + 4).cuda()
+    want, want_totals = ae_train_census(vae, loss, n, res)
+    frozen = {k: p.detach().clone() for k, p in state.loss_params.items()
+              if not k.startswith("discriminator.")}
+
+    def run_step(i):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, m = step(state, {"image": x}, torch.Generator().manual_seed(seed + 10 + i))
+        ae = m["aeloss"].item()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, ae, dict(kernels.launch_details),
+                {k: float(v) for k, v in m.items()})
+
+    discs = [ae_disc_snapshot(loss)]
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(6):  # the warm-up, then five timed steps
+        runs.append(run_step(i))
+        if i < 2:
+            discs.append(ae_disc_snapshot(loss))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # (b) the warm-up: step i runs at global step i
+    start = loss.disc_start
+    moved = [ae_moved(discs[i], discs[i + 1]) for i in range(2)]
+    factors = [r[3]["train/disc_factor"] for r in runs]
+    lpips_moved = [k for k, p in frozen.items() if not torch.equal(state.loss_params[k], p)]
+    warm_ok = (moved == [i >= start for i in range(2)]
+               and factors == [float(i >= start) for i in range(6)]
+               and ae_moved(discs[0], ae_disc_snapshot(loss)) == (5 >= start)
+               and not lpips_moved)
+    log(f"[{label}] (b) disc_start {start}: discriminator moved in steps 0, 1: {moved}; "
+        f"after six steps: {ae_moved(discs[0], ae_disc_snapshot(loss))}; disc_factor {factors}; "
+        f"LPIPS / logvar tensors moved {lpips_moved[:4]} of {len(frozen)}")
+    if not warm_ok:
+        raise RuntimeError(f"{label}: the discriminator's warm-up does not hold")
+    del discs
+    # (c) time, memory, launches
+    walls = [r[0] for r in runs[1:]]
+    dt = sorted(walls)[2]
+    totals = {}
+    for (counter, _), c in runs[1][2].items():
+        totals[counter] = totals.get(counter, 0) + c
+    log(f"[{label}] warm-up step {runs[0][0]:.2f} s; timed steps {[round(w, 4) for w in walls]} "
+        f"s: median {dt * 1e3:.1f} ms = {n / dt:.3f} img/s; peak {peak:.2f} GiB; aeloss "
+        f"{[round(r[1], 5) for r in runs]}")
+    log(f"[{label}] launches per step {totals} (module tree: {want_totals})")
+    for i, r in enumerate(runs):
+        if r[2] != want:
+            check_launches(f"{label} step {i}", want, r[2])
+        if not all(math.isfinite(v) for v in r[3].values()):
+            raise RuntimeError(f"{label} step {i}: a non-finite metric {r[3]}")
+    for counter in (flash_counter(512, dtype=torch.float32),):
+        if not totals.get(counter):
+            raise RuntimeError(f"{label}: {counter} was not launched by the step")
+    busy, groups, n_kernels, prof_wall = profile_train_step(
+        f"{label}-profile", step, state, {"image": x}, seed + 30, dt, top=10)
+    # (d) every kernel launch of one step against its plain version
+    sites = hold_sites(f"{label}-hold", lambda: step(
+        state, {"image": x}, torch.Generator().manual_seed(seed + 40)), grad=True)
+    # (e) main.py's loop
+    loop = ae_loop(name, cfg, vae, loss, state, step, make_vae_eval_step(vae, loss), seed + 50)
+    out.update(
+        batch=n, res=res, dtype="float32", step_ms=dt * 1e3, walls_s=walls, img_per_s=n / dt,
+        warmup_s=runs[0][0], peak_gib=peak, aeloss=[r[1] for r in runs],
+        metrics_last=runs[-1][3], launches_per_step=totals, disc_moved_steps_0_1=moved,
+        disc_factor=factors, device_busy_ms=busy * 1e3, idle_share=1 - busy / prof_wall,
+        kernel_launches=n_kernels, profiled_wall_ms=prof_wall * 1e3,
+        device_ms_by_group={k: v * 1e3 for k, v in groups.items()},
+        held_sites=len(sites), held_worst=max(sites.values()), loop=loop,
+        parameters_m={"autoencoder": n_ae / 1e6, "discriminator": n_disc / 1e6})
+    details = runs[1][2]
+    del state, step, opt_ae, opt_disc, vae, loss, x
+    torch.cuda.empty_cache()
+    return details, out
+
+
+def phase_ae_kernels():
+    """The kernels at the first-stage step's float32 shapes, held against
+    their plain versions (1e-4) and timed (device time, inputs rotated past
+    the L2 for GroupNorm): flash [12,1,1024,512] (every VAE attention site
+    at batch 12) and the GroupNorm sites of the autoencoder (with SiLU) and
+    the discriminator (without: leaky ReLU follows), the odd sides 63^2 and
+    31^2 among them. Returns the JSON line's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ealdm_torch import kernels
+    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
+    from ealdm_torch.ops.norms import group_norm_kernel, group_norm_path, group_norm_plain, silu
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f32 = torch.float32
+    errs, res = {}, {}
+
+    def randn(*shape, layout="contiguous"):
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
+
+    b, h, nq, d = shape = (12, 1, 1024, 512)
+    qkv = [randn(*shape) for _ in range(3)]
+    row = "flash_attention_f32_d512_b12_n1024"
+    compare(errs, row, f32, flash_attention(*qkv), flash_attention_plain(*qkv), str(list(shape)))
+    errs[row] = (flash_attention(*qkv) - flash_attention_plain(*qkv)).abs().max().item()
+    ms, seen = device_ms(lambda: flash_attention(*qkv), names=True)
+    bms, by = bound(3 * 4 * b * h * nq * nq * d, 4 * b * h * nq * d * 4, PEAK_TF32,
+                    exps=b * h * nq * nq)
+    res[row] = dict(
+        name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention_sm90_f32.cu",
+        replaces="ealdm_tpu/ops/attention.py:77", launches=None, max_abs_err=errs[row], ms=ms,
+        plain_ms=device_ms(lambda: flash_attention_plain(*qkv)), bound_ms=bms,
+        bound_by="bytes" if by == "bytes" else "operations", bound_kind=by,
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(*qkv)),
+        event_ms=cuda_ms(lambda: flash_attention(*qkv)), kernel=seen, shape=list(shape),
+        layout="split heads of the VAE's [B,1,N,C] tokens", dtype="float32",
+        key_splits=f32_flash_splits(b, h, nq, d), counter=(flash_counter(d, dtype=f32), nq))
+    del qkv
+    single = "ealdm_tpu/ops/group_norm_pallas.py:103"
+    chunked = "ealdm_tpu/ops/group_norm_pallas.py:123"
+    timed = [  # row, shape, SiLU (the autoencoder's norms) or not (the discriminator's)
+        ("ae_gn_f32_c128_256", (12, 128, 256, 256), True),
+        ("ae_gn_f32_c256_256", (12, 256, 256, 256), True),
+        ("ae_gn_f32_c512_32", (12, 512, 32, 32), True),
+        ("disc_gn_f32_c128_64", (12, 128, 64, 64), False),
+        ("disc_gn_f32_c256_63", (12, 256, 63, 63), False),
+        ("disc_gn_f32_c256_32", (12, 256, 32, 32), False),
+        ("disc_gn_f32_c512_31", (12, 512, 31, 31), False),
+    ]
+    for row, shape, fuse in timed:
+        n_, c = shape[:2]
+        scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        numel = math.prod(shape)
+        copies = max(1, math.ceil(2 * L2_BYTES / (4 * numel)))
+        inputs = [3 * randn(*shape, layout="channels_last") + 1 for _ in range(copies)]
+        path = group_norm_path(shape, f32, 32)
+        kernels.reset_launch_counts()
+        got = group_norm_kernel(inputs[0], scale, bias, 32, 1e-6, fuse)
+        if kernels.launches[path] != 1:
+            raise RuntimeError(f"{row}: {dict(kernels.launches)}, not one {path} launch")
+        want = group_norm_plain(inputs[0], scale, bias, 32, 1e-6, silu if fuse else None, "NCHW")
+        compare(errs, row, f32, got, want, f"{list(shape)} channels_last")
+        errs[row] = (got - want).abs().max().item()
+        del got, want
+        bms, by = bound(10 * numel, 2 * numel * 4 + 2 * c * 4, PEAK_FP32)
+        it = itertools.cycle(inputs)
+        kernel = lambda: group_norm_kernel(next(it), scale, bias, 32, 1e-6, fuse)  # noqa: E731
+        plain = lambda: group_norm_plain(next(it), scale, bias, 32, 1e-6,  # noqa: E731
+                                         silu if fuse else None, "NCHW")
+
+        def lib():
+            y = F.group_norm(next(it), 32, scale, bias, 1e-6)
+            return F.silu(y) if fuse else y
+
+        iters = 20 if numel < 2e8 else 10
+        split = device_ms_by_kernel(kernel, iters)
+        res[row] = dict(
+            name=row, route="cuda", source="ealdm_torch/kernels/csrc/group_norm.cu",
+            replaces=single if path == "group_norm" else chunked, launches=None,
+            max_abs_err=errs[row], ms=sum(split.values()), kernel_ms=split,
+            plain_ms=device_ms(plain, iters), bound_ms=bms, bound_by=by,
+            library_ms=device_ms(lib, iters), event_ms=cuda_ms(kernel, iters), shape=list(shape),
+            layout="channels_last", dtype="float32", pre_bias=False, silu=fuse,
+            rotated_inputs=copies, counter=(path, ("channels_last", shape, "float32")))
+        del inputs
+    torch.cuda.empty_cache()
+    log_rows(res)
+    return res
+
+
+def phase_convergence():
+    """The port's convergence oracles on the card (on the CPU they take 77 s
+    and 42 s), `tests/test_convergence.py`'s two at its micro sizes with the
+    port's seeded weights: the LDM step (frozen VQ first stage, trainable
+    STDiff tower, the CFG pair) over 300 steps, the last 50 steps' mean
+    loss below 0.7 of the first 50's and the EMA's eval loss below the
+    start; the float32 VAE-GAN step over 160, the last 20 steps'
+    reconstruction loss below 0.7 of the first 20's, the discriminator
+    bit-frozen for the 60 steps before disc_start and moving after it."""
+    import numpy as np
+    import torch
+
+    from ealdm_torch.losses import LPIPSWithDiscriminator
+    from ealdm_torch.models.ddpm import LatentDiffusion
+    from ealdm_torch.models.vae import AutoencoderKL
+    from ealdm_torch.training import (init_train_state, init_vae_train_state, make_eval_step,
+                                      make_train_step, make_vae_train_step)
+
+    t0 = time.perf_counter()
+    model = LatentDiffusion(
+        unet_config=dict(image_size=8, in_channels=4, out_channels=4, model_channels=32,
+                         attention_resolutions=[2], num_res_blocks=1, channel_mult=[1, 2],
+                         num_head_channels=16, use_spatial_transformer=True,
+                         transformer_depth=1, context_dim=64),
+        first_stage_config={"target": "ldm.models.autoencoder.VQModelInterface", "params": {
+            "embed_dim": 4, "n_embed": 64, "ddconfig": dict(
+                double_z=False, z_channels=4, resolution=32, in_channels=3, out_ch=3, ch=32,
+                ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[], dropout=0.0)}},
+        cond_stage_config={"target": "STDiff.models.UnetCond", "params": {
+            "mid_dim": 4, "emb_dim": 32, "out_dim": 64, "w_dim": 16, "f_dim": 1,
+            "hidden_dim": 32, "cond_args": {
+                "type": "fourier", "dims": 6, "lr": 1, "lin_lr": 0.01,
+                "f_manual": [1.84, 672], "include_lin": True, "noise": 0, "noise_f": [],
+                "noise_f_int": []}}},
+        timesteps=20, linear_start=0.0015, linear_end=0.0195, conditioning_key="crossattn",
+        cond_stage_key="mixed", cond_stage_trainable=True, unconditional_guidance_scale=2.0,
+        device="cuda")
+    random_init_(model, seed=0)
+    rng = np.random.RandomState(0)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+    batch = {"img": randn(4, 32, 32, 3), "mixed": {
+        "img": randn(4, 32, 32, 3), "img_random": randn(4, 32, 32, 3),
+        "flow": randn(4, 1, 1), "weather": randn(4, 1, 16),
+        "time": torch.from_numpy(rng.rand(4, 1).astype(np.float32)).cuda()}}
+    state, opt = init_train_state(model, learning_rate=2e-3)
+    step = make_train_step(model, opt, remat="none")
+    gen = torch.Generator().manual_seed(100)
+    losses = [float(step(state, batch, gen)[1]["loss"]) for _ in range(300)]
+    first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+    ema = float(make_eval_step(model)(state, batch, torch.Generator().manual_seed(999))[
+        "loss_simple_ema"])
+    ldm = dict(first50=first, last50=last, ratio=last / first, ema_eval=ema,
+               seconds=time.perf_counter() - t0)
+    log(f"[convergence] LDM: {ldm}")
+    if not (all(map(math.isfinite, losses)) and last < 0.7 * first and ema < first):
+        raise RuntimeError("the LDM step did not converge")
+    del model, state, opt, step, batch
+
+    t0 = time.perf_counter()
+    dd = dict(double_z=True, z_channels=2, resolution=16, in_channels=3, out_ch=3, ch=16,
+              ch_mult=[1, 2], num_res_blocks=1, attn_resolutions=[], dropout=0.0)
+    disc_start, n_steps = 60, 160
+    vae = AutoencoderKL(dd, embed_dim=2)
+    loss = LPIPSWithDiscriminator(disc_start=disc_start, kl_weight=1e-6, disc_weight=0.5,
+                                  disc_num_layers=1, perceptual_weight=1.0)
+    random_init_(vae, seed=0)
+    random_init_(loss.perceptual.vgg, seed=1)
+    loss.discriminator.init_weights_(torch.Generator().manual_seed(2))
+    x = torch.from_numpy(np.random.RandomState(0).rand(4, 16, 16, 3).astype(np.float32)).cuda()
+    x = x * 2 - 1
+    state, opt_ae, opt_disc = init_vae_train_state(vae, loss, learning_rate=2e-3)
+    step = make_vae_train_step(vae, loss, opt_ae, opt_disc)
+    disc0 = ae_disc_snapshot(loss)
+    gen = torch.Generator().manual_seed(100)
+    rec, discs, frozen_ok = [], [], None
+    for i in range(n_steps):
+        if i == disc_start:
+            frozen_ok = not ae_moved(disc0, ae_disc_snapshot(loss))
+        m = step(state, {"image": x}, gen)[1]
+        rec.append(float(m["train/rec_loss"]))
+        discs.append(float(m["train/disc_loss"]))
+    first, last = float(np.mean(rec[:20])), float(np.mean(rec[-20:]))
+    vgan = dict(first20=first, last20=last, ratio=last / first, disc_frozen_before_start=frozen_ok,
+                disc_moved_after=ae_moved(disc0, ae_disc_snapshot(loss)),
+                disc_loss_start=discs[disc_start], disc_loss_end=discs[-1],
+                seconds=time.perf_counter() - t0)
+    log(f"[convergence] VAE-GAN: {vgan}")
+    if not (all(map(math.isfinite, rec + discs)) and last < 0.7 * first and frozen_ok
+            and vgan["disc_moved_after"]
+            and (abs(discs[-1] - discs[disc_start]) > 1e-5
+                 or np.mean(discs[-20:]) != np.mean(discs[disc_start:disc_start + 20]))):
+        raise RuntimeError("the VAE-GAN step did not converge or trained the discriminator "
+                           "before disc_start")
+    return dict(ldm=ldm, vae_gan=vgan)
+
+
+def phases_ae_train(cfg_module):
+    """Phase 17, first-stage training: the kernels at the step's float32
+    shapes, `phase_ae_train` on vq-f8 and kl-f8, the convergence oracles.
+    Returns ({path: launches of one step}, {path: numbers}, the rows)."""
+    t0 = time.perf_counter()
+    rows = phase_ae_kernels()
+    details, out, seconds = {}, {}, {"kernels": time.perf_counter() - t0}
+    for name in AE_TRAIN:
+        t0 = time.perf_counter()
+        details[f"ae_train_{name}"], out[f"ae_train_{name}"] = phase_ae_train(cfg_module, name)
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["convergence"] = phase_convergence()
+    seconds["convergence"] = time.perf_counter() - t0
+    out["ae_train_seconds"] = seconds
+    return details, out, rows
+
+
 def main(argv):
     # Finalize CUPTI when each torch.profiler trace ends: left on, its
     # callbacks slow every later launch on the host and so every timed run
@@ -3437,7 +4194,15 @@ def main(argv):
     log(f"[card] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.perf_counter()
-    phase_build()
+    seconds = {}  # wall seconds a phase (group), for the [phase-seconds] line
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    timed("1 build", phase_build)
     if "--host" in argv:  # the build and the wrapper's host cost only
         host_cost()
         log(smi)
@@ -3447,20 +4212,22 @@ def main(argv):
         return 0
     train_only = "--train" in argv
     paths_only = "--paths" in argv
+    ae_only = "--ae" in argv
     rows, head_dim_grads = {}, None
     if "--groupnorm" in argv:
         rows = phase_group_norm()
-    elif not train_only:
-        phase_sass()
+    elif not (train_only or ae_only):
+        timed("1 sass", phase_sass)
         if not paths_only:
-            rows = phase_kernels()
-            rows.update(phase_group_norm())
-            rows["bias_act"] = phase_ops()
-        head_dim_rows, head_dim_grads = phase_head_dims()
+            rows = timed("2 kernels", phase_kernels)
+            rows.update(timed("2 group_norm", phase_group_norm))
+            rows["bias_act"] = timed("2b ops", phase_ops)
+        head_dim_rows, head_dim_grads = timed("2c head dims", phase_head_dims)
         rows.update(head_dim_rows)
     launches_by_path = {}
-    if not {"--kernels", "--groupnorm", "--train", "--paths"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--train", "--paths", "--ae"} & set(argv):
         steps, batch = 50, 24
+        t_main = time.perf_counter()
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
         counts = e2e["launches"]
         for row in rows.values():
@@ -3480,15 +4247,22 @@ def main(argv):
         del model
         torch.cuda.empty_cache()
         launches_by_path["flagship"] = details
+        seconds["3-5 flagship"] = time.perf_counter() - t_main
     paths = None
-    if not {"--kernels", "--groupnorm", "--train"} & set(argv):
-        path_details, paths = phases_paths(cfg_module)
+    if not {"--kernels", "--groupnorm", "--train", "--ae"} & set(argv):
+        path_details, paths = timed("7-16 paths", phases_paths, cfg_module)
         launches_by_path.update(path_details)
         paths["flash_grad_worst"] = head_dim_grads
     train = None
-    if not {"--kernels", "--groupnorm", "--paths"} & set(argv):
-        train_details, train = phases_train(cfg_module)
+    if not {"--kernels", "--groupnorm", "--paths", "--ae"} & set(argv):
+        train_details, train = timed("6 train", phases_train, cfg_module)
         launches_by_path.update(train_details)
+    ae_train = None
+    if not {"--kernels", "--groupnorm", "--paths", "--train"} & set(argv):
+        ae_details, ae_train, ae_rows = timed("17 first-stage training", phases_ae_train,
+                                              cfg_module)
+        launches_by_path.update(ae_details)
+        rows.update(ae_rows)
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row; a train path's: one step); a row the flagship does
@@ -3501,11 +4275,15 @@ def main(argv):
             for path, d in launches_by_path.items()}
         if row["launches"] is None and launches_by_path:
             row["launches"] = next((c for c in row["launches_by_path"].values() if c), 0)
+    log(f"[phase-seconds] {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if paths is not None:
         log(f"[paths] {json.dumps(paths)}")
     if train is not None:
         log(f"[train] {json.dumps(train)}")
+    if ae_train is not None:
+        for key, numbers in ae_train.items():
+            log(f"[{key}] {json.dumps(numbers)}")
     log(smi)
     if not train_only:
         log(json.dumps({"kernels": list(rows.values())}))

@@ -8,13 +8,17 @@ layout and names so each counterpart is found under the same path:
              filtered_lrelu, conv2d_resample, grid_sample (plain torch +
              the wrappers of the hand-written CUDA kernels)
   kernels/   CUDA C++ sources for sm_90a and the nvcc/ctypes loader
-  data/      the WordPiece tokenizer and its vocab, the layout tokens
+  data/      the WordPiece tokenizer and its vocab, the layout tokens, the
+             feature scalers
   models/    UNet, VQ and KL autoencoders, STDiff conditioning tower, the
              class, text and spatial cond stages, LatentDiffusion (sampling
              and training surface), distributions, FrozenBatchNorm
+  losses/    LPIPS, the PatchGAN discriminator, the KL- and VQ-GAN losses
   samplers/  DDIM, ancestral, PLMS
-  training/  the LDM train step (AdamW, EMA, remat), LR schedules, checkpoints
-  utils/     the flax-parameter bridge and the device rule
+  training/  the LDM train step (AdamW, EMA, remat), the first stages'
+             VAE-GAN step, LR schedules, checkpoints, callbacks, statistics,
+             TensorBoard event files
+  utils/     the flax-parameter bridge, the device rule, the PNG writer
   zoo.py     the LDM model zoo's architectures (`zoo.build(name)`)
 
 Public tensors are NHWC as in `ealdm_tpu`; convolutional internals are NCHW.

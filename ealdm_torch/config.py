@@ -33,6 +33,14 @@ Super-resolution (the zoo entry the notebook's superresolution mode runs):
            attention; the image side is the input's (64^2 LR -> 256^2).
 Training steps of the conditional configs, as FLAGSHIP_TRAIN:
   CIN256_TRAIN, TXT2IMG_TRAIN  their YAML's base_learning_rate and use_ema.
+First-stage VAE-GAN training (`main.py`'s `train_autoencoder`), float32 as
+`main.py` builds a first stage, 256^2 images, the YAMLs' batch 12:
+  VQ_F8_AE_TRAIN  the zoo's `first_stage_models/vq-f8` trainable form
+                  (`zoo._fs_train_config`): attention at 32^2, 16,384
+                  codes, VQLPIPSWithDiscriminator with disc_start 1;
+  KL_F8_AE_TRAIN  `configs/autoencoder/autoencoder_kl_32x32x4.yaml`:
+                  mid-block attention only, LPIPSWithDiscriminator with
+                  disc_start 50,001.
 Retrieval-augmented diffusion:
   RDM768   `configs/retrieval-augmented-diffusion/768x768.yaml`: a UNet of
            448 channels with 32-wide heads cross-attending to a [query;
@@ -275,6 +283,33 @@ INPAINT_BIG = dict(res=256, zres=64, zch=3, zoo="ldm/inpainting_big",
 # 64^2 LR -> 256^2 images, 64^2 x 3 latents (the notebook's example); the
 # model takes any side a multiple of 8 latents
 BSR_SR = dict(res=256, zres=64, zch=3, zoo="ldm/bsr_sr", model=zoo.model_kwargs("ldm/bsr_sr"))
+
+
+# the learning rate main.py gives one device (scale_lr): accumulate 1 x 1
+# device x batch 12 x base_learning_rate 4.5e-6 (the KL YAML's, and
+# train_autoencoder's default where a config has none, as the zoo's)
+_AE_BATCH = 12
+_AE_LR = 1 * 1 * _AE_BATCH * 4.5e-6
+VQ_F8_AE_TRAIN = dict(res=256, batch_size=_AE_BATCH, dtype="float32", learning_rate=_AE_LR,
+                      lr_g_factor=1.0, model=zoo._fs_train_config("vq-f8"))
+KL_F8_AE_TRAIN = dict(
+    res=256, batch_size=_AE_BATCH, dtype="float32", learning_rate=_AE_LR, lr_g_factor=1.0,
+    model={
+        "target": "ldm.models.autoencoder.AutoencoderKL",
+        "params": {
+            "monitor": "val/rec_loss",
+            "embed_dim": 4,
+            "lossconfig": {
+                "target": "ldm.modules.losses.LPIPSWithDiscriminator",
+                "params": {"disc_start": 50001, "kl_weight": 0.000001, "disc_weight": 0.5},
+            },
+            "ddconfig": dict(
+                double_z=True, z_channels=4, resolution=256, in_channels=3, out_ch=3, ch=128,
+                ch_mult=[1, 2, 4, 4], num_res_blocks=2, attn_resolutions=[], dropout=0.0,
+            ),
+        },
+    },
+)
 
 
 # 768^2 images, 48^2 x 16 latents (768x768.yaml model.params, as TXT2IMG)

@@ -2,9 +2,9 @@
 by `build.py`).
 
 `launches` counts, per kernel, the launches its wrapper made (one per
-wrapper call that reached the kernel); flash attention counts per head dim
-and entry point (`ops.attention.flash_counter`), under names that appear at
-their first launch. `launch_details` splits those counts
+wrapper call that reached the kernel); flash attention counts per head dim,
+entry point and float32 or not (`ops.attention.flash_counter`), under names
+that appear at their first launch. `launch_details` splits those counts
 by what each launch was given: {(name, detail): n}, the detail being the
 query-row count for flash attention and (layout, shape, dtype) for
 GroupNorm. The wrappers live beside their plain PyTorch versions in

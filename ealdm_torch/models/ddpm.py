@@ -44,15 +44,14 @@ def build_unet(unet_config: Dict[str, Any], dtype=torch.float32) -> UNetModel:
 def build_first_stage(config: Optional[Dict[str, Any]], dtype=torch.float32,
                       device=None) -> nn.Module:
     """VQModel, AutoencoderKL or IdentityFirstStage (no config, or an
-    identity target) from a first_stage_config {target, params}; the KL
-    model is built on `device` (see AutoencoderKL), the others on the
-    current default device."""
+    identity target) from a first_stage_config {target, params}; the VQ
+    and KL models are built on `device` ("cuda" unless given)."""
     config = config or {}
     target = config.get("target", "identity")
     params = dict(config.get("params", {}))
     if target.endswith("VQModelInterface") or target.endswith("VQModel"):
         return VQModel(ddconfig=dict(params["ddconfig"]), n_embed=params["n_embed"],
-                       embed_dim=params["embed_dim"], dtype=dtype)
+                       embed_dim=params["embed_dim"], dtype=dtype, device=device)
     if target.endswith("AutoencoderKL"):
         return AutoencoderKL(ddconfig=dict(params["ddconfig"]), embed_dim=params["embed_dim"],
                              dtype=dtype, device=device)

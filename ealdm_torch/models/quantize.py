@@ -1,4 +1,6 @@
-"""Vector quantizer, inference path (counterpart of `ealdm_tpu/models/quantize.py`)."""
+"""Vector quantizer (counterpart of `ealdm_tpu/models/quantize.py`): the
+nearest-code lookup with the straight-through gradient and the
+beta-weighted commitment loss of VQ-GAN training."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +17,10 @@ class VectorQuantizer(nn.Module):
 
     def forward(self, z):
         """(z_q, codebook_loss, (perplexity, None, indices)): nearest code by
-        fp32 ||z||^2 - 2 z.e + ||e||^2, the first index on ties."""
+        fp32 ||z||^2 - 2 z.e + ||e||^2, the first index on ties. The loss is
+        beta * |sg(z_q) - z|^2 (the commitment, into the encoder) plus
+        |z_q - sg(z)|^2 (into the codebook), and z_q passes the decoder's
+        gradient straight through to z, as JAX's `stop_gradient`s do."""
         b, h, w, c = z.shape
         if c != self.embed_dim:
             raise ValueError(f"expected {self.embed_dim} channels, got {c}")
@@ -28,8 +33,9 @@ class VectorQuantizer(nn.Module):
         )
         indices = torch.argmin(dist, dim=1)
         z_q = codebook[indices].reshape(b, h, w, c).to(z.dtype)
-        loss = (1.0 + self.beta) * torch.mean(torch.square(z_q - z))
-        z_q = z + (z_q - z)  # the straight-through form's arithmetic
+        loss = (self.beta * torch.mean(torch.square(z_q.detach() - z))
+                + torch.mean(torch.square(z_q - z.detach())))
+        z_q = z + (z_q - z).detach()  # straight-through
         counts = torch.bincount(indices, minlength=self.n_embed).float()
         p = counts / indices.numel()
         perplexity = torch.exp(-torch.sum(p * torch.log(p + 1e-10)))

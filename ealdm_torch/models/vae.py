@@ -226,16 +226,24 @@ def _ddkwargs(ddconfig: dict, decoder: bool = False, double_z: bool = False,
 
 
 class VQModel(nn.Module):
-    """VQ-GAN autoencoder: Encoder -> quant_conv -> VQ -> post_quant_conv -> Decoder."""
+    """VQ-GAN autoencoder: Encoder -> quant_conv -> VQ -> post_quant_conv ->
+    Decoder. Built on `device` (default "cuda", which raises without a
+    card)."""
 
     def __init__(self, ddconfig: dict, n_embed: int, embed_dim: int,
-                 beta: float = 0.25, dtype=torch.float32):
+                 beta: float = 0.25, dtype=torch.float32, device=None):
         super().__init__()
-        self.encoder = Encoder(**_ddkwargs(ddconfig), dtype=dtype)
-        self.decoder = Decoder(**_ddkwargs(ddconfig, decoder=True), dtype=dtype)
-        self.quantize = VectorQuantizer(n_embed, embed_dim, beta)
-        self.quant_conv = conv1x1(ddconfig["z_channels"], embed_dim, dtype)
-        self.post_quant_conv = conv1x1(embed_dim, ddconfig["z_channels"], dtype)
+        enc_kw, dec_kw = _ddkwargs(ddconfig), _ddkwargs(ddconfig, decoder=True)
+        with torch.device(resolve_device(device)):
+            self.encoder = Encoder(**enc_kw, dtype=dtype)
+            self.decoder = Decoder(**dec_kw, dtype=dtype)
+            self.quantize = VectorQuantizer(n_embed, embed_dim, beta)
+            self.quant_conv = conv1x1(ddconfig["z_channels"], embed_dim, dtype)
+            self.post_quant_conv = conv1x1(embed_dim, ddconfig["z_channels"], dtype)
+
+    def encode(self, x):
+        """(quant, codebook loss, (perplexity, None, indices)) of x [N, H, W, 3]."""
+        return self.quantize(self.encode_prequant(x))
 
     def encode_prequant(self, x):
         """Un-quantized latent (the `VQModelInterface.encode` used by LDM)."""
@@ -243,6 +251,16 @@ class VQModel(nn.Module):
 
     def decode(self, quant):
         return self.decoder(_nhwc(self.post_quant_conv(_nchw(quant))))
+
+    def decode_code(self, code):
+        """Integer codes [N, h, w] -> images."""
+        return self.decode(self.quantize.embed_code(code))
+
+    def forward(self, x):
+        """(reconstruction, codebook loss, indices [N, h, w]): the training
+        forward."""
+        quant, diff, (_, _, indices) = self.encode(x)
+        return self.decode(quant), diff, indices
 
     def decode_interface(self, h, force_not_quantize: bool = False):
         """`VQModelInterface.decode`: quantize the latent (unless

@@ -19,8 +19,8 @@ both products on the tensor cores in split TF32 (hi*lo + lo*hi + hi*hi, about
 leave SMs idle, its parts added by `flash_tf32x3_combine_kernel`. Every
 kernel copies 16-byte pieces: the tensors must be 16-byte aligned with
 strides in multiples of 16 bytes, else `ValueError`. Each launch
-counts under `flash_counter(d)` (per head dim and entry point), and a
-combine under `COMBINE_COUNTER`.
+counts under `flash_counter(d, dtype=)` (per head dim, entry point and
+float32 or not), and a combine under `COMBINE_COUNTER`.
 On the card both run inside autograd Functions whose backward is the vjp of
 the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
 do. `bf16_attention_shares` states the limits a bfloat16 kernel is held to
@@ -98,10 +98,12 @@ def tf32x3_tiling(d: int, dtype=torch.float32):
     return (24, 4, 160) if 512 < d <= 640 else (32, 4, 128)
 
 
-def flash_counter(d: int, packed: bool = False) -> str:
+def flash_counter(d: int, packed: bool = False, dtype: torch.dtype = torch.bfloat16) -> str:
     """The launch counter of the flash kernel at head dim `d`, for the
-    [B, H, N, D] entry point or the packed one."""
-    return f"flash_attention{'_packed' if packed else ''}_d{d}"
+    [B, H, N, D] entry point or the packed one; float32 counts apart
+    (`flash_attention_f32_d{d}`: it runs `flash_tf32x3_kernel`)."""
+    f32 = "_f32" if dtype == torch.float32 else ""
+    return f"flash_attention{'_packed' if packed else ''}{f32}_d{d}"
 
 
 def set_attention_impl(mode: str):
@@ -266,7 +268,7 @@ def flash_attention_kernel(q, k, v, scale=None):
     o = torch.empty_like(q)
     _launch(q, k, v, o, q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3],
             [t.stride()[:3] for t in (q, k, v, o)], scale)
-    kernels.count_launch(flash_counter(d), q.shape[2])
+    kernels.count_launch(flash_counter(d, dtype=q.dtype), q.shape[2])
     return o[..., :d] if d % 8 else o
 
 
@@ -290,7 +292,7 @@ def flash_attention_packed_kernel(q, k, v, heads, scale=None):
     # (batch, head, row) strides of the packed view: heads are dp-column strips
     strides = [(t.stride(0), dp * t.stride(2), t.stride(1)) for t in (q, k, v, o)]
     _launch(q, k, v, o, b, heads, nq, k.shape[1], dp, strides, scale)
-    kernels.count_launch(flash_counter(d, packed=True), nq)
+    kernels.count_launch(flash_counter(d, packed=True, dtype=q.dtype), nq)
     if d % 8:
         return o.reshape(b, nq, heads, dp)[..., :d].reshape(b, nq, hd)
     return o

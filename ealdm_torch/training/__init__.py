@@ -1,6 +1,8 @@
-"""Training layer: the LDM train step, AdamW, EMA, LR schedules and
-checkpointing (counterpart of `ealdm_tpu/training`; its VAE trainer, losses,
-callbacks, stats and TensorBoard writer are not ported yet)."""
+"""Training layer (counterpart of `ealdm_tpu/training`): the LDM train
+step, AdamW, EMA, LR schedules, checkpointing, the first stages' two-
+optimizer VAE-GAN step (`vae_trainer`, with the losses of
+`ealdm_torch.losses`), the callbacks, the cross-process statistics and the
+TensorBoard writer. `main.py`'s loops around them are not ported yet."""
 
 from .checkpoint import CheckpointManager
 from .ema import EmaState, ema_init, ema_update
@@ -10,6 +12,16 @@ from .lr_scheduler import (
     warmup_cosine_cyclic,
     warmup_linear_cyclic,
 )
+from .callbacks import (
+    DeviceStatsCallback,
+    ImageLogger,
+    MetricLogger,
+    SetupCallback,
+    save_png,
+    to_uint8_grid,
+)
+from .stats import Collector, report, report0
+from .tensorboard import TBEventWriter
 from .trainer import (
     AdamW,
     TrainState,
@@ -18,10 +30,32 @@ from .trainer import (
     make_optimizer,
     make_train_step,
 )
+from .vae_trainer import (
+    VAETrainState,
+    build_autoencoder,
+    init_vae_train_state,
+    make_vae_eval_step,
+    make_vae_train_step,
+)
 
 __all__ = [
     "AdamW",
     "CheckpointManager",
+    "Collector",
+    "DeviceStatsCallback",
+    "ImageLogger",
+    "MetricLogger",
+    "SetupCallback",
+    "TBEventWriter",
+    "VAETrainState",
+    "build_autoencoder",
+    "init_vae_train_state",
+    "make_vae_eval_step",
+    "make_vae_train_step",
+    "report",
+    "report0",
+    "save_png",
+    "to_uint8_grid",
     "EmaState",
     "ema_init",
     "ema_update",

@@ -1,9 +1,11 @@
-"""Checkpoints of the train state with the reference's retention rules
+"""Checkpoints of a train state with the reference's retention rules
 (counterpart of `ealdm_tpu/training/checkpoint.py`, which keeps them with
 orbax).
 
-`save` writes the whole TrainState (parameters, EMA shadow, optimizer state,
-step) as `<directory>/<step>/state.pt` with `torch.save`, beside its scalar
+A state is any object with `state_dict()` and `load_state_dict(sd)` (the
+LDM `TrainState`, the first stage's `VAETrainState`). `save` writes the
+whole state (parameters, EMA shadow, optimizer state, step) as
+`<directory>/<step>/state.pt` with `torch.save`, beside its scalar
 metrics, and rewrites `<directory>/last`. With a monitored metric it keeps
 the `save_top_k` best checkpoints that report it and every checkpoint that
 does not (orbax's keep_checkpoints_without_metrics); without one, the
@@ -20,11 +22,9 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
-
-from .trainer import TrainState
 
 _STATE, _META = "state.pt", "meta.json"
 _ASIDE = ".old"
@@ -42,7 +42,7 @@ class CheckpointManager:
         self.every_n_train_steps = every_n_train_steps
         self._last_dir = os.path.join(self.directory, "last")
 
-    def _write(self, path: str, state: TrainState, meta: dict) -> None:
+    def _write(self, path: str, state: Any, meta: dict) -> None:
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -64,7 +64,7 @@ class CheckpointManager:
                 return p
         return None
 
-    def save(self, step: int, state: TrainState, metrics: Optional[dict] = None) -> None:
+    def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> None:
         metrics = {k: float(v) for k, v in (metrics or {}).items()
                    if getattr(v, "ndim", 0) == 0}
         self._write(os.path.join(self.directory, str(int(step))), state,
@@ -72,7 +72,7 @@ class CheckpointManager:
         self._prune()
         self.save_last(state, step)
 
-    def save_last(self, state: TrainState, step: int) -> None:
+    def save_last(self, state: Any, step: int) -> None:
         """The unconditional `last.ckpt` (also the crash-path save)."""
         self._write(self._last_dir, state, {"step": int(step)})
 
@@ -102,16 +102,16 @@ class CheckpointManager:
         for step in drop:
             shutil.rmtree(self._live(os.path.join(self.directory, str(step))))
 
-    def _load(self, path: str, state_template: TrainState) -> TrainState:
+    def _load(self, path: str, state_template: Any) -> Any:
         live = self._live(path)
         if live is None:
             raise FileNotFoundError(f"no checkpoint at {path}")
-        device = next(iter(state_template.params.values())).device
+        device = _first_tensor(state_template.state_dict()).device
         sd = torch.load(os.path.join(live, _STATE), map_location=device, weights_only=True)
         state_template.load_state_dict(sd)
         return state_template
 
-    def restore(self, state_template: TrainState, step: Optional[int] = None) -> TrainState:
+    def restore(self, state_template: Any, step: Optional[int] = None) -> Any:
         """Load checkpoint `step` (the latest if None, else `last`) into
         `state_template`, in place, and return it."""
         if step is None:
@@ -120,7 +120,7 @@ class CheckpointManager:
             return self.restore_last(state_template)
         return self._load(os.path.join(self.directory, str(int(step))), state_template)
 
-    def restore_last(self, state_template: TrainState) -> TrainState:
+    def restore_last(self, state_template: Any) -> Any:
         return self._load(self._last_dir, state_template)
 
     def latest_step(self) -> Optional[int]:
@@ -136,3 +136,13 @@ class CheckpointManager:
     def should_save_every_n(self, step: int) -> bool:
         n = self.every_n_train_steps
         return bool(n) and step > 0 and step % n == 0
+
+
+def _first_tensor(tree: dict) -> Optional[torch.Tensor]:
+    """The first tensor in a state_dict's nested dicts (where the state lives)."""
+    for v in tree.values():
+        found = v if isinstance(v, torch.Tensor) else (
+            _first_tensor(v) if isinstance(v, dict) else None)
+        if found is not None:
+            return found
+    return None

@@ -146,7 +146,9 @@ def load_flax_params(module: torch.nn.Module, tree: Mapping, device=None) -> Non
     sd = flax_to_state_dict(tree)
     check_state_dict(module, sd)
     for name, p in module.named_parameters():
-        p.copy_(torch.from_numpy(np.ascontiguousarray(sd[name], dtype=np.float32)))
+        # reshape: ascontiguousarray makes a 0-d leaf (a loss's logvar) 1-d
+        p.copy_(torch.from_numpy(np.ascontiguousarray(sd[name], dtype=np.float32))
+                .reshape(p.shape))
 
 
 @torch.no_grad()
@@ -158,4 +160,5 @@ def load_flax_ema(ema_state, module: torch.nn.Module, shadow_tree: Mapping) -> N
     if set(ema_state.shadow) != set(sd):
         raise ValueError("the EMA shadow does not cover the module's parameters")
     for name, s in ema_state.shadow.items():
-        s.copy_(torch.from_numpy(np.ascontiguousarray(sd[name], dtype=np.float32)))
+        s.copy_(torch.from_numpy(np.ascontiguousarray(sd[name], dtype=np.float32))
+                .reshape(s.shape))

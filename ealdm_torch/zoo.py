@@ -74,6 +74,31 @@ def _fs_config(name: str) -> Dict[str, Any]:
                        "ddconfig": spec["ddconfig"]}}
 
 
+def _fs_train_config(name: str) -> Dict[str, Any]:
+    """The standalone trainable form of a first-stage entry, shaped as the
+    reference's `models/first_stage_models/*/config.yaml` (VQModel or
+    AutoencoderKL with its GAN lossconfig and monitor), not the frozen
+    `VQModelInterface` form an LDM embeds."""
+    spec = FIRST_STAGES[name]
+    cfg = _fs_config(name)
+    params = dict(cfg["params"])
+    if spec["kind"] == "kl":
+        params["lossconfig"] = {
+            "target": "ldm.modules.losses.LPIPSWithDiscriminator",
+            "params": dict(spec["loss"]),
+        }
+    else:
+        cfg = {"target": "ldm.models.autoencoder.VQModel", "params": params}
+        params["lossconfig"] = {
+            "target": "taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator",
+            "params": dict(spec["loss"]),
+        }
+    monitor = spec.get("monitor", "val/rec_loss")
+    if monitor is not None:
+        params["monitor"] = monitor
+    return copy.deepcopy({"target": cfg["target"], "params": params})
+
+
 # ------------------------------------------------------------------- LDM zoo
 def _unet(**kw):
     base = dict(num_res_blocks=2)
@@ -252,15 +277,15 @@ def model_kwargs(name: str) -> Dict[str, Any]:
 def build(name: str, dtype=torch.float32, device=None):
     """The module of a zoo entry, built on `device` ("cuda" unless given;
     "meta" allocates no weights): the first stage of a
-    "first_stage_models/..." entry, else the LatentDiffusion of
-    `model_kwargs`."""
+    "first_stage_models/..." entry (a trainable VQModel or AutoencoderKL;
+    `training.build_autoencoder(_fs_train_config(name))` adds its GAN
+    loss), else the LatentDiffusion of `model_kwargs`."""
     from .models.ddpm import LatentDiffusion, build_first_stage
 
     dev = resolve_device(device)
     kind, _, short = name.partition("/")
     if kind == "first_stage_models":
-        with torch.device(dev):
-            return build_first_stage(_fs_config(short), dtype, dev)
+        return build_first_stage(_fs_config(short), dtype, dev)
     if kind != "ldm":
         raise KeyError(f"unknown zoo entry {name!r}")
     return LatentDiffusion(**model_kwargs(name), dtype=dtype, device=dev)

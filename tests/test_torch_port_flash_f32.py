@@ -54,10 +54,10 @@ def test_f32_flash_attention_every_head_dim(dev, d):
     q = _randn(1, 2, 1000, d, dev=dev, seed=1)
     k, v = _randn(1, 2, 77, d, dev=dev, seed=2), _randn(1, 2, 77, d, dev=dev, seed=3)
     want = flash_attention_plain(q, k, v)
-    before = kernels.launches[flash_counter(d)]
+    before = kernels.launches[flash_counter(d, dtype=torch.float32)]
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert kernels.launches[flash_counter(d)] == before + 1
+    assert kernels.launches[flash_counter(d, dtype=torch.float32)] == before + 1
     assert (got - want).abs().max().item() <= 1e-4
     got = flash_attention_packed(*(_packed(t) for t in (q, k, v)), 2)
     assert (got - _packed(want)).abs().max().item() <= 1e-4

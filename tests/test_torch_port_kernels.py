@@ -74,7 +74,7 @@ def test_flash_attention(dev, dtype, shape_q, shape_kv):
     q = _randn(*shape_q, dtype=dtype, dev=dev, seed=1)
     k = _randn(*shape_kv, dtype=dtype, dev=dev, seed=2)
     v = _randn(*shape_kv, dtype=dtype, dev=dev, seed=3)
-    name = flash_counter(shape_q[-1])
+    name = flash_counter(shape_q[-1], dtype=dtype)
     before = kernels.launches[name]
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -89,9 +89,9 @@ def test_flash_attention_packed(dev, dtype, n, heads):
     q, k, v = (_randn(b, n, heads * d, dtype=dtype, dev=dev, seed=s) for s in (1, 2, 3))
     want = flash_attention_plain(*(_split_heads(t, heads) for t in (q, k, v)))
     want = want.transpose(1, 2).reshape(q.shape)
-    before = kernels.launches[flash_counter(d, packed=True)]
+    before = kernels.launches[flash_counter(d, packed=True, dtype=dtype)]
     got = flash_attention_packed(q, k, v, heads)
-    assert kernels.launches[flash_counter(d, packed=True)] == before + 1
+    assert kernels.launches[flash_counter(d, packed=True, dtype=dtype)] == before + 1
     assert _attention_ok(got, q, k, v, want, heads)
 
 
@@ -157,10 +157,10 @@ def test_flash_attention_head_dims(dev, dtype, d):
     q = _randn(2, heads, 130, d, dtype=dtype, dev=dev, seed=1)
     k = _randn(2, heads, 97, d, dtype=dtype, dev=dev, seed=2)
     v = _randn(2, heads, 97, d, dtype=dtype, dev=dev, seed=3)
-    before = kernels.launches[flash_counter(d)]
+    before = kernels.launches[flash_counter(d, dtype=dtype)]
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert kernels.launches[flash_counter(d)] == before + 1
+    assert kernels.launches[flash_counter(d, dtype=dtype)] == before + 1
     assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
     pq, pk, pv = (t.transpose(1, 2).reshape(2, t.shape[2], heads * d).contiguous()
                   for t in (q, k, v))
@@ -187,7 +187,7 @@ def test_flash_attention_deep_head_dims(dev, dtype, d):
 
     flash_attention(q, k, v)  # a first launch loads the kernel outside the profile
     torch.cuda.synchronize()
-    before = kernels.launches[flash_counter(d)]
+    before = kernels.launches[flash_counter(d, dtype=dtype)]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -195,7 +195,7 @@ def test_flash_attention_deep_head_dims(dev, dtype, d):
     kernel = "flash_wgmma_deep_kernel" if dtype == torch.bfloat16 else "flash_tf32x3_kernel<"
     assert kernel in seen, seen
     assert got.shape == q.shape
-    assert kernels.launches[flash_counter(d)] == before + 1
+    assert kernels.launches[flash_counter(d, dtype=dtype)] == before + 1
     assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
     pq, pk, pv = (t.transpose(1, 2).reshape(2, t.shape[2], heads * d).contiguous()
                   for t in (q, k, v))
@@ -214,11 +214,11 @@ def test_flash_attention_pads_head_dims(dev, dtype, d):
     q = _randn(2, heads, 130, d, dtype=dtype, dev=dev, seed=1)
     k = _randn(2, heads, 97, d, dtype=dtype, dev=dev, seed=2)
     v = _randn(2, heads, 97, d, dtype=dtype, dev=dev, seed=3)
-    before = kernels.launches[flash_counter(d)]
+    before = kernels.launches[flash_counter(d, dtype=dtype)]
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert got.shape == q.shape
-    assert kernels.launches[flash_counter(d)] == before + 1
+    assert kernels.launches[flash_counter(d, dtype=dtype)] == before + 1
     assert _attention_ok(got, q, k, v, flash_attention_plain(q, k, v))
     pq, pk, pv = (t.transpose(1, 2).reshape(2, t.shape[2], heads * d).contiguous()
                   for t in (q, k, v))

@@ -60,7 +60,7 @@ def random_tree(shapes, seed):
             v = 0.5 + rng.rand(*shape)
         else:
             v = 0.1 * rng.randn(*shape)
-        return v.astype(np.float32)
+        return np.asarray(v, np.float32)  # a 0-d leaf (a loss's logvar) draws a float
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
 

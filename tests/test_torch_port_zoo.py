@@ -176,7 +176,7 @@ def test_vq_attn_type_none():
     dd = dict(zoo.spec("first_stage_models/vq-f4-noattn")["ddconfig"], resolution=16, ch=16,
               ch_mult=[1, 2], num_res_blocks=1)
     jm = j_vae.VQModel(ddconfig=dd, n_embed=32, embed_dim=3)
-    tm = t_vae.VQModel(ddconfig=dd, n_embed=32, embed_dim=3).eval()
+    tm = t_vae.VQModel(ddconfig=dd, n_embed=32, embed_dim=3, device="cpu").eval()
     assert not any(isinstance(m, t_vae.VaeAttnBlock) for m in tm.modules())
     variables = _pair(tm)
     img = np.random.RandomState(6).uniform(-1, 1, (B, 16, 16, 3)).astype(np.float32)
