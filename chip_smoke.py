@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train      # the build and phase 6 (training) only
     python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-16 only
     python3 chip_smoke.py --ae         # the build and phase 17 (first-stage training) only
+    python3 chip_smoke.py --main       # the build and phase 18 (`python -m ealdm_torch.main`) only
     python3 chip_smoke.py --host       # the build and the flash wrapper's host cost
 
 Phases, each of which raises (non-zero exit) on failure:
@@ -153,20 +154,42 @@ Phases, each of which raises (non-zero exit) on failure:
      TensorBoard events, an eval step, a checkpoint save and a bit-equal
      restore, the reconstruction grid through the zlib PNG writer, the
      YAML config; no PyYAML or PIL imported); and the two convergence
-     oracles of tests/test_convergence.py on the port at micro size.
+     oracles of tests/test_convergence.py on the port at micro size;
+  18. the training entry point `ealdm_torch.main.main` from the repo's
+     YAMLs at full width, in a temporary directory it removes: (a) the
+     synthetic stream-camera corpus at 256^2 (four sites of 120 days, its
+     windows held to the reckoning); (b) the flagship YAML, bf16, batch 32,
+     4 steps at the default --log_every, one ImageLogger grid after the
+     last, one validation: launches per step against
+     `expected_train_launches`, every batch on the card, the loop's first
+     loss against `make_train_step` on the same batch, state and generator
+     (2^-8 relative), the img/s of the loop's steps 1-3 and of as many bare
+     steps on a resident batch, alone and with the train loader's
+     prefetcher fetching beside them (each run between two synchronizes,
+     none within), the prefetcher's waits and the steps' host seconds in those
+     steps, peak GiB, each checkpoint's bytes and write seconds, the
+     logdir's files; one bare step with every kernel launch held against
+     its plain version (`hold_sites`); (c) `-r <logdir>`: the configs read
+     back by the port's YAML reader, step 4 restored bit for bit, then step
+     6; (d) `train_autoencoder` on autoencoder_kl_32x32x4.yaml, float32,
+     batch 12, 2 steps on PNGs written by the port's writer: launches
+     against `ae_train_census`, finite losses, the reconstruction grid read
+     back by the port's PNG reader, the memory the earlier runs left.
   Each of phases 7-16 also holds every kernel launch of one bfloat16 pass
   (7, 14, 16: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet
   call and a decode; 9: one UNet call; 10: one round trip) against its
   plain version on the same inputs, at the shapes and strides the path
   gives it (`hold_sites`); 11-16 also report img/s (median of three runs),
   peak GiB and the device's busy time and idle share from one profile.
-  Phases 7-16 run after phase 5 and before phase 6; phase 17 runs last.
+  Phases 7-16 run after phase 5 and before phase 6; phases 17 and 18 run
+  last.
 
 The last lines of output are a `[phase-seconds]` line (the wall seconds
 of each phase or group of phases), `[done]`, a `[paths]` JSON line with
 phases 7-16's numbers, a `[train]` JSON line with phase 6's numbers, an
 `[ae_train_vq_f8]`, `[ae_train_kl_f8]`, `[convergence]` and
-`[ae_train_seconds]` line with phase 17's, the card's name and power
+`[ae_train_seconds]` line with phase 17's, a `[main]` line with phase
+18's, the card's name and power
 limit, a JSON line with every kernel's numbers (not with --train), and
 {"ok": true, "device": {...}}.
 """
@@ -3487,12 +3510,10 @@ def ae_modules(cfg, seed, device):
     JAX's 1/C and logvar at its initial value, as built."""
     import torch
 
-    from ealdm_torch.training import build_autoencoder
+    from ealdm_torch.training import build_autoencoder, random_init_autoencoder_
 
     vae, loss = build_autoencoder(cfg["model"], torch.float32, device)
-    random_init_(vae, seed)
-    random_init_(loss.perceptual.vgg, seed + 1)
-    loss.discriminator.init_weights_(torch.Generator().manual_seed(seed + 2))
+    random_init_autoencoder_(vae, loss, seed)
     return vae, loss
 
 
@@ -4174,6 +4195,388 @@ def phases_ae_train(cfg_module):
     return details, out, rows
 
 
+# ------------------------------------------------------------------ phase 18
+MAIN_YAML = "configs/latent-diffusion/stdiff_cin-ldm-vq-f8.yaml"
+MAIN_AE_YAML = "configs/autoencoder/autoencoder_kl_32x32x4.yaml"
+# four sites, the default test site among them, 120 days each: with l_seq 1
+# a site gives 119 windows; phase "trainval" keeps round(0.375 * 119) = 45
+# and 119 - round(0.675 * 119) = 39 of them, phase "test" (the default test
+# site only) 80 - 45 = 35
+MAIN_SITES = ("Avery Brook_Bridge_01171000", "Site_A_01", "Site_B_02", "Site_C_03")
+MAIN_DAYS = 120
+MAIN_WINDOWS = {"train": 4 * (45 + 39), "validation": 35}
+MAIN_STEPS, MAIN_RESUME_STEPS, MAIN_AE_STEPS = 4, 6, 2
+MAIN_AE_IMAGES = {"train": 24, "validation": 12}
+
+
+def timed_checkpoint_writes(records):
+    """CheckpointManager._write wrapped to log each checkpoint's bytes and
+    write seconds into `records`; returns the original to restore."""
+    from ealdm_torch.training import checkpoint
+
+    original = checkpoint.CheckpointManager._write
+
+    def write(self, path, state, meta):
+        t0 = time.perf_counter()
+        original(self, path, state, meta)
+        records.append(dict(checkpoint=os.path.relpath(path, os.path.dirname(self.directory)),
+                            bytes=os.path.getsize(os.path.join(path, "state.pt")),
+                            seconds=time.perf_counter() - t0))
+
+    checkpoint.CheckpointManager._write = write
+    return original
+
+
+def logdir_files(logdir):
+    out = []
+    for root, _, files in os.walk(logdir):
+        for f in sorted(files):
+            p = os.path.join(root, f)
+            out.append((os.path.relpath(p, logdir), os.path.getsize(p)))
+    return sorted(out)
+
+
+def tensors_on(batch, device_type):
+    """Whether every tensor leaf of a batch lies on `device_type`, and that
+    its numeric leaves are tensors."""
+    import numpy as np
+    import torch
+
+    if isinstance(batch, dict):
+        return all(tensors_on(v, device_type) for v in batch.values())
+    if isinstance(batch, torch.Tensor):
+        return batch.device.type == device_type
+    return isinstance(batch, np.ndarray) and batch.dtype.kind in "USO"
+
+
+class LoopProbe:
+    """`ealdm_torch.main.main`'s on_batch and on_step hooks: each step's
+    kernel launches (counted on the host between the two hooks) and
+    metrics (device tensors, read after the run), whether each batch
+    reached the step on the card, the first batch with the generator's
+    state before its step, and the wall of steps `window` (first, last): a
+    synchronize at the first one's batch and after the last one, none
+    between, so the loop runs there as it does unprobed."""
+
+    def __init__(self, window):
+        self.window = window
+        self.launches, self.metrics, self.on_card = [], [], []
+        self.first = None
+        self.walls = []
+
+    def on_batch(self, step, batch, generator):
+        import torch
+
+        from ealdm_torch import kernels
+
+        if step == self.window[0]:
+            torch.cuda.synchronize()
+            self.walls.append(time.perf_counter())
+        kernels.reset_launch_counts()
+        self.on_card.append(tensors_on(batch, "cuda"))
+        if self.first is None:
+            clone = lambda b: ({k: clone(v) for k, v in b.items()} if isinstance(b, dict)  # noqa
+                               else b.clone() if isinstance(b, torch.Tensor) else b)
+            self.first = (clone(batch), generator.get_state())
+
+    def on_step(self, step, metrics):
+        import torch
+
+        from ealdm_torch import kernels
+
+        self.launches.append(dict(kernels.launch_details))
+        self.metrics.append(metrics)
+        if step == self.window[1]:
+            torch.cuda.synchronize()
+            self.walls.append(time.perf_counter())
+
+    @property
+    def hooks(self):
+        return dict(on_batch=self.on_batch, on_step=self.on_step)
+
+    @property
+    def window_s(self):
+        return self.walls[1] - self.walls[0]
+
+
+def release():
+    """Free what the dropped references held on the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main_corpus(root):
+    """(a) the synthetic stream-camera corpus at 256^2 and the dataset
+    lengths it gives, held to MAIN_WINDOWS."""
+    from ealdm_torch.data.stdiff import StreamCameraDataset
+    from ealdm_torch.data.synthetic import generate_synthetic_dataset
+
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(root, sites=MAIN_SITES, n_days=MAIN_DAYS, image_size=256, seed=0)
+    lengths = {split: len(StreamCameraDataset(root, root, phase=phase,
+                                              path_scaler=os.path.join(root, "count")))
+               for split, phase in (("train", "trainval"), ("validation", "test"))}
+    size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(root) for f in fs)
+    log(f"[main] (a) corpus: {len(MAIN_SITES)} sites x {MAIN_DAYS} days at 256^2, {size} bytes, "
+        f"written in {time.perf_counter() - t0:.1f} s; windows {lengths} (reckoned "
+        f"{MAIN_WINDOWS})")
+    if lengths != MAIN_WINDOWS:
+        raise RuntimeError("the corpus's windows differ from the reckoning")
+    return lengths
+
+
+def phase_main_ldm(root, corpus):
+    """(b) `ealdm_torch.main.main` on the flagship YAML at full width, bf16,
+    MAIN_STEPS steps at the default --log_every, one ImageLogger grid after
+    the last step, one validation; then the same first step through
+    `make_train_step` on the loop's first batch and generator, as many bare
+    steps on that resident batch, alone and with the train loader's
+    prefetcher fetching a batch before each (img/s: the batch times the
+    steps after the first over their wall, one synchronize before and one
+    after), and one bare step with every launch held against its plain
+    version; (c) the resume to MAIN_RESUME_STEPS."""
+    import json as _json
+
+    import torch
+
+    from ealdm_torch import kernels
+    from ealdm_torch import main as tmain
+    from ealdm_torch.config import load_config
+    from ealdm_torch.data.pipeline import DevicePrefetcher
+    from ealdm_torch.training import make_optimizer, make_train_step
+    from ealdm_torch.utils.profiling import StepTimer
+
+    dots = [f"data.params.{split}.params.{key}={corpus}/" for split in ("train", "validation")
+            for key in ("path", "path_weather")]
+    dots += [f"lightning.callbacks.image_logger.params.batch_frequency={MAIN_STEPS}",
+             "lightning.callbacks.image_logger.params.max_images=4"]
+    common = ["-b", os.path.join(HERE, MAIN_YAML), "--dtype", "bfloat16", "--third_stage",
+              "false", "--device", "cuda"]
+    steady = MAIN_STEPS - 1
+    writes, probe, timer = [], LoopProbe((1, MAIN_STEPS - 1)), StepTimer()
+    original_write = timed_checkpoint_writes(writes)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logdir, model, state = tmain.main(
+            common + ["-t", "--max_steps", str(MAIN_STEPS), "-l", os.path.join(root, "logs"),
+                      *dots], timer=timer, **probe.hooks)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        batch_size = probe.first[0]["img"].shape[0]
+        losses = [m["loss"].item() for m in probe.metrics]
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            vals = [r for r in map(_json.loads, f) if "val/loss_simple_ema" in r]
+        n_params = sum(p.numel() for p in model.parameters())
+        want, want_totals = expected_train_launches(model, batch_size, {"res": 256, "zres": 32},
+                                                    "dots")
+        for i, got in enumerate(probe.launches):
+            check_launches(f"main-loop step {i}", want, got)
+        if not all(probe.on_card) or len(probe.on_card) != MAIN_STEPS:
+            raise RuntimeError(f"a batch did not reach the step on the card: {probe.on_card}")
+        if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses) or not vals:
+            raise RuntimeError(f"the loop's losses {losses} and validations {vals}")
+        saved = {k: p.detach().cpu() for k, p in state.params.items()}
+        files = logdir_files(logdir)
+        del model, state
+        release()
+
+        # the bare step: the same first step, then the resident batch
+        with tmain.kernel_settings():
+            _, model, state = tmain.main(common + ["-l", os.path.join(root, "bare"), *dots])
+            step = make_train_step(model, make_optimizer(batch_size * 1e-6))
+            batch, gen_state = probe.first
+            gen = torch.Generator()
+            gen.set_state(gen_state)
+            bare_metrics, bare_launches = [], []
+            for i in range(MAIN_STEPS):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                kernels.reset_launch_counts()
+                _, m = step(state, batch, gen)
+                bare_launches.append(dict(kernels.launch_details))
+                bare_metrics.append(m)
+            torch.cuda.synchronize()
+            bare_s = time.perf_counter() - t1
+            bare_losses = [m["loss"].item() for m in bare_metrics]
+            # the same bare steps with the loop's ETL beside them: a batch
+            # taken from the train loader's prefetcher before each step, unused
+            loader = tmain._data(load_config([os.path.join(HERE, MAIN_YAML)], dots),
+                                 23)[0].train_dataloader()
+            fetched = iter(DevicePrefetcher(loader, "cuda"))
+            next(fetched)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(steady):
+                next(fetched)
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            etl_s = time.perf_counter() - t1
+            fetched.close()
+            sites = hold_sites("main-held", lambda: step(state, batch, gen), grad=True)
+        for i, got in enumerate(bare_launches):
+            check_launches(f"main-bare step {i}", want, got)
+        first_rel = abs(losses[0] - bare_losses[0]) / abs(bare_losses[0])
+        del model, state, step, batch, bare_metrics
+        release()
+
+        # (c) the resume: the configs read back, step MAIN_STEPS restored bit
+        # for bit, then MAIN_RESUME_STEPS
+        t1 = time.perf_counter()
+        _, model, state = tmain.main(["-r", logdir, "--dtype", "bfloat16", "--device", "cuda"])
+        differ = [k for k, p in state.params.items() if not torch.equal(p.detach().cpu(),
+                                                                        saved[k])]
+        n_tensors = len(saved)
+        restored_step = state.step
+        del model, state, saved
+        release()
+        _, model, state = tmain.main(["-r", logdir, "-t", "--max_steps", str(MAIN_RESUME_STEPS),
+                                      "--dtype", "bfloat16", "--third_stage", "false",
+                                      "--log_every", "1", "--device", "cuda"])
+        resumed_step = state.step
+        resume_s = time.perf_counter() - t1
+        del model, state
+        release()
+    finally:
+        from ealdm_torch.training import checkpoint
+
+        checkpoint.CheckpointManager._write = original_write
+    # the host's share of the loop's steps 1..MAIN_STEPS-1: each step's call
+    # (enqueue, and waits on the device where the queue is full) and the
+    # prefetcher's waits for batches 2..MAIN_STEPS-1, fetched between them
+    waits = timer.buckets.get("data_wait", [])
+    calls = timer.buckets.get("train_step", [])
+    out = dict(
+        parameters_m=n_params / 1e6, batch=batch_size, dtype="bfloat16", steps=MAIN_STEPS,
+        log_every="default", loop_s=loop_s, losses=losses, val=vals[-1],
+        steady_steps=steady, loop_steady_s=probe.window_s,
+        loop_img_per_s=batch_size * steady / probe.window_s,
+        bare_steady_s=bare_s, bare_img_per_s=batch_size * steady / bare_s,
+        bare_etl_steady_s=etl_s, bare_etl_img_per_s=batch_size * steady / etl_s,
+        bare_losses=bare_losses, first_loss_rel=first_rel,
+        prefetch_wait_s=waits, prefetch_wait_steady_s=sum(waits[2:MAIN_STEPS]),
+        train_step_call_s=calls, train_step_call_steady_s=sum(calls[1:MAIN_STEPS]),
+        peak_gib=peak_gib, checkpoints=writes, logdir_files=files,
+        launches_per_step=want_totals, held_sites=len(sites), held_worst=max(sites.values()),
+        restored_step=restored_step, restored_differ=len(differ), resumed_step=resumed_step,
+        resume_s=resume_s)
+    log(f"[main] (b) {n_params / 1e6:.1f} M parameters, batch {batch_size}, bf16: loop "
+        f"{loop_s:.1f} s for {MAIN_STEPS} steps; steps 1-{steady}: loop {probe.window_s:.4f} s "
+        f"= {out['loop_img_per_s']:.3f} img/s (train_step calls "
+        f"{out['train_step_call_steady_s']:.4f} s, prefetch waits "
+        f"{out['prefetch_wait_steady_s']:.4f} s), bare make_train_step on the resident batch "
+        f"{bare_s:.4f} s = {out['bare_img_per_s']:.3f} img/s, with the loop's ETL beside it "
+        f"{etl_s:.4f} s = {out['bare_etl_img_per_s']:.3f} img/s; prefetch waits "
+        f"{[round(w, 4) for w in waits]} s; peak {peak_gib:.2f} GiB")
+    log(f"[main] (b) losses {losses}, bare {bare_losses}: first step {first_rel:.3g} relative "
+        f"(limit {2**-8:.3g}); launches per step as the module tree gives: {want_totals}")
+    for w in writes:
+        log(f"[main] checkpoint {w['checkpoint']}: {w['bytes']} bytes in {w['seconds']:.2f} s")
+    log(f"[main] logdir {[f'{p} {n}' for p, n in files]}")
+    log(f"[main] (c) resume: step {restored_step} restored, {len(differ)} of {n_tensors} "
+        f"parameter tensors differ from the saved ones; then step {resumed_step}, "
+        f"{resume_s:.1f} s")
+    if first_rel > 2**-8:
+        raise RuntimeError("the loop's first loss differs from make_train_step's")
+    if differ or restored_step != MAIN_STEPS or resumed_step != MAIN_RESUME_STEPS:
+        raise RuntimeError(f"the resume restored step {restored_step} with {differ[:4]} "
+                           f"differing, and reached step {resumed_step}")
+    return probe.launches[0], out
+
+
+def phase_main_ae(root):
+    """(d) `ealdm_torch.main.main` on autoencoder_kl_32x32x4.yaml at full
+    width, float32, batch 12, MAIN_AE_STEPS steps, on folders of 256^2 PNGs
+    written by the port's writer; the first step's launches against phase
+    17's census, the reconstruction grid read back by the port's reader."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from ealdm_torch import main as tmain
+    from ealdm_torch.config import load_config
+    from ealdm_torch.losses import build_loss
+    from ealdm_torch.utils.png import encode_png, load_png
+
+    rng = np.random.RandomState(7)
+    dots = []
+    for split, n in MAIN_AE_IMAGES.items():
+        d = os.path.join(root, "pngs", split)
+        os.makedirs(d)
+        for i in range(n):
+            with open(os.path.join(d, f"{i:03d}.png"), "wb") as f:
+                f.write(encode_png(rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)))
+        dots.append(f"data.params.{split}={{target: ldm.data.lsun.LSUNChurchesTrain, "
+                    f"params: {{data_root: '{d}', size: 256}}}}")
+    probe = LoopProbe((1, MAIN_AE_STEPS - 1))
+    resident_gib = torch.cuda.memory_allocated() / 2**30  # what the runs before left
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logdir, vae, state = tmain.main(
+        ["-b", os.path.join(HERE, MAIN_AE_YAML), "-t", "--max_steps", str(MAIN_AE_STEPS),
+         "--log_every", "1", "--device", "cuda", "-l", os.path.join(root, "ae_logs"), *dots],
+        **probe.hooks)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cfg = load_config([os.path.join(HERE, MAIN_AE_YAML)], dots)
+    loss = build_loss(cfg["model"]["params"]["lossconfig"], device="cpu")
+    want, totals = ae_train_census(vae, loss, 12, 256)
+    for i, got in enumerate(probe.launches):
+        check_launches(f"main-ae step {i}", want, got)
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [_json.loads(line) for line in f]
+    train = [r for r in rows if "train/total_loss" in r]
+    finite = all(math.isfinite(v) for r in train for v in r.values())
+    grid_path = os.path.join(logdir, "images", "val", f"recon_gs-{MAIN_AE_STEPS:06d}.png")
+    grid = load_png(grid_path)
+    out = dict(steps=MAIN_AE_STEPS, batch=12, dtype="float32", seconds=seconds,
+               steady_step_s=probe.window_s, resident_before_gib=resident_gib,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               aeloss=[r.get("aeloss") for r in train], val=[r for r in rows if "val/rec_loss" in r],
+               grid_shape=list(grid.shape), launches_per_step=totals,
+               on_card=all(probe.on_card), logdir_files=logdir_files(logdir))
+    log(f"[main] (d) train_autoencoder: {seconds:.1f} s, step 1 {probe.window_s:.4f} s, aeloss "
+        f"{out['aeloss']}, grid {grid.shape}, peak {out['peak_gib']:.2f} GiB ({resident_gib:.2f} "
+        f"GiB resident before the run), launches per step as phase 17's census gives: {totals}")
+    if (len(train) != MAIN_AE_STEPS or not finite or not out["val"] or not all(probe.on_card)
+            or len(probe.launches) != MAIN_AE_STEPS or grid.shape != (768, 1024, 3)
+            or grid.dtype != np.uint8 or grid.std() == 0):
+        raise RuntimeError(f"train_autoencoder: {out}")
+    details = probe.launches[0]
+    del vae, state, probe
+    release()
+    return details, out
+
+
+def phase_main():
+    """Phase 18, the training entry point `python -m ealdm_torch.main` from
+    the repo's YAMLs at full width: (a) the corpus, (b) the LDM loop beside
+    the bare step, (c) the resume, (d) the first-stage loop. Everything it
+    writes lives in a temporary directory it removes. Returns ({path: one
+    step's launch details}, numbers)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="ealdm_main_")
+    try:
+        t0 = time.perf_counter()
+        corpus = os.path.join(root, "corpus")
+        windows = main_corpus(corpus)
+        ldm_details, ldm = phase_main_ldm(root, corpus)
+        ae_details, ae = phase_main_ae(root)
+        out = dict(windows=windows, ldm=ldm, ae=ae, seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"main_ldm_step": ldm_details, "main_ae_step": ae_details}, out
+
+
 def main(argv):
     # Finalize CUPTI when each torch.profiler trace ends: left on, its
     # callbacks slow every later launch on the host and so every timed run
@@ -4213,10 +4616,11 @@ def main(argv):
     train_only = "--train" in argv
     paths_only = "--paths" in argv
     ae_only = "--ae" in argv
+    main_only = "--main" in argv
     rows, head_dim_grads = {}, None
     if "--groupnorm" in argv:
         rows = phase_group_norm()
-    elif not (train_only or ae_only):
+    elif not (train_only or ae_only or main_only):
         timed("1 sass", phase_sass)
         if not paths_only:
             rows = timed("2 kernels", phase_kernels)
@@ -4225,7 +4629,7 @@ def main(argv):
         head_dim_rows, head_dim_grads = timed("2c head dims", phase_head_dims)
         rows.update(head_dim_rows)
     launches_by_path = {}
-    if not {"--kernels", "--groupnorm", "--train", "--paths", "--ae"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--train", "--paths", "--ae", "--main"} & set(argv):
         steps, batch = 50, 24
         t_main = time.perf_counter()
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
@@ -4249,20 +4653,24 @@ def main(argv):
         launches_by_path["flagship"] = details
         seconds["3-5 flagship"] = time.perf_counter() - t_main
     paths = None
-    if not {"--kernels", "--groupnorm", "--train", "--ae"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--train", "--ae", "--main"} & set(argv):
         path_details, paths = timed("7-16 paths", phases_paths, cfg_module)
         launches_by_path.update(path_details)
         paths["flash_grad_worst"] = head_dim_grads
     train = None
-    if not {"--kernels", "--groupnorm", "--paths", "--ae"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--paths", "--ae", "--main"} & set(argv):
         train_details, train = timed("6 train", phases_train, cfg_module)
         launches_by_path.update(train_details)
     ae_train = None
-    if not {"--kernels", "--groupnorm", "--paths", "--train"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--paths", "--train", "--main"} & set(argv):
         ae_details, ae_train, ae_rows = timed("17 first-stage training", phases_ae_train,
                                               cfg_module)
         launches_by_path.update(ae_details)
         rows.update(ae_rows)
+    main_run = None
+    if not {"--kernels", "--groupnorm", "--paths", "--train", "--ae"} & set(argv):
+        main_details, main_run = timed("18 main", phase_main)
+        launches_by_path.update(main_details)
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row; a train path's: one step); a row the flagship does
@@ -4284,6 +4692,8 @@ def main(argv):
     if ae_train is not None:
         for key, numbers in ae_train.items():
             log(f"[{key}] {json.dumps(numbers)}")
+    if main_run is not None:
+        log(f"[main] {json.dumps(main_run)}")
     log(smi)
     if not train_only:
         log(json.dumps({"kernels": list(rows.values())}))

@@ -549,3 +549,17 @@ class DDPM(LatentDiffusion):
                  unconditional_guidance_scale: float = 1.0, **kwargs):
         super().__init__(unet_config, first_stage_config, cond_stage_config,
                          unconditional_guidance_scale=unconditional_guidance_scale, **kwargs)
+
+
+class Layout2ImgDiffusion(LatentDiffusion):
+    """The bbox-layout-conditioned LDM of the JAX package's registry: the
+    layout's tokens under `cond_stage_key` through the configured cond
+    encoder, no training-time guidance."""
+
+    def __init__(self, unet_config, first_stage_config=None,
+                 cond_stage_config="__is_unconditional__",
+                 cond_stage_key: str = "coordinates_bbox",
+                 unconditional_guidance_scale: float = 1.0, **kwargs):
+        super().__init__(unet_config, first_stage_config, cond_stage_config,
+                         cond_stage_key=cond_stage_key,
+                         unconditional_guidance_scale=unconditional_guidance_scale, **kwargs)

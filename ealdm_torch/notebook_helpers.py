@@ -1,19 +1,23 @@
 """Notebook helpers (counterpart of the root `notebook_helpers.py`): model
-selection from the zoo, the conditioning examples, and the convolutional
-sampling workflow of the super-resolution and class-conditional modes.
+selection (the zoo, the flagship's YAML, a run directory), the
+conditioning examples, the convolutional sampling workflow of the
+super-resolution and class-conditional modes, and the PNG helpers.
 
     model = notebook_helpers.get_model("superresolution", dtype=torch.bfloat16)
-    logs = notebook_helpers.run(model, "ealdm_torch/data/superresolution_examples.npz")
+    logs = notebook_helpers.run(model, "data/example_conditioning/superresolution/sample_0.png")
+    notebook_helpers.visualize(logs["sample"], "sample.png")
 
-Models come from `ealdm_torch.zoo` with seeded random weights. The card
-has no imaging package, so a conditioning image is an [H, W, 3] uint8
-array or a committed `.npz` of one (`data/superresolution_examples.npz`
-holds `data/example_conditioning/superresolution/sample_0.png` decoded).
-`run` switches split-input patching on for inputs of 128 px and more, with
-the reference's 128 / 64 crop grid.
+Models come from `ealdm_torch.zoo` or `config.model_from_config` with
+seeded random weights, or from a run's checkpoint (its EMA weights). A
+conditioning image is a PNG (read by `utils/png.py`: the card has no
+imaging package), an [H, W, 3] uint8 array, or a `.npz` of one.
+`visualize_cond_img` returns the image as an array (the JAX package
+returns a PIL image). `run` switches split-input patching on for inputs of
+128 px and more, with the reference's 128 / 64 crop grid.
 """
 from __future__ import annotations
 
+import glob
 import os
 import re
 import shutil
@@ -31,6 +35,7 @@ from .ops.schedules import DDIMSchedule, DiffusionSchedule
 from .samplers.ddim import DDIMConfig, ddim_sample
 from .utils.device import resolve_device
 from .utils.init import random_init_
+from .utils.png import load_png, to_rgb
 
 # mode -> zoo entry
 MODEL_ZOO = {
@@ -38,34 +43,57 @@ MODEL_ZOO = {
     "class_conditional": "ldm/cin256",
     "stdiff": None,  # the flagship's YAML config
 }
-_CONFIG_ITEM = "ROADMAP queue 1 item 5 (the config system)"
-_PNG_ITEM = "ROADMAP queue 1 item 5 (the PNG writer)"
+_STDIFF_CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs", "latent-diffusion", "stdiff_cin-ldm-vq-f8.yaml")
 
 
 def get_model(mode: str = "stdiff", run_dir: Optional[str] = None,
               zoo_name: Optional[str] = None, *, seed: int = 0, dtype=torch.float32,
               device=None):
-    """The zoo model of `mode` (or `zoo_name`) with seeded random weights
-    (`utils.init.random_init_`), in eval mode on `device` ("cuda" unless
-    given). The "stdiff" mode and a `run_dir` restore read YAML configs and
-    are not ported yet."""
+    """The model of `mode`, in eval mode on `device` ("cuda" unless given;
+    "meta" allocates no weights): the zoo entry (or `zoo_name`), or for
+    "stdiff" the flagship's YAML (`configs/latent-diffusion/
+    stdiff_cin-ldm-vq-f8.yaml`) through `config.model_from_config`, with
+    seeded random weights (`utils.init.random_init_`). With `run_dir` (a
+    run of `ealdm_torch.main`), the model of the run's own configs/*.yaml
+    with the EMA weights of its last checkpoint (its parameters where it
+    kept no EMA); the JAX package builds the mode's model for the run."""
     from . import zoo
+    from .config import load_config, model_from_config
 
     if run_dir:
-        raise NotImplementedError(f"restoring a run directory needs {_CONFIG_ITEM}")
-    if mode == "stdiff" and zoo_name is None:
-        raise NotImplementedError(f"the stdiff mode needs {_CONFIG_ITEM}")
-    model = zoo.build(zoo_name or MODEL_ZOO[mode], dtype=dtype, device=device).eval()
+        cfgs = sorted(glob.glob(os.path.join(run_dir, "configs", "*.yaml")))
+        model, _ = model_from_config(load_config(cfgs)["model"], dtype=dtype, device=device)
+    elif mode == "stdiff" and zoo_name is None:
+        model, _ = model_from_config(load_config([_STDIFF_CFG])["model"], dtype=dtype,
+                                     device=device)
+    else:
+        model = zoo.build(zoo_name or MODEL_ZOO[mode], dtype=dtype, device=device)
+    model.eval()
+    if next(model.parameters()).is_meta:
+        return model
     random_init_(model, seed)
+    if run_dir:
+        from .training import CheckpointManager, init_train_state
+
+        state, _ = init_train_state(model, device=next(model.parameters()).device)
+        CheckpointManager(os.path.join(run_dir, "checkpoints"), monitor=None).restore_last(state)
+        if state.ema is not None:
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(state.ema.shadow[k])
     return model
 
 
 def _load_image(value) -> np.ndarray:
-    """An [H, W, 3] uint8 array, or the one array of a `.npz` file."""
+    """An [H, W, 3] uint8 array, the one array of a `.npz` file, or a PNG
+    file (converted as PIL's convert("RGB"))."""
     if isinstance(value, (str, os.PathLike)):
+        if str(value).lower().endswith(".png"):
+            return to_rgb(load_png(str(value)))
         if not str(value).endswith(".npz"):
-            raise ValueError(f"{value}: give an [H, W, 3] uint8 array or a .npz of one "
-                             "(no image decoder on the card)")
+            raise ValueError(f"{value}: give a PNG, an [H, W, 3] uint8 array or a .npz of one "
+                             "(no other image decoder on the card)")
         with np.load(value) as arrays:
             if len(arrays.files) != 1:
                 raise ValueError(f"{value} holds {arrays.files}, not one image")
@@ -79,7 +107,7 @@ def _load_image(value) -> np.ndarray:
 def get_cond(mode: str, selected_path_or_value, device=None) -> Dict[str, Any]:
     """The conditioning example on `device` ("cuda" unless given).
 
-    superresolution: an image (see `_load_image`) -> {"LR_image": [1, H, W,
+    superresolution: an image (a PNG path, see `_load_image`) -> {"LR_image": [1, H, W,
     3] in [-1, 1], "image": its 4x bilinear upsample (`resize_nhwc`, JAX's
     `jax.image.resize`) in [-1, 1]}. class_conditional: a class id ->
     {"class_label": [1] int64}."""
@@ -171,11 +199,18 @@ def run(model, selected_path_or_value, task: str = "superresolution",
 
 
 def visualize(images, path: str = "notebook_sample.png"):
-    raise NotImplementedError(f"writing a PNG needs {_PNG_ITEM}")
+    """[N, H, W, C] images in [-1, 1] as one PNG grid at `path`; returns the
+    path."""
+    from .training.callbacks import save_png, to_uint8_grid
+
+    save_png(path, to_uint8_grid(images))
+    return path
 
 
-def visualize_cond_img(path: str):
-    raise NotImplementedError(f"reading a PNG needs {_PNG_ITEM}")
+def visualize_cond_img(path: str) -> np.ndarray:
+    """A conditioning image for display: the PNG's pixels as uint8 (the JAX
+    package returns a PIL image; the card has no imaging package)."""
+    return load_png(path)
 
 
 def get_cond_options(mode: str, root: str = "data/example_conditioning"):

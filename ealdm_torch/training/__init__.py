@@ -2,7 +2,7 @@
 step, AdamW, EMA, LR schedules, checkpointing, the first stages' two-
 optimizer VAE-GAN step (`vae_trainer`, with the losses of
 `ealdm_torch.losses`), the callbacks, the cross-process statistics and the
-TensorBoard writer. `main.py`'s loops around them are not ported yet."""
+TensorBoard writer. `ealdm_torch.main` runs the loops around them."""
 
 from .checkpoint import CheckpointManager
 from .ema import EmaState, ema_init, ema_update
@@ -36,6 +36,7 @@ from .vae_trainer import (
     init_vae_train_state,
     make_vae_eval_step,
     make_vae_train_step,
+    random_init_autoencoder_,
 )
 
 __all__ = [
@@ -52,6 +53,7 @@ __all__ = [
     "init_vae_train_state",
     "make_vae_eval_step",
     "make_vae_train_step",
+    "random_init_autoencoder_",
     "report",
     "report0",
     "save_png",

@@ -38,6 +38,7 @@ from ..losses import adaptive_d_weight, build_loss
 from ..models.ddpm import build_first_stage
 from ..models.vae import AutoencoderKL
 from ..utils.device import check_module_device
+from ..utils.init import random_init_
 from .trainer import AdamW, AdamWState, _copy_into, _seed
 
 # the LPIPS checkpoints the JAX package's init loads from $EALDM_WEIGHTS_DIR
@@ -52,6 +53,18 @@ def build_autoencoder(model_config: Dict, dtype=torch.float32, device=None):
     `config.VQ_F8_AE_TRAIN`), both on `device` ("cuda" unless given)."""
     vae = build_first_stage(model_config, dtype, device)
     return vae, build_loss(model_config["params"]["lossconfig"], dtype, device)
+
+
+def random_init_autoencoder_(vae, loss_module, seed: int) -> None:
+    """Seeded random weights for a first stage and its loss module:
+    `utils.init.random_init_` for the autoencoder (seed) and LPIPS's VGG
+    trunk (seed + 1), the discriminator's N(0, 0.02^2) (seed + 2); LPIPS's
+    heads and logvar keep their initial values."""
+    random_init_(vae, seed)
+    perceptual = getattr(loss_module, "perceptual", None)
+    if perceptual is not None:
+        random_init_(perceptual.vgg, seed + 1)
+    loss_module.discriminator.init_weights_(torch.Generator().manual_seed(seed + 2))
 
 
 @dataclasses.dataclass

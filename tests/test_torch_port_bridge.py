@@ -88,17 +88,22 @@ def _sources():
 
 
 IMPORTS_JAX = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|ealdm_tpu)\b", re.M)
+# what the card's machine does not have: a YAML parser, an imaging package,
+# pandas, h5py
+IMPORTS_MISSING = re.compile(r"^\s*(import|from)\s+(yaml|PIL|pandas|h5py)\b", re.M)
 
 
 def test_source_scan():
-    """No import of JAX or the JAX package, no library attention and no
-    torch.compile anywhere in the port; no JAX import and no torch.compile in
-    chip_smoke.py (which times the library attention as a yardstick only).
-    Comments may still name the JAX files each module is a counterpart of."""
+    """No import of JAX or the JAX package, nor of PyYAML, PIL, pandas or
+    h5py, no library attention and no torch.compile anywhere in the port; no
+    JAX import and no torch.compile in chip_smoke.py (which times the library
+    attention as a yardstick only). Comments may still name the JAX files
+    each module is a counterpart of."""
     banned = re.compile(r"scaled_dot_product_attention|torch\.compile")
     for p in _sources():
         text = p.read_text()
         assert not IMPORTS_JAX.search(text), p
+        assert not IMPORTS_MISSING.search(text), p
         assert not banned.search(text), p
     smoke = (REPO / "chip_smoke.py").read_text()
     assert not IMPORTS_JAX.search(smoke)

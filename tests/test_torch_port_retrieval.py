@@ -252,9 +252,7 @@ def test_rdm768_mirrors_the_yaml():
     assert kw["unet_config"] == params["unet_config"]["params"]
     assert kw["cond_stage_config"] == params["cond_stage_config"]
     fs = params["first_stage_config"]
-    assert kw["first_stage_config"]["target"] == fs["target"]
-    assert kw["first_stage_config"]["params"] == {
-        k: v for k, v in fs["params"].items() if k not in ("lossconfig", "monitor")}
+    assert kw["first_stage_config"] == fs
     rest = {k: v for k, v in kw.items()
             if k not in ("unet_config", "cond_stage_config", "first_stage_config")}
     assert rest == {k: params[k] for k in _LD_KEYS if k in params}

@@ -11,8 +11,10 @@ against the root `notebook_helpers.py`, float32 on the CPU:
 - the committed `ealdm_torch/data/superresolution_examples.npz` is the
   example PNG as PIL decodes it;
 - `hoist_invariants` falls back to the plain step under
-  `split_input_params`, and the helpers refuse what needs the config
-  system or an image decoder.
+  `split_input_params`; the helpers that waited for the config system and
+  the PNG reader work: `get_model("stdiff")` (the flagship's YAML, on
+  "meta"), `get_model(run_dir=...)` (a run of `ealdm_torch.main`: its EMA
+  weights), `visualize` and `visualize_cond_img`.
 """
 import pathlib
 
@@ -22,11 +24,13 @@ import pytest
 import torch
 
 import notebook_helpers as nh
+from ealdm_torch import config as t_config
 from ealdm_torch import notebook_helpers as tnh
 from ealdm_torch.inference import hoist_invariants, make_eps_fn
 from ealdm_torch.models.ddpm import LatentDiffusion as TorchLDM
 from ealdm_torch.ops.patching import DEFAULT_SPLIT_PARAMS
 from ealdm_torch.ops.schedules import DDIMSchedule, DiffusionSchedule
+from ealdm_torch.training.callbacks import to_uint8_grid
 from ealdm_tpu.ops import schedules as jax_schedules
 from tests.test_notebook_helpers import _tiny_sr_model
 from tests.test_torch_port_cond import build, gc_paused
@@ -60,8 +64,12 @@ def test_get_cond_matches(tmp_path):
     np.savez(tmp_path / "one.npz", lr=arr)
     assert torch.equal(tnh.get_cond("superresolution", str(tmp_path / "one.npz"),
                                     device="cpu")["LR_image"], got["LR_image"])
+    # a PNG path reads through the port's PNG reader (JAX's reads it with PIL)
+    from_png = tnh.get_cond("superresolution", str(tmp_path / "lr.png"), device="cpu")
+    for key in ("LR_image", "image"):
+        assert torch.equal(from_png[key], got[key])
     with pytest.raises(ValueError, match="npz"):
-        tnh.get_cond("superresolution", str(tmp_path / "lr.png"), device="cpu")
+        tnh.get_cond("superresolution", str(tmp_path / "lr.jpg"), device="cpu")
     assert tnh.get_cond("class_conditional", 7, device="cpu")["class_label"].tolist() == [7]
 
 
@@ -150,10 +158,11 @@ UNCOND = dict(
 )
 
 
-def test_hoisting_falls_back_under_split_input():
+def test_hoisting_falls_back_under_split_input(tmp_path):
     """An unconditional model hoists its emb tables; its clone with
-    split_input_params takes the plain step, and the helpers refuse what
-    is not ported."""
+    split_input_params takes the plain step; `get_model("stdiff")` builds
+    the flagship's YAML and `visualize` writes a grid that
+    `visualize_cond_img` reads back."""
     tm = TorchLDM(**UNCOND, device="cpu")
     ddim = DDIMSchedule.create(DiffusionSchedule.create(timesteps=20), 3)
     assert hoist_invariants(tm, ddim)[3] is not None
@@ -162,9 +171,38 @@ def test_hoisting_falls_back_under_split_input():
     assert eps_fn.__code__ is make_eps_fn(patched).__code__
     assert c is None and uc is None and tables is None
     assert patched.model is tm.model  # the clone shares the modules
-    for call in (lambda: tnh.get_model("stdiff"), lambda: tnh.get_model(run_dir="x"),
-                 lambda: tnh.visualize(np.zeros((1, 8, 8, 3)))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            call()
+    stdiff = tnh.get_model("stdiff", device="meta")
+    flagship, _ = t_config.model_from_config(t_config.load_config(
+        [str(REPO / "configs/latent-diffusion/stdiff_cin-ldm-vq-f8.yaml")])["model"],
+        device="meta")
+    assert {k: p.shape for k, p in stdiff.named_parameters()} == \
+        {k: p.shape for k, p in flagship.named_parameters()}
+    assert stdiff.cond_stage_key == "mixed" and not stdiff.training
+    images = np.random.RandomState(1).uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32)
+    png = tnh.visualize(images, str(tmp_path / "grid.png"))
+    grid = tnh.visualize_cond_img(png)
+    assert grid.shape == (8, 16, 3) and grid.dtype == np.uint8
+    np.testing.assert_array_equal(grid, to_uint8_grid(images))
     path = tnh.select_cond_path("superresolution", root=str(REPO / "data/example_conditioning"))
     assert path.endswith("superresolution/sample_0.png")
+
+
+def test_get_model_restores_a_run_dir(tmp_path):
+    """`get_model(run_dir=...)` on a one-step run of `ealdm_torch.main` (the
+    micro STDiff YAML on a synthetic corpus): the run's model with the EMA
+    shadow of its last checkpoint."""
+    from ealdm_torch import main as t_main
+    from ealdm_torch.data.synthetic import generate_synthetic_dataset
+
+    corpus = tmp_path / "corpus"
+    generate_synthetic_dataset(str(corpus), n_days=8, image_size=16, seed=2)
+    logdir, _, state = t_main.main([
+        "-b", str(REPO / "configs/smoke/stdiff_micro.yaml"), "-t", "--device", "cpu",
+        "--max_steps", "1", "--third_stage", "false", "-l", str(tmp_path / "logs"),
+        f"data.params.train.params.path={corpus}/",
+        f"data.params.train.params.path_weather={corpus}/"])
+    model = tnh.get_model(run_dir=logdir, device="cpu")
+    assert not model.training
+    for k, p in model.named_parameters():
+        assert torch.equal(p.detach(), state.ema.shadow[k]), k
+    assert any(not torch.equal(state.ema.shadow[k], p) for k, p in state.params.items())
