@@ -8,7 +8,8 @@
     python3 chip_smoke.py --paths      # the build, phase 2c and phases 7-16 only
     python3 chip_smoke.py --ae         # the build and phase 17 (first-stage training) only
     python3 chip_smoke.py --main       # the build and phase 18 (`python -m ealdm_torch.main`) only
-    python3 chip_smoke.py --host       # the build and the flash wrapper's host cost
+    python3 chip_smoke.py --host       # the build and the kernel wrappers' host cost
+    python3 chip_smoke.py --cli        # the build and phase 19 (the CLIs and serving) only
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc (the
@@ -169,27 +170,48 @@ Phases, each of which raises (non-zero exit) on failure:
      none within), the prefetcher's waits and the steps' host seconds in those
      steps, peak GiB, each checkpoint's bytes and write seconds, the
      logdir's files; one bare step with every kernel launch held against
-     its plain version (`hold_sites`); (c) `-r <logdir>`: the configs read
-     back by the port's YAML reader, step 4 restored bit for bit, then step
-     6; (d) `train_autoencoder` on autoencoder_kl_32x32x4.yaml, float32,
-     batch 12, 2 steps on PNGs written by the port's writer: launches
-     against `ae_train_census`, finite losses, the reconstruction grid read
+     its plain version (`hold_sites`); (c) on the micro STDiff YAML over
+     the same corpus: 4 steps, `-r <logdir>` (the configs read back by the
+     port's YAML reader, step 4 restored bit for bit), then step 6; (d)
+     `train_autoencoder` on autoencoder_kl_32x32x4.yaml, float32, batch
+     12, 2 steps on PNGs written by the port's writer: launches against
+     `ae_train_census`, finite losses, the reconstruction grid read
      back by the port's PNG reader, the memory the earlier runs left.
+  19. the command-line tools and serving, in-process through each tool's
+     `main(argv)` on phase 18's flagship run dir before it is removed
+     (`--cli`: a seeded flagship state written by `CheckpointManager` in a
+     directory of its own): (a) sample_diffusion at batch 24, DDIM-50, eta
+     1 (the throughput line, 24 PNGs and the .npz read back, the EMA shadow
+     used, launches against the module tree, every launch of a `-c 1`
+     batch held); (b) txt2img-1p4B-eval.yaml, 2 samples at 256², 50 steps,
+     scale 5, DDIM and PLMS; (c) inpaint's full model on
+     data/inpainting_examples, 50 steps; (d) train_searcher on 64 seeded
+     256² PNGs (ResNet-50), then on the 200,000 x 768 database with
+     --num_leaves 8; (e) knn2img on the 768x768 RDM, 2 samples, the
+     database, --use_neighbors --knn 10, a text and a PNG query; (f)
+     export_sampler at batch 8, 50 steps, then a fresh process (torch and
+     the kernel operator registry only) loads the artifact and a
+     SamplerService serves 10 requests: its latent and images against the
+     direct `sample_images(hoist=False)` on the same draws (5e-2 of max
+     |z|), a profiled batch's hand-written kernels by name and launches
+     against the direct program's. Each tool's wall, img/s over the wall
+     and peak GiB, and (f)'s export seconds, artifact bytes, load seconds
+     and served img/s, are the `[cli]` line.
   Each of phases 7-16 also holds every kernel launch of one bfloat16 pass
   (7, 14, 16: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet
   call and a decode; 9: one UNet call; 10: one round trip) against its
   plain version on the same inputs, at the shapes and strides the path
   gives it (`hold_sites`); 11-16 also report img/s (median of three runs),
   peak GiB and the device's busy time and idle share from one profile.
-  Phases 7-16 run after phase 5 and before phase 6; phases 17 and 18 run
-  last.
+  Phases 7-16 run after phase 5 and before phase 6; phases 17, 18 and 19
+  run last.
 
 The last lines of output are a `[phase-seconds]` line (the wall seconds
 of each phase or group of phases), `[done]`, a `[paths]` JSON line with
 phases 7-16's numbers, a `[train]` JSON line with phase 6's numbers, an
 `[ae_train_vq_f8]`, `[ae_train_kl_f8]`, `[convergence]` and
 `[ae_train_seconds]` line with phase 17's, a `[main]` line with phase
-18's, the card's name and power
+18's, a `[cli]` line with phase 19's, the card's name and power
 limit, a JSON line with every kernel's numbers (not with --train), and
 {"ok": true, "device": {...}}.
 """
@@ -1107,8 +1129,11 @@ def host_cost(calls=1000):
     kernel, three tensor maps encoded a call, where the kernel has them) and
     [16,8,256,32] (d=32: the mma.sync kernel, none). The device finishes a
     call faster than the host issues one (checked), so the launch queue
-    never fills and the wall is host time. Runs in older trees too (`--host`).
-    Returns {(d, rows): us}."""
+    never fills and the wall is host time. Then the GroupNorm wrapper the same
+    way at [16,256,16,16] (channels_last bfloat16, fused SiLU), and, where
+    the tree has the dispatcher operators, `operator_cost`. Runs in older
+    trees too (`--host`). Returns {(d, rows) or ("group_norm", C): us},
+    with `operator_cost`'s entries."""
     import torch
 
     from ealdm_torch.ops.attention import flash_attention
@@ -1133,6 +1158,80 @@ def host_cost(calls=1000):
         log(f"[host] flash_attention {list(shape)} bf16: {us:.2f} us of host time a call "
             f"over {calls} calls (device {dev_us:.2f} us a call)")
         out[(shape[3], shape[2])] = us
+    # the GroupNorm wrapper as the UNet calls it: channels_last bf16 [16,256,16,16]
+    # (the flagship's ds-2 sites at the CFG batch), fused SiLU
+    from ealdm_torch.ops.norms import group_norm, silu
+
+    x = torch.randn(16, 256, 16, 16, generator=gen, device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w, b = torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")
+
+    def gn():
+        return group_norm(x, w, b, 32, 1e-5, act=silu, data_format="NCHW")
+
+    for _ in range(20):
+        gn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        gn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    dev_us = device_ms(gn) * 1e3
+    log(f"[host] group_norm [16,256,16,16] bf16 channels_last SiLU: {us:.2f} us of host time "
+        f"a call over {calls} calls (device {dev_us:.2f} us a call)")
+    out[("group_norm", 256)] = us
+    if hasattr(torch.ops.ealdm, "group_norm"):  # trees with the dispatcher operators
+        out.update(operator_cost(qkv, x, w, b))
+    return out
+
+
+def operator_cost(qkv, x, w, b, pairs=10, calls=500):
+    """The dispatcher operators' round trip: host us a call of the launch
+    through `torch.ops.ealdm.*` and of the same launch called directly, in
+    `pairs` interleaved pairs of `calls` calls each (the order alternating
+    within a pair), on the d=32 flash inputs and the GroupNorm input of
+    `host_cost`. Returns {(name, "operator" or "direct"): [us per pair]}."""
+    import statistics
+
+    import torch
+
+    from ealdm_torch.ops.attention import flash_attention_kernel
+    from ealdm_torch.ops.norms import group_norm_kernel
+
+    cases = {
+        "flash_attention [16,8,256,32]": (
+            lambda: torch.ops.ealdm.flash_attention.default(*qkv, None),
+            lambda: flash_attention_kernel(*qkv, None)),
+        "group_norm [16,256,16,16] SiLU": (
+            lambda: torch.ops.ealdm.group_norm.default(x, w, b, None, 32, 1e-5, True),
+            lambda: group_norm_kernel(x, w, b, 32, 1e-5, True, None)),
+    }
+
+    def host_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    for name, (op, direct) in cases.items():
+        for _ in range(20):
+            op(), direct()
+        got = {"operator": [], "direct": []}
+        for i in range(pairs):
+            order = ("operator", "direct") if i % 2 == 0 else ("direct", "operator")
+            for which in order:
+                got[which].append(host_us(op if which == "operator" else direct))
+        diff = [a - b for a, b in zip(got["operator"], got["direct"])]
+        log(f"[host-op] {name}: operator {[round(u, 2) for u in got['operator']]} us, direct "
+            f"{[round(u, 2) for u in got['direct']]} us a call; operator minus direct median "
+            f"{statistics.median(diff):.2f} us (min {min(diff):.2f}, max {max(diff):.2f}), "
+            f"{sum(d > 0 for d in diff)} of {pairs} pairs slower through the operator")
+        out.update({(name, k): v for k, v in got.items()})
     return out
 
 
@@ -1745,12 +1844,13 @@ def inpaint_inputs(batch, res, seed):
 
 
 def keep_mask(mask_px, side):
-    """The latent-resolution keep-mask (1 = keep the known region):
-    nearest-neighbour resize of the pixel hole mask."""
-    import torch.nn.functional as F
+    """The latent-resolution keep-mask (1 = keep the known region) as
+    scripts/inpaint.py makes it: `ealdm_torch.scripts.inpaint.keep_mask`,
+    the hole mask resized "nearest-exact" (JAX's nearest resize samples at
+    half-pixel centres; torch's "nearest" picks other pixels)."""
+    from ealdm_torch.scripts.inpaint import keep_mask as cli_keep_mask
 
-    hole = F.interpolate(mask_px.permute(0, 3, 1, 2), size=(side, side), mode="nearest")
-    return 1.0 - hole.permute(0, 2, 3, 1)
+    return cli_keep_mask(mask_px, side)
 
 
 def phase_inpaint(cfg_module):
@@ -2359,28 +2459,22 @@ def phase_churches(cfg_module):
 
 def inpainting_examples(res):
     """The two committed `data/inpainting_examples` pairs as one batch, read
-    as scripts/inpaint.py's make_batch reads them: the image in [-1, 1] and
-    the mask (1 = hole, above 0.5 after the resize) at res^2 (bilinear),
-    and the masked image. The PNGs' pixels come from their decoded copy
-    `ealdm_torch/data/inpainting_examples.npz` (the card's machine has no
-    imaging package)."""
+    as scripts/inpaint.py's make_batch reads them
+    (`ealdm_torch.scripts.inpaint.make_batch`: the PNGs through the port's
+    reader, Pillow's BICUBIC resize to res^2 in numpy, the mask's "L" luma
+    above 0.5 = hole): the image in [-1, 1], the mask and the masked
+    image."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
-    pixels = np.load(os.path.join(HERE, "ealdm_torch", "data", "inpainting_examples.npz"))
+    from ealdm_torch.scripts.inpaint import make_batch
 
-    def load(name):
-        x = torch.from_numpy(pixels[name]).permute(2, 0, 1)[None].float()
-        return F.interpolate(x, size=(res, res), mode="bilinear", align_corners=False)
-
-    imgs, masks = [], []
-    for stem in ("example0", "example1"):
-        imgs.append(load(stem) / 127.5 - 1.0)
-        masks.append((load(f"{stem}_mask") / 255.0 > 0.5).float())
-    img = torch.cat(imgs).permute(0, 2, 3, 1).contiguous()
-    mask = torch.cat(masks).permute(0, 2, 3, 1).contiguous()
-    return img, mask, img * (1.0 - mask)
+    root = os.path.join(HERE, "data", "inpainting_examples")
+    batches = [make_batch(os.path.join(root, f"{stem}.png"),
+                          os.path.join(root, f"{stem}_mask.png"), res)
+               for stem in ("example0", "example1")]
+    return tuple(torch.from_numpy(np.concatenate([b[k] for b in batches]))
+                 for k in ("image", "mask", "masked_image"))
 
 
 def inpaint_conditioning(model, masked, mask_px):
@@ -4197,6 +4291,7 @@ def phases_ae_train(cfg_module):
 
 # ------------------------------------------------------------------ phase 18
 MAIN_YAML = "configs/latent-diffusion/stdiff_cin-ldm-vq-f8.yaml"
+MAIN_RESUME_YAML = "configs/smoke/stdiff_micro.yaml"  # (c)'s resume
 MAIN_AE_YAML = "configs/autoencoder/autoencoder_kl_32x32x4.yaml"
 # four sites, the default test site among them, 120 days each: with l_seq 1
 # a site gives 119 windows; phase "trainval" keeps round(0.375 * 119) = 45
@@ -4338,7 +4433,8 @@ def phase_main_ldm(root, corpus):
     prefetcher fetching a batch before each (img/s: the batch times the
     steps after the first over their wall, one synchronize before and one
     after), and one bare step with every launch held against its plain
-    version; (c) the resume to MAIN_RESUME_STEPS."""
+    version; (c) the resume to MAIN_RESUME_STEPS on the micro STDiff YAML
+    (`MAIN_RESUME_YAML`) over the same corpus."""
     import json as _json
 
     import torch
@@ -4381,7 +4477,6 @@ def phase_main_ldm(root, corpus):
             raise RuntimeError(f"a batch did not reach the step on the card: {probe.on_card}")
         if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses) or not vals:
             raise RuntimeError(f"the loop's losses {losses} and validations {vals}")
-        saved = {k: p.detach().cpu() for k, p in state.params.items()}
         files = logdir_files(logdir)
         del model, state
         release()
@@ -4426,18 +4521,27 @@ def phase_main_ldm(root, corpus):
         del model, state, step, batch, bare_metrics
         release()
 
-        # (c) the resume: the configs read back, step MAIN_STEPS restored bit
-        # for bit, then MAIN_RESUME_STEPS
+        # (c) the resume, on the micro STDiff YAML over the same corpus (the
+        # flagship's 7.1 GB checkpoints cost 45 s more; phase 19 reads them):
+        # MAIN_STEPS steps, the configs read back, step MAIN_STEPS restored
+        # bit for bit, then MAIN_RESUME_STEPS
         t1 = time.perf_counter()
-        _, model, state = tmain.main(["-r", logdir, "--dtype", "bfloat16", "--device", "cuda"])
+        micro_dots = [f"data.params.train.params.{key}={corpus}/"
+                      for key in ("path", "path_weather")]
+        micro_logdir, model, state = tmain.main(
+            ["-b", os.path.join(HERE, MAIN_RESUME_YAML), "-t", "--max_steps", str(MAIN_STEPS),
+             "--third_stage", "false", "--device", "cuda", "-l", os.path.join(root, "micro"),
+             *micro_dots])
+        saved = {k: p.detach().cpu() for k, p in state.params.items()}
+        del model, state
+        _, model, state = tmain.main(["-r", micro_logdir, "--device", "cuda"])
         differ = [k for k, p in state.params.items() if not torch.equal(p.detach().cpu(),
                                                                         saved[k])]
         n_tensors = len(saved)
         restored_step = state.step
         del model, state, saved
-        release()
-        _, model, state = tmain.main(["-r", logdir, "-t", "--max_steps", str(MAIN_RESUME_STEPS),
-                                      "--dtype", "bfloat16", "--third_stage", "false",
+        _, model, state = tmain.main(["-r", micro_logdir, "-t", "--max_steps",
+                                      str(MAIN_RESUME_STEPS), "--third_stage", "false",
                                       "--log_every", "1", "--device", "cuda"])
         resumed_step = state.step
         resume_s = time.perf_counter() - t1
@@ -4555,16 +4659,19 @@ def phase_main_ae(root):
     return details, out
 
 
-def phase_main():
+def phase_main(cli=False):
     """Phase 18, the training entry point `python -m ealdm_torch.main` from
     the repo's YAMLs at full width: (a) the corpus, (b) the LDM loop beside
-    the bare step, (c) the resume, (d) the first-stage loop. Everything it
-    writes lives in a temporary directory it removes. Returns ({path: one
-    step's launch details}, numbers)."""
+    the bare step, (c) the resume, (d) the first-stage loop; with `cli`,
+    then phase 19 on (b)'s flagship run dir. Everything it writes lives in a
+    temporary directory it removes. Returns ({path: one step's launch
+    details}, numbers, phase 19's numbers or None)."""
+    import glob
     import shutil
     import tempfile
 
     root = tempfile.mkdtemp(prefix="ealdm_main_")
+    cli_out = None
     try:
         t0 = time.perf_counter()
         corpus = os.path.join(root, "corpus")
@@ -4572,9 +4679,381 @@ def phase_main():
         ldm_details, ldm = phase_main_ldm(root, corpus)
         ae_details, ae = phase_main_ae(root)
         out = dict(windows=windows, ldm=ldm, ae=ae, seconds=time.perf_counter() - t0)
+        details = {"main_ldm_step": ldm_details, "main_ae_step": ae_details}
+        if cli:
+            flagship, = glob.glob(os.path.join(root, "logs", "*"))
+            cli_details, cli_out = phase_cli(flagship, root)
+            details.update(cli_details)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"main_ldm_step": ldm_details, "main_ae_step": ae_details}, out
+    return details, out, cli_out
+
+
+# ------------------------------------------------------------------ phase 19
+CLI_TXT2IMG_YAML = "configs/latent-diffusion/txt2img-1p4B-eval.yaml"
+CLI_RDM_YAML = "configs/retrieval-augmented-diffusion/768x768.yaml"
+CLI_BATCH, CLI_STEPS = 24, 50
+CLI_SERVE_BATCH, CLI_REQUESTS = 8, 10
+CLI_SERVE_SEED = 11
+
+# the serving process: torch and the port's kernel operator registry only
+CLI_SERVE = r"""
+import json, os, sys, time
+import numpy as np, torch
+from torch.autograd import DeviceType
+from ealdm_torch import kernels, serving
+assert "ealdm_torch.models" not in sys.modules
+torch.backends.cuda.matmul.allow_tf32 = False  # as the parent process runs
+torch.backends.cudnn.allow_tf32 = False
+art, requests, out = sys.argv[1:4]
+t0 = time.perf_counter()
+fn = serving.load_exported(art)
+load_s = time.perf_counter() - t0
+req = dict(np.load(requests))
+n = len(req["img"])
+latents = []
+
+
+def program(mixed, x_T, noise):  # fn, keeping each batch's last latent
+    latents.append(fn.latents(mixed, x_T, noise))
+    return fn.modules["decode"](latents[-1])
+
+
+program.meta = fn.meta
+svc = serving.SamplerService(program, batch_size=fn.meta["batch_size"], seed=int(sys.argv[4]))
+for i in range(n):
+    svc.submit({k: v[i] for k, v in req.items()})
+kernels.reset_launch_counts()
+t0 = time.perf_counter()
+imgs = svc.serve_pending()
+torch.cuda.synchronize()
+serve_s = time.perf_counter() - t0
+for i in range(fn.meta["batch_size"]):
+    svc.submit({k: v[i] for k, v in req.items()})
+kernels.reset_launch_counts()
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    svc.serve_pending()
+    torch.cuda.synchronize()
+names = sorted({e.key for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0})
+batch_launches = {f"{k[0]}|{k[1]}": v for k, v in kernels.launch_details.items()}
+latent = latents[0].float().cpu().numpy()  # the first batch's
+assert "ealdm_torch.models" not in sys.modules
+np.save(out + ".npy", np.stack(imgs))
+np.save(out + ".latent.npy", latent)
+with open(out, "w") as f:
+    json.dump(dict(load_s=load_s, serve_s=serve_s, n=n, kernel_names=names,
+                   batch_launches=batch_launches,
+                   modules=sorted(m for m in sys.modules if m.startswith("ealdm_torch"))), f)
+sys.stdout.flush()
+os._exit(0)  # no finalization after a profile (see the end of chip_smoke.py)
+"""
+
+
+class _Capture:
+    """stdout copied into a list of lines while it still prints."""
+
+    def __init__(self, stream):
+        self.stream, self.text = stream, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def cli_run(label, fn, argv, n_images):
+    """`fn(argv)` (a CLI's main) in-process: (its return, {wall_s, img_per_s
+    over the wall, peak_gib, launches}, its launch details, its stdout)."""
+    import contextlib
+
+    import torch
+
+    from ealdm_torch import kernels
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    cap = _Capture(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cap):
+        out = fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nums = dict(wall_s=wall, img_per_s=n_images / wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches={k: v for k, v in kernels.launches.items() if v})
+    log(f"[cli] {label}: {wall:.2f} s wall, {nums['img_per_s']:.4f} img/s over it, peak "
+        f"{nums['peak_gib']:.2f} GiB, launches {nums['launches']}")
+    return out, nums, dict(kernels.launch_details), "".join(cap.text)
+
+
+def cli_flagship_logdir(root):
+    """A run dir as `ealdm_torch.main` leaves one for the flagship YAML:
+    configs/ and a `last` checkpoint of a seeded TrainState whose EMA shadow
+    differs from its parameters (`--cli` alone; the full script reads phase
+    18's)."""
+    import torch
+
+    from ealdm_torch.config import load_config, model_from_config
+    from ealdm_torch.training import CheckpointManager, init_train_state
+
+    logdir = os.path.join(root, "flagship")
+    os.makedirs(os.path.join(logdir, "configs"))
+    with open(os.path.join(HERE, MAIN_YAML)) as f, open(
+            os.path.join(logdir, "configs", "cli-project.yaml"), "w") as g:
+        g.write(f.read())
+    model, _ = model_from_config(load_config([os.path.join(HERE, MAIN_YAML)])["model"],
+                                 dtype=torch.bfloat16, device="cuda")
+    random_init_(model, seed=190)
+    state, _ = init_train_state(model, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    with torch.no_grad():
+        for v in state.ema.shadow.values():
+            v.add_(0.01 * torch.randn(v.shape, generator=gen, device="cuda"))
+    CheckpointManager(os.path.join(logdir, "checkpoints"), monitor=None).save_last(state, 0)
+    del model, state
+    release()
+    return logdir
+
+
+def cli_images(label, paths, shape):
+    """Each PNG read back by the port's reader at `shape`, uint8, not constant."""
+    from ealdm_torch.utils.png import load_png
+
+    for p in paths:
+        img = load_png(p)
+        if img.shape != tuple(shape) or img.std() == 0:
+            raise RuntimeError(f"{label}: {p} reads back as {img.shape}, std {img.std()}")
+
+
+def phase_cli(logdir, root):
+    """Phase 19, the command-line tools and serving at full width on the
+    card, in-process through each tool's `main(argv)`: (a) sample_diffusion
+    on the flagship run dir (batch 24, DDIM-50, eta 1) with launches against
+    the module tree and one held pass, (b) txt2img (DDIM and PLMS), (c)
+    inpaint, (d) train_searcher, (e) knn2img (text and image query), (f)
+    export_sampler and a fresh serving process. Returns ({path: launch
+    details}, numbers)."""
+    import numpy as np
+    import torch
+
+    from ealdm_torch.config import load_config, model_from_config
+    from ealdm_torch.scripts import (_common, export_sampler, inpaint, knn2img,
+                                     sample_diffusion, train_searcher, txt2img)
+    from ealdm_torch.utils.png import save_png
+
+    t_phase = time.perf_counter()
+    out, details = {}, {}
+    cli_root = os.path.join(root, "cli")
+    os.makedirs(cli_root, exist_ok=True)
+
+    # (a) sample_diffusion with the EMA shadow
+    used = []
+    real_load = _common.load_sampling_weights
+
+    def recording(model, state):
+        drift = max(float((state["ema"]["shadow"][k].float() - p.float()).abs().max())
+                    for k, p in state["params"].items())
+        used.append((real_load(model, state), drift))
+        return used[-1][0]
+
+    _common.load_sampling_weights = recording
+    try:
+        sample_dir = os.path.join(cli_root, "sample")
+        _, nums, det, text = cli_run("sample_diffusion", sample_diffusion.main, [
+            "-r", logdir, "-n", str(CLI_BATCH), "--batch_size", str(CLI_BATCH), "-c",
+            str(CLI_STEPS), "-e", "1", "-l", sample_dir], CLI_BATCH)
+    finally:
+        _common.load_sampling_weights = real_load
+    line = [ln for ln in text.splitlines() if ln.startswith("Throughput for this batch")]
+    nums["throughput_line"] = line
+    nums["weights"], nums["ema_minus_params_max"] = used[0]
+    if used[0][0] != "ema" or not used[0][1] > 0:
+        raise RuntimeError(f"sample_diffusion: sampled with {used[0]}, not a distinct EMA")
+    pngs = sorted(os.listdir(os.path.join(sample_dir, "img")))
+    cli_images("sample_diffusion", [os.path.join(sample_dir, "img", p) for p in pngs],
+               (256, 256, 3))
+    arr = np.load(os.path.join(sample_dir, f"{CLI_BATCH}_samples.npz"))["arr_0"]
+    if len(pngs) != CLI_BATCH or arr.shape != (CLI_BATCH, 256, 256, 3) or len(line) != 1:
+        raise RuntimeError(f"sample_diffusion: {len(pngs)} PNGs, npz {arr.shape}, {line}")
+    config = load_config(sorted(
+        os.path.join(logdir, "configs", f) for f in os.listdir(os.path.join(logdir, "configs"))
+        )[-1:])
+    meta_model, _ = model_from_config(config["model"], device="meta")
+    fs = meta_model.first_stage_model
+    want = path_census([(meta_model.model.diffusion_model, CLI_BATCH, 32, CLI_STEPS),
+                        (fs.encoder, CLI_BATCH, 256, 1), (fs.decoder, CLI_BATCH, 32, 1)],
+                       dtype="float32")  # the tools' models are float32, as JAX's scripts
+    check_launches("cli-sample_diffusion", want, det)
+    details["cli_sample_diffusion"] = det
+    out["sample_diffusion"] = nums
+    held = hold_sites("cli-sample_diffusion held", lambda: sample_diffusion.main([
+        "-r", logdir, "-n", str(CLI_BATCH), "--batch_size", str(CLI_BATCH), "-c", "1", "-e",
+        "1", "-l", os.path.join(cli_root, "held")]))
+    out["sample_diffusion"]["held_worst"] = max(held.values())
+
+    # (b) txt2img at 256^2, 2 samples (the card budget's cut from 4: the
+    # wall is the 1.5 B-parameter seeded init), 50 steps, scale 5: DDIM,
+    # then PLMS
+    for name, extra in (("txt2img_ddim", []), ("txt2img_plms", ["--plms"])):
+        d = os.path.join(cli_root, name)
+        grid, nums, _, _ = cli_run(name, txt2img.main, [
+            "--config", os.path.join(HERE, CLI_TXT2IMG_YAML), "--n_samples", "2",
+            "--ddim_steps", str(CLI_STEPS), "--scale", "5", "--outdir", d, *extra], 2)
+        cli_images(name, [os.path.join(d, "samples", p)
+                          for p in sorted(os.listdir(os.path.join(d, "samples")))],
+                   (256, 256, 3))
+        cli_images(name, [grid], (256, 512, 3))
+        out[name] = nums
+
+    # (c) inpaint, the full model on the committed examples, 50 steps
+    d = os.path.join(cli_root, "inpaint")
+    paths, nums, _, _ = cli_run("inpaint", inpaint.main, ["--outdir", d, "--steps",
+                                                          str(CLI_STEPS)], 2)
+    cli_images("inpaint", paths, (256, 256, 3))
+    out["inpaint"] = nums
+
+    # (d) train_searcher: 64 seeded 256^2 PNGs through ResNet-50; then the
+    # (e) database with --num_leaves 8
+    folder = os.path.join(cli_root, "images")
+    os.makedirs(folder)
+    rng = np.random.RandomState(192)
+    for i in range(64):
+        save_png(os.path.join(folder, f"{i:03d}.png"),
+                 rng.randint(0, 256, (256, 256, 3)).astype(np.uint8))
+    s, nums, _, _ = cli_run("train_searcher images", train_searcher.main, [
+        "-d", folder, "-t", os.path.join(cli_root, "images_index.npz")], 64)
+    if s.num_entries != 64 or s.dim != 2048:
+        raise RuntimeError(f"train_searcher: {s.num_entries} x {s.dim}")
+    out["train_searcher_images"] = nums
+    db_path = os.path.join(cli_root, "database.npz")
+    gen = torch.Generator(device="cuda").manual_seed(193)
+    np.savez(db_path, embedding=torch.randn(*RDM_DATABASE, generator=gen, device="cuda")
+             .cpu().numpy())
+    s, nums, _, _ = cli_run("train_searcher npz", train_searcher.main, [
+        "-d", db_path, "-t", os.path.join(cli_root, "db_index.npz"), "--num_leaves", "8"], 0)
+    if not s.partitioned or s.default_leaves_to_search != 1:
+        raise RuntimeError("train_searcher --num_leaves 8: not partitioned, probed 1")
+    out["train_searcher_npz"] = nums
+    del s
+
+    # (e) knn2img: the 768x768 RDM, 2 samples, the database, 10 neighbours
+    example = os.path.join(HERE, "data", "inpainting_examples", "example0.png")
+    for name, query in (("knn2img_text", []), ("knn2img_image", ["--query_image", example])):
+        d = os.path.join(cli_root, name)
+        _, nums, _, _ = cli_run(name, knn2img.main, [
+            "--config", os.path.join(HERE, CLI_RDM_YAML), "--database", db_path,
+            "--use_neighbors", "--knn", "10", "--n_samples", "2", "--outdir", d, *query], 2)
+        cli_images(name, [os.path.join(d, "samples", p)
+                          for p in sorted(os.listdir(os.path.join(d, "samples")))],
+                   (768, 768, 3))
+        out[name] = nums
+
+    # (f) export_sampler at batch 8, 50 steps; a fresh process serves 10
+    art = os.path.join(cli_root, "sampler.pt2x")
+    built, real_model = [], export_sampler.sampling_model
+
+    def keep_model(*args, **kwargs):
+        """The model the CLI exports (its EMA weights): the direct program."""
+        built.append(real_model(*args, **kwargs))
+        return built[-1]
+
+    export_sampler.sampling_model = keep_model
+    try:
+        (_, export_s), nums, _, _ = cli_run("export_sampler", export_sampler.main, [
+            "-r", logdir, "-o", art, "--batch_size", str(CLI_SERVE_BATCH), "--steps",
+            str(CLI_STEPS)], 0)
+    finally:
+        export_sampler.sampling_model = real_model
+    nums.update(export_s=export_s, artifact_bytes=os.path.getsize(art))
+    requests = os.path.join(cli_root, "requests.npz")
+    mixed = mixed_batch(CLI_REQUESTS, 256, seed=194, device="cpu")
+    np.savez(requests, **{k: v.numpy() for k, v in mixed.items()})
+    served_json = os.path.join(cli_root, "served.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_SERVE, art, requests, served_json,
+                           str(CLI_SERVE_SEED)], cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    process_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the serving process failed:\n{proc.stderr[-4000:]}")
+    with open(served_json) as f:
+        served = json.load(f)
+    served_imgs = np.load(served_json + ".npy")
+    # the direct program on the same requests and draws (seed, batch 8)
+    model, = built
+    with _common.inference_settings():
+        from ealdm_torch import kernels
+        from ealdm_torch.inference import sample_images
+
+        kernels.reset_launch_counts()
+        g = torch.Generator(device="cuda").manual_seed(CLI_SERVE_SEED)
+        first = {k: v[:CLI_SERVE_BATCH].cuda() for k, v in mixed.items()}
+        direct, direct_z = sample_images(model, CLI_SERVE_BATCH, (32, 32, 4),
+                                         steps=CLI_STEPS, eta=1.0, guidance_scale=2.0,
+                                         mixed=first, hoist=False, generator=g)
+        torch.cuda.synchronize()
+        direct_launches = {f"{k[0]}|{k[1]}": v for k, v in kernels.launch_details.items()}
+        details["cli_served"] = dict(kernels.launch_details)
+    direct, direct_z = direct.float().cpu().numpy(), direct_z.float().cpu().numpy()
+    served_z = np.load(served_json + ".latent.npy")
+    # max difference over max |z| (latent) and max |image|, each held to phase
+    # 3's bf16 tolerance (the float32 programs should agree exactly)
+    rel = float(np.abs(served_z - direct_z).max() / np.abs(direct_z).max())
+    img_rel = float(np.abs(served_imgs[:CLI_SERVE_BATCH] - direct).max() / np.abs(direct).max())
+    img_mean = float(np.abs(served_imgs[:CLI_SERVE_BATCH] - direct).mean())
+    names = served["kernel_names"]
+    hand = sorted({kernel_label(k) for k in names
+                   if any(n in k for n in (*FLASH_KERNELS, *GN_KERNELS))})
+    nums.update(load_s=served["load_s"], serve_s=served["serve_s"],
+                served_img_per_s=served["n"] / served["serve_s"], process_s=process_s,
+                served_vs_direct_latent_rel=rel, served_vs_direct_image_rel=img_rel,
+                served_vs_direct_image_mean_abs=img_mean, profiled_hand_written_kernels=hand,
+                launches_equal=served["batch_launches"] == direct_launches,
+                served_modules=served["modules"])
+    log(f"[cli] served: artifact {nums['artifact_bytes']} bytes, export {export_s:.1f} s, load "
+        f"{served['load_s']:.1f} s, {served['n']} requests in {served['serve_s']:.2f} s = "
+        f"{nums['served_img_per_s']:.4f} img/s; against the direct program: latent {rel:.3g} of "
+        f"max |z|, images {img_rel:.3g} of max (tolerance 5e-2 each), mean abs "
+        f"{img_mean:.3g}; "
+        f"kernels profiled {hand}; launches a batch "
+        f"{sum(served['batch_launches'].values())} (direct "
+        f"{sum(direct_launches.values())})")
+    if any(m.startswith("ealdm_torch.models") for m in served["modules"]):
+        raise RuntimeError("the serving process imported the model code")
+    if not (math.isfinite(rel) and rel <= 5e-2) or served_imgs.shape != (CLI_REQUESTS, 256,
+                                                                           256, 3):
+        raise RuntimeError(f"the served latent differs from the direct program's: {rel}")
+    if not (math.isfinite(img_rel) and img_rel <= 5e-2):
+        raise RuntimeError(f"the served images differ from the direct program's: {img_rel}")
+    if not any(h.startswith("flash_") for h in hand) or not any(h.startswith("gn_")
+                                                               for h in hand):
+        raise RuntimeError(f"the served profile lacks the hand-written kernels: {names}")
+    if not nums["launches_equal"]:
+        raise RuntimeError(f"served launches {served['batch_launches']} differ from the "
+                           f"direct program's {direct_launches}")
+    out["export_sampler"] = nums
+    del model
+    release()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[cli] {json.dumps(out)}")
+    return details, out
+
+
+def phase_cli_alone():
+    """`--cli`: phase 19 on a seeded flagship run dir of its own, in a
+    temporary directory it removes."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="ealdm_cli_")
+    try:
+        return phase_cli(cli_flagship_logdir(root), root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main(argv):
@@ -4617,10 +5096,11 @@ def main(argv):
     paths_only = "--paths" in argv
     ae_only = "--ae" in argv
     main_only = "--main" in argv
+    cli_only = "--cli" in argv
     rows, head_dim_grads = {}, None
     if "--groupnorm" in argv:
         rows = phase_group_norm()
-    elif not (train_only or ae_only or main_only):
+    elif not (train_only or ae_only or main_only or cli_only):
         timed("1 sass", phase_sass)
         if not paths_only:
             rows = timed("2 kernels", phase_kernels)
@@ -4629,7 +5109,8 @@ def main(argv):
         head_dim_rows, head_dim_grads = timed("2c head dims", phase_head_dims)
         rows.update(head_dim_rows)
     launches_by_path = {}
-    if not {"--kernels", "--groupnorm", "--train", "--paths", "--ae", "--main"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--train", "--paths", "--ae", "--main",
+            "--cli"} & set(argv):
         steps, batch = 50, 24
         t_main = time.perf_counter()
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
@@ -4653,24 +5134,31 @@ def main(argv):
         launches_by_path["flagship"] = details
         seconds["3-5 flagship"] = time.perf_counter() - t_main
     paths = None
-    if not {"--kernels", "--groupnorm", "--train", "--ae", "--main"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--train", "--ae", "--main", "--cli"} & set(argv):
         path_details, paths = timed("7-16 paths", phases_paths, cfg_module)
         launches_by_path.update(path_details)
         paths["flash_grad_worst"] = head_dim_grads
     train = None
-    if not {"--kernels", "--groupnorm", "--paths", "--ae", "--main"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--paths", "--ae", "--main", "--cli"} & set(argv):
         train_details, train = timed("6 train", phases_train, cfg_module)
         launches_by_path.update(train_details)
     ae_train = None
-    if not {"--kernels", "--groupnorm", "--paths", "--train", "--main"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--paths", "--train", "--main", "--cli"} & set(argv):
         ae_details, ae_train, ae_rows = timed("17 first-stage training", phases_ae_train,
                                               cfg_module)
         launches_by_path.update(ae_details)
         rows.update(ae_rows)
-    main_run = None
-    if not {"--kernels", "--groupnorm", "--paths", "--train", "--ae"} & set(argv):
-        main_details, main_run = timed("18 main", phase_main)
+    main_run = cli_run_out = None
+    if not {"--kernels", "--groupnorm", "--paths", "--train", "--ae", "--cli"} & set(argv):
+        main_details, main_run, cli_run_out = timed("18-19 main and cli", phase_main,
+                                                    "--main" not in argv)
         launches_by_path.update(main_details)
+        if cli_run_out is not None:  # phase 19 ran inside phase 18's directory
+            seconds["19 cli"] = cli_run_out["seconds"]
+            seconds["18-19 main and cli"] -= cli_run_out["seconds"]
+    elif "--cli" in argv:
+        cli_details, cli_run_out = timed("19 cli", phase_cli_alone)
+        launches_by_path.update(cli_details)
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row; a train path's: one step); a row the flagship does
@@ -4704,4 +5192,11 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    code = main(sys.argv[1:])
+    # Leave without the interpreter's finalization: after a torch.profiler
+    # trace near the end (`--host`), CUPTI's teardown at exit held the
+    # process past its last line until it was killed. Everything is printed
+    # and flushed, and every process the script started has ended.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -6,13 +6,16 @@ then greedy longest-match-first WordPiece with `##` continuations, over a
 vocab file with one token a line. The default vocab is the committed
 `vocab_en.txt` beside this module (12,000 entries); `EALDM_VOCAB_PATH`
 points every tokenizer at another one, such as a real 30,522-line
-`bert-base-uncased` vocab.txt. The vocab trainers stay in the JAX package.
+`bert-base-uncased` vocab.txt. `train_wordpiece` (likelihood-scored pair
+merges) and `train_wordpiece_fast` (batched non-interacting merges) give
+the JAX package's vocabulary lists; `save_vocab` writes one a line.
 """
 from __future__ import annotations
 
 import os
 import unicodedata
-from typing import Dict, List, Sequence
+from collections import Counter
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 import torch
@@ -159,3 +162,179 @@ class WordPieceTokenizer:
             ids = self.encode(t)
             out[i, : len(ids)] = ids
         return torch.from_numpy(out)
+
+
+# ------------------------------------------------------------------ trainer
+def train_wordpiece(
+    corpus: Iterable[str],
+    vocab_size: int = 8000,
+    min_pair_freq: int = 2,
+    lowercase: bool = True,
+) -> List[str]:
+    """Train a WordPiece vocab (likelihood-scored pair merges, as in the
+    original WordPiece/BERT recipe: score = freq(ab) / (freq(a)*freq(b))).
+
+    Returns the vocab as an ordered token list (specials first, then single
+    characters, then learned merges)."""
+    word_freq: Counter = Counter()
+    for line in corpus:
+        for w in basic_tokenize(line, lowercase):
+            word_freq[w] += 1
+
+    # each word as a tuple of pieces: first char, then ##-continuations
+    def to_pieces(w: str):
+        return tuple([w[0]] + ["##" + c for c in w[1:]])
+
+    words = {w: to_pieces(w) for w in word_freq}
+    alphabet = sorted({p for pieces in words.values() for p in pieces})
+    vocab: List[str] = list(SPECIALS) + alphabet
+
+    while len(vocab) < vocab_size:
+        piece_freq: Counter = Counter()
+        pair_freq: Counter = Counter()
+        for w, pieces in words.items():
+            f = word_freq[w]
+            for p in pieces:
+                piece_freq[p] += f
+            for a, b in zip(pieces, pieces[1:]):
+                pair_freq[(a, b)] += f
+        best, best_score = None, 0.0
+        for (a, b), f in pair_freq.items():
+            if f < min_pair_freq:
+                continue
+            score = f / (piece_freq[a] * piece_freq[b])
+            if score > best_score:
+                best, best_score = (a, b), score
+        if best is None:
+            break
+        a, b = best
+        merged = a + b[2:] if b.startswith("##") else a + b
+        vocab.append(merged)
+        new_words = {}
+        for w, pieces in words.items():
+            out: List[str] = []
+            i = 0
+            while i < len(pieces):
+                if i + 1 < len(pieces) and pieces[i] == a and pieces[i + 1] == b:
+                    out.append(merged)
+                    i += 2
+                else:
+                    out.append(pieces[i])
+                    i += 1
+            new_words[w] = tuple(out)
+        words = new_words
+    return vocab
+
+
+def save_vocab(vocab: Sequence[str], path: str) -> None:
+    with open(path, "w") as f:
+        f.write("\n".join(vocab) + "\n")
+
+
+def train_wordpiece_fast(
+    corpus: Iterable[str],
+    vocab_size: int = 12000,
+    min_pair_freq: int = 3,
+    lowercase: bool = True,
+    batch_size: int = 200,
+    max_word_len: int = 24,
+    seed_top_words: int = 6000,
+    seed_min_freq: int = 8,
+) -> List[str]:
+    """Scalable WordPiece trainer for real-size (>=8k) vocabularies.
+
+    Same likelihood scoring as `train_wordpiece`
+    (score = freq(ab) / (freq(a) * freq(b))), but selects the top
+    `batch_size` NON-INTERACTING pairs per round (no selected pair shares a
+    piece with an earlier selection in the same round) and re-scores
+    between rounds, and only re-segments words that contain a selected
+    pair (inverted pair->word index). Exact greedy order is traded for
+    tractability — coverage-equivalent at these sizes. Deterministic.
+    """
+    word_freq: Counter = Counter()
+    for line in corpus:
+        for w in basic_tokenize(line, lowercase):
+            if len(w) <= max_word_len:
+                word_freq[w] += 1
+
+    words = {
+        w: tuple([w[0]] + ["##" + c for c in w[1:]]) for w in word_freq
+    }
+    alphabet = sorted({p for pieces in words.values() for p in pieces})
+    vocab: List[str] = list(SPECIALS) + alphabet
+    vocab_set = set(vocab)
+
+    # Seed the most frequent whole words as single tokens (what greedy merge
+    # training converges to on a large corpus; the likelihood score's
+    # exclusivity bias starves common-word merges on small corpora, so "the"
+    # would otherwise shatter). Seeded words contribute no pair stats.
+    if seed_top_words:
+        for w, f in word_freq.most_common():
+            if len(vocab) >= len(SPECIALS) + len(alphabet) + seed_top_words:
+                break
+            if f < seed_min_freq or len(w) < 2 or w in vocab_set:
+                continue
+            vocab.append(w)
+            vocab_set.add(w)
+            words[w] = (w,)
+
+    while len(vocab) < vocab_size:
+        piece_freq: Counter = Counter()
+        pair_freq: Counter = Counter()
+        index: Dict[tuple, List[str]] = {}
+        for w, pieces in words.items():
+            f = word_freq[w]
+            for p in pieces:
+                piece_freq[p] += f
+            for pr in zip(pieces, pieces[1:]):
+                pair_freq[pr] += f
+                index.setdefault(pr, []).append(w)
+
+        scored = sorted(
+            (
+                (f / (piece_freq[a] * piece_freq[b]), (a, b))
+                for (a, b), f in pair_freq.items()
+                if f >= min_pair_freq
+            ),
+            key=lambda t: (-t[0], t[1]),
+        )
+        used_pieces: set = set()
+        merges = []
+        for _, (a, b) in scored:
+            if len(merges) >= batch_size or (
+                len(vocab) + len(merges) >= vocab_size
+            ):
+                break
+            if a in used_pieces or b in used_pieces:
+                continue
+            merged = a + b[2:] if b.startswith("##") else a + b
+            if merged in vocab_set:
+                continue
+            used_pieces.update((a, b, merged))
+            merges.append((a, b, merged))
+        if not merges:
+            break
+
+        merge_map = {(a, b): m for a, b, m in merges}
+        touched = set()
+        for a, b, _ in merges:
+            touched.update(index.get((a, b), ()))
+        for w in touched:
+            pieces = words[w]
+            out: List[str] = []
+            i = 0
+            while i < len(pieces):
+                if (
+                    i + 1 < len(pieces)
+                    and (pieces[i], pieces[i + 1]) in merge_map
+                ):
+                    out.append(merge_map[(pieces[i], pieces[i + 1])])
+                    i += 2
+                else:
+                    out.append(pieces[i])
+                    i += 1
+            words[w] = tuple(out)
+        for _, _, m in merges:
+            vocab.append(m)
+            vocab_set.add(m)
+    return vocab

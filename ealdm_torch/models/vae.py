@@ -64,8 +64,10 @@ class VaeAttnBlock(nn.Module):
         b, c, h, w = x.shape
         y = self.norm(x)
 
-        def tokens(t):  # [B, C, H, W] -> [B, 1, H*W, C], h-major
-            return _nhwc(t).reshape(b, 1, h * w, c)
+        def tokens(t):  # [B, C, H, W] -> [B, 1, H*W, C], h-major, C contiguous
+            # (an NCHW-contiguous t at batch 1 would reshape to a view whose C
+            # is strided, which the flash kernel refuses)
+            return _nhwc(t).contiguous().reshape(b, 1, h * w, c)
 
         out = _attend(tokens(self.q(y)), tokens(self.k(y)), tokens(self.v(y)))
         return x + self.proj_out(_nchw(out.reshape(b, h, w, c)))

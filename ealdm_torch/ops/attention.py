@@ -23,7 +23,12 @@ counts under `flash_counter(d, dtype=)` (per head dim, entry point and
 float32 or not), and a combine under `COMBINE_COUNTER`.
 On the card both run inside autograd Functions whose backward is the vjp of
 the dense `sdpa` (`flash_attention_vjp`), as the JAX package's `custom_vjp`s
-do. `bf16_attention_shares` states the limits a bfloat16 kernel is held to
+do. Under a trace each Function's forward calls a dispatcher operator,
+`ealdm::flash_attention` or `ealdm::flash_attention_packed`, whose kernel
+is the launch and whose fake gives the output's shape, dtype and strides,
+so `torch.export` records the launch by name (`serving.py`); importing this
+module registers them. An eager call launches directly.
+`bf16_attention_shares` states the limits a bfloat16 kernel is held to
 against the plain version. `sdpa` (the dense default) and
 `tiny_ctx_attention_packed` are plain torch, as they are plain jnp in the
 JAX package.
@@ -34,6 +39,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from .. import kernels
 from ..kernels import build
@@ -216,6 +222,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
+        if isinstance(q, FakeTensor):  # a trace records the operator
+            return torch.ops.ealdm.flash_attention.default(q, k, v, scale)
         return flash_attention_kernel(q, k, v, scale)
 
     @staticmethod
@@ -231,6 +239,8 @@ class FlashAttentionPacked(torch.autograd.Function):
     def forward(ctx, q, k, v, heads, scale):
         ctx.save_for_backward(q, k, v)
         ctx.config = (scale, heads)
+        if isinstance(q, FakeTensor):
+            return torch.ops.ealdm.flash_attention_packed.default(q, k, v, heads, scale)
         return flash_attention_packed_kernel(q, k, v, heads, scale)
 
     @staticmethod
@@ -296,6 +306,41 @@ def flash_attention_packed_kernel(q, k, v, heads, scale=None):
     if d % 8:
         return o.reshape(b, nq, heads, dp)[..., :d].reshape(b, nq, hd)
     return o
+
+
+# The launches as dispatcher operators (the low-level `torch.library` API: a
+# `custom_op` costs more host time a call). A trace (`torch.export`, which
+# hands the Functions fake tensors) records the operator; an eager call
+# launches directly, since the operator's round trip into Python adds 7-10
+# us of host time to every launch on the H100's host, slower in 10 of 10
+# interleaved pairs (`chip_smoke.py --host`, `operator_cost`; PERF.md §6).
+# The CPU and CUDA kernels both call the launch function by its module
+# name, so a test or `chip_smoke.hold_sites` that swaps it sees every call;
+# on a CPU tensor the launch raises.
+_LIB = torch.library.Library("ealdm", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, float? scale) -> Tensor")
+_LIB.define("flash_attention_packed(Tensor q, Tensor k, Tensor v, int heads, float? scale) "
+            "-> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("flash_attention",
+              lambda q, k, v, scale: flash_attention_kernel(q, k, v, scale), _key)
+    _LIB.impl("flash_attention_packed",
+              lambda q, k, v, heads, scale: flash_attention_packed_kernel(q, k, v, heads, scale),
+              _key)
+
+
+@torch.library.register_fake("ealdm::flash_attention", lib=_LIB)
+def _flash_attention_fake(q, k, v, scale):
+    d = q.shape[-1]
+    if d % 8 == 0:
+        return torch.empty_like(q)
+    # the launch runs on zero-padded copies and returns a view of the first d columns
+    return q.new_empty((*q.shape[:-1], d + (-d % 8)))[..., :d]
+
+
+@torch.library.register_fake("ealdm::flash_attention_packed", lib=_LIB)
+def _flash_attention_packed_fake(q, k, v, heads, scale):
+    return q.new_empty(q.shape)
 
 
 def _check_head_dim(d):

@@ -6,7 +6,11 @@ take: dense channels_last, which is what the model's convolutions hand every
 norm, and NCHW-contiguous; on a CPU tensor it runs `group_norm_plain`, the
 jnp formulation written in torch. On the card the kernel runs inside
 `GroupNormKernel`, whose backward is the plain formulation's vjp
-(`group_norm_vjp`), as the JAX package's `custom_vjp` does. The JAX package's
+(`group_norm_vjp`), as the JAX package's `custom_vjp` does. Under a trace
+its forward calls the dispatcher operator `ealdm::group_norm` (the launch,
+with a fake that gives the output's shape, dtype and strides), so
+`torch.export` records the launch by name; importing this module registers
+it. An eager call launches directly (see `ops/attention.py`'s `_LIB`). The JAX package's
 `set_norm_impl("xla"|"pallas")` switch has no counterpart: it trades XLA
 scheduling, which eager PyTorch does not have.
 """
@@ -15,6 +19,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from .. import kernels
 from ..kernels import build
@@ -105,6 +110,9 @@ class GroupNormKernel(torch.autograd.Function):
     def forward(ctx, x, scale, bias, pre_bias, num_groups, eps, fuse_silu):
         ctx.save_for_backward(x, scale, bias, pre_bias)
         ctx.config = (num_groups, eps, fuse_silu)
+        if isinstance(x, FakeTensor):  # a trace records the operator
+            return torch.ops.ealdm.group_norm.default(x, scale, bias, pre_bias, num_groups,
+                                                      eps, fuse_silu)
         return group_norm_kernel(x, scale, bias, num_groups, eps, fuse_silu, pre_bias)
 
     @staticmethod
@@ -112,6 +120,23 @@ class GroupNormKernel(torch.autograd.Function):
         x, scale, bias, pre_bias = ctx.saved_tensors
         grads = group_norm_vjp(x, scale, bias, pre_bias, g, *ctx.config)
         return (*grads, None, None, None)
+
+
+# The launch as a dispatcher operator (see `ops/attention.py`'s `_LIB`): the
+# CPU and CUDA kernels call `group_norm_kernel` by its module name, which
+# raises on a CPU tensor.
+_LIB = torch.library.Library("ealdm", "FRAGMENT")
+_LIB.define("group_norm(Tensor x, Tensor scale, Tensor bias, Tensor? pre_bias, int num_groups, "
+            "float eps, bool fuse_silu) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("group_norm",
+              lambda x, scale, bias, pre_bias, num_groups, eps, fuse_silu: group_norm_kernel(
+                  x, scale, bias, num_groups, eps, fuse_silu, pre_bias), _key)
+
+
+@torch.library.register_fake("ealdm::group_norm", lib=_LIB)
+def _group_norm_fake(x, scale, bias, pre_bias, num_groups, eps, fuse_silu):
+    return torch.empty_like(x)  # y keeps x's layout
 
 
 def group_norm_vjp(x, scale, bias, pre_bias, g, num_groups, eps, fuse_silu):

@@ -11,19 +11,92 @@ exactly. Every matmul here runs in IEEE float32 (TF32 off whatever the
 caller's global setting), as the JAX package's `Precision.HIGHEST`. An
 index saved by either package loads in the other (`save`, `load`).
 
-`build_image_database` and the embedding functions behind it are not
-ported: they need `models/resnet.py`'s ResNet50 and an image folder reader
-(ROADMAP queue 1 item 6).
+`build_image_database` embeds an image folder (PNG and `.npy`; a `.jpg`
+raises naming ROADMAP queue 1 item 9) through the ResNet-50 trunk's pooled,
+L2-normalized features (`_embed_images_fn`); `_embed_texts_fn` is the
+4-layer text transformer's mean-pooled embedding. The JAX package
+initialises both from PRNGKey(0), which torch cannot draw: here each takes
+seeded random weights (`utils.init.random_init_`), or a flax parameter tree
+carried over through `utils.flax_import`.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .utils.device import resolve_device
+
+
+def _seeded_or_carried(module: torch.nn.Module, seed: int, params: Optional[Mapping], dev):
+    from .utils.flax_import import load_flax_params
+    from .utils.init import random_init_
+
+    if params is None:
+        random_init_(module, seed)
+    else:
+        load_flax_params(module, params, device=dev)
+    return module.eval()
+
+
+def _embed_images_fn(device=None, seed: int = 0, params: Optional[Mapping] = None):
+    """images [B, H, W, 3] in [-1, 1] (numpy or tensor) -> [B, 2048]
+    L2-normalized pooled ResNet-50 ("group" norm) features on `device`
+    ("cuda" unless given); weights seeded with `seed`, or `params`, a
+    flax tree of the JAX trunk."""
+    from .models.resnet import ResNet50
+
+    dev = resolve_device(device)
+    with torch.device(dev):
+        model = ResNet50()
+    model = _seeded_or_carried(model, seed, params, dev)  # the draws on the host
+
+    @torch.no_grad()
+    def embed(x):
+        feats = model(torch.as_tensor(x).to(dev, torch.float32), pool=True)
+        return feats / (torch.linalg.vector_norm(feats, dim=-1, keepdim=True) + 1e-8)
+
+    return embed
+
+
+def _embed_texts_fn(device=None, seed: int = 0, params: Optional[Mapping] = None):
+    """texts -> [B, 512] L2-normalized mean-pooled embeddings of the
+    4-layer text transformer over the hermetic tokenizer (77 tokens), on
+    `device`; weights seeded with `seed`, or `params`, a flax tree."""
+    from .models.text_transformer import SimpleTokenizer, TextTransformer
+
+    dev = resolve_device(device)
+    tok = SimpleTokenizer(max_len=77)
+    with torch.device(dev):
+        model = TextTransformer(vocab_size=30522, max_len=77, dim=512, depth=4)
+    model = _seeded_or_carried(model, seed, params, dev)
+
+    @torch.no_grad()
+    def embed(texts: Sequence[str]):
+        pooled = model(tok(list(texts)).to(dev)).mean(dim=1)
+        return pooled / (torch.linalg.vector_norm(pooled, dim=-1, keepdim=True) + 1e-8)
+
+    return embed
+
+
+def build_image_database(image_dir: str, size: int = 256, batch: int = 16, device=None,
+                         seed: int = 0, params: Optional[Mapping] = None) -> Dict:
+    """Embed every image under `image_dir` (`data.images.ImageFolderDataset`:
+    centre crop, BICUBIC to size^2) -> {"embedding" [N, 2048], "img_id",
+    "patch_coords" [N, 4] zeros, "paths"}, numpy arrays on the host."""
+    from .data.images import ImageFolderDataset
+
+    ds = ImageFolderDataset(image_dir, size=size)
+    embed = _embed_images_fn(device, seed, params)
+    embs, paths = [], []
+    for start in range(0, len(ds), batch):
+        items = [ds[i] for i in range(start, min(start + batch, len(ds)))]
+        embs.append(embed(np.stack([it["image"] for it in items])).cpu().numpy())
+        paths.extend(it["file_path_"] for it in items)
+    return {"embedding": np.concatenate(embs), "img_id": np.arange(len(paths)),
+            "patch_coords": np.zeros((len(paths), 4), np.int64), "paths": np.asarray(paths)}
 
 
 @contextlib.contextmanager

@@ -123,6 +123,22 @@ class CheckpointManager:
     def restore_last(self, state_template: Any) -> Any:
         return self._load(self._last_dir, state_template)
 
+    def read(self, step: Optional[int] = None, last: bool = False, map_location=None,
+             mmap: bool = False) -> dict:
+        """The saved `state_dict()` itself, with no state to copy it into
+        (the sampling CLIs take the parameters or the EMA shadow from it):
+        checkpoint `step`, or `last` with last=True, else the latest step
+        (`last` when there is none); with `mmap`, memory-mapped (`torch.load`'s)."""
+        if not last and step is None:
+            step = self.latest_step()
+        path = self._last_dir if last or step is None else os.path.join(
+            self.directory, str(int(step)))
+        live = self._live(path)
+        if live is None:
+            raise FileNotFoundError(f"no checkpoint at {path}")
+        return torch.load(os.path.join(live, _STATE), map_location=map_location,
+                          weights_only=True, mmap=mmap)
+
     def latest_step(self) -> Optional[int]:
         steps = list(self._metrics())
         return max(steps) if steps else None

@@ -110,6 +110,21 @@ def test_source_scan():
     assert "torch.compile" not in smoke
 
 
+# the command-line tools' slice: every module it added is in the scan
+CLI_SLICE_MODULES = (
+    "utils/dnn.py", "misc.py", "util.py", "data/tokenizer.py", "models/resnet.py",
+    "retrieval.py", "serving.py", "scripts/__init__.py", "scripts/_common.py",
+    "scripts/sample_diffusion.py", "scripts/txt2img.py", "scripts/inpaint.py",
+    "scripts/train_searcher.py", "scripts/knn2img.py", "scripts/train_tokenizer.py",
+    "scripts/export_sampler.py",
+)
+
+
+def test_source_scan_covers_the_cli_slice():
+    scanned = {p.relative_to(REPO / "ealdm_torch").as_posix() for p in _sources()}
+    assert set(CLI_SLICE_MODULES) <= scanned
+
+
 def test_no_fallback_in_kernel_wrappers():
     """A wrapper given a CUDA tensor launches or raises: no try/except."""
     for rel in ("ops/attention.py", "ops/norms.py", "ops/bias_act.py", "kernels/build.py"):
