@@ -10,6 +10,7 @@
     python3 chip_smoke.py --main       # the build and phase 18 (`python -m ealdm_torch.main`) only
     python3 chip_smoke.py --host       # the build and the kernel wrappers' host cost
     python3 chip_smoke.py --cli        # the build and phase 19 (the CLIs and serving) only
+    python3 chip_smoke.py --third      # the build and phase 20 (the third stage) only
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc (the
@@ -72,8 +73,9 @@ Phases, each of which raises (non-zero exit) on failure:
      their plain versions at the train step's shapes; (b) the flagship train
      step at batch 24 in bfloat16 with remat "dots" (a warm-up and five
      timed steps, launches per step checked against the module tree, one
-     profiled step: device time by group and the idle share; three steps
-     each under "none" and "full" for their time and peak); (c) gradient
+     profiled step: device time by group and the idle share; one step each
+     under "none" and "full", its launches against the module tree and its
+     loss finite); (c) gradient
      completeness after the first step; (e) that step's numbers: the
      gradient of one bf16 batch-24 step with the kernels against the same
      step with each kernel launch replaced by its plain version, and a
@@ -89,7 +91,7 @@ Phases, each of which raises (non-zero exit) on failure:
   7. inpainting (`config.INPAINT`, scripts/inpaint.py's run): the VQ-f4
      encode of a seeded 256^2 batch of 16, a keep-mask, `sample_images(mask,
      x0)` with DDIM-50 at eta 0, decode and composite; launches against the
-     module tree (flash per head dim, GroupNorm per path), three timed runs,
+     module tree (flash per head dim, GroupNorm per path), one timed run,
      a profile, float32 card vs CPU over 2 steps, and PLMS over 4 steps;
   8. the unconditional VQ-f8 LDM (`config.UNCOND`) at batch 24, one DDIM-50
      eta 1 run, timed, launches checked;
@@ -101,7 +103,7 @@ Phases, each of which raises (non-zero exit) on failure:
      run) at full width: batch 8 of one prompt against the empty prompt
      through the port's tokenizer and the 32-layer BERT, DDIM-50 at eta 0
      with CFG 5, hoisted, the KL-f8 decode; launches against the module
-     tree (flash d=40 / d=80 / d=512, GroupNorm by path), three timed runs,
+     tree (flash d=40 / d=80 / d=512, GroupNorm by path), one timed run,
      the two BERT passes timed, a profile, the C = 2,560 GroupNorm sites
      among the held ones, float32 card vs CPU over 2 steps at batch 1;
   12. class-conditional ImageNet (`config.CIN256`, cin256-v2, the sampling
@@ -135,8 +137,8 @@ Phases, each of which raises (non-zero exit) on failure:
      UNet and the decode) and (b) that example upsampled to 256^2 (1024^2
      out: 15x15 encode crops, 3x3 crops of 128^2 for the UNet, its d=32
      flash at 256 rows, and for the decode to 512^2 each); launches against
-     the module tree at the crops' sides (`superres_passes`), three timed
-     runs, a profile, `hold_sites`; float32 card vs CPU at batch 1, 2 steps
+     the module tree at the crops' sides (`superres_passes`), one timed
+     run, a profile, `hold_sites`; float32 card vs CPU at batch 1, 2 steps
      on (a) with the grid cut to 32^2 crops, stride 16 (multi-crop encode,
      UNet and decode).
   17. first-stage VAE-GAN training (`training/vae_trainer.py`), float32 at
@@ -184,7 +186,7 @@ Phases, each of which raises (non-zero exit) on failure:
      1 (the throughput line, 24 PNGs and the .npz read back, the EMA shadow
      used, launches against the module tree, every launch of a `-c 1`
      batch held); (b) txt2img-1p4B-eval.yaml, 2 samples at 256², 50 steps,
-     scale 5, DDIM and PLMS; (c) inpaint's full model on
+     scale 5, DDIM; (c) inpaint's full model on
      data/inpainting_examples, 50 steps; (d) train_searcher on 64 seeded
      256² PNGs (ResNet-50), then on the 200,000 x 768 database with
      --num_leaves 8; (e) knn2img on the 768x768 RDM, 2 samples, the
@@ -197,21 +199,44 @@ Phases, each of which raises (non-zero exit) on failure:
      against the direct program's. Each tool's wall, img/s over the wall
      and peak GiB, and (f)'s export seconds, artifact bytes, load seconds
      and served img/s, are the `[cli]` line.
+  20. the third stage (`ealdm_torch/third_stage.py`), run by phase 18 (b)'s
+     `ealdm_torch.main` call with --third_stage true
+     --third_stage_max_batches 1 on the flagship YAML (`--third`: a
+     one-step run of its own): (a) one dump batch of 32 a split at DDIM-50
+     (npz keys, shapes, dtypes; each dump's launches against the module
+     tree, and every launch of one UNet call at its guided batch of 64
+     held), the heads' training and `test` at CLIP
+     64^2, both CSVs and `run`'s five results, each part's seconds; (b)
+     `test` on (a)'s dumps at CLIP 224^2 (InceptionV3 at 299^2, ResNet-50 at
+     256^2); (c) one decode + heads batch of 4: launches against the module
+     tree (the VQ-f8 decoder's flash and GroupNorms, ResNet-50's 53
+     GroupNorms), every launch held, and ResNet-50's largest GroupNorm site
+     timed beside its plain version and F.group_norm; (d) float32 card
+     against CPU at batch 2, TF32 off: the decoded images, ResNet-50's
+     pooled features, the heads, InceptionV3's pool3 features and the CLIP
+     logits, each within 1e-3 of its largest |value|; (e) `refine_decoder`,
+     2 steps at batch 4 in float32 (finite losses, the decoder and the
+     discriminator moved, step seconds, peak GiB, every launch of a step
+     held); (f) seeded `inception.npz`, `clip.pth` and `vgg_lpips.pth` in a
+     temporary $EALDM_WEIGHTS_DIR: the trunks' outputs after auto-loading
+     equal to those of the same parameters copied directly.
   Each of phases 7-16 also holds every kernel launch of one bfloat16 pass
   (7, 14, 16: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet
   call and a decode; 9: one UNet call; 10: one round trip) against its
   plain version on the same inputs, at the shapes and strides the path
-  gives it (`hold_sites`); 11-16 also report img/s (median of three runs),
-  peak GiB and the device's busy time and idle share from one profile.
-  Phases 7-16 run after phase 5 and before phase 6; phases 17, 18 and 19
-  run last.
+  gives it (`hold_sites`); 11-16 also report img/s (one timed run), peak
+  GiB and the device's busy time and idle share from one profile.
+  Phases 7-16 run after phase 5 and before phase 6; phases 17, 18 (with
+  20 inside it) and 19 run last. The models these phases seed draw their
+  weights on the card (`random_init_`).
 
 The last lines of output are a `[phase-seconds]` line (the wall seconds
 of each phase or group of phases), `[done]`, a `[paths]` JSON line with
 phases 7-16's numbers, a `[train]` JSON line with phase 6's numbers, an
 `[ae_train_vq_f8]`, `[ae_train_kl_f8]`, `[convergence]` and
 `[ae_train_seconds]` line with phase 17's, a `[main]` line with phase
-18's, a `[cli]` line with phase 19's, the card's name and power
+18's, a `[cli]` line with phase 19's, a `[third_stage]` line with phase
+20's, the card's name and power
 limit, a JSON line with every kernel's numbers (not with --train), and
 {"ok": true, "device": {...}}.
 """
@@ -222,6 +247,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -385,6 +411,25 @@ def kernel_label(key):
     return head.replace(" ", "")
 
 
+def device_activities(prof):
+    """{name: (device seconds, count)} of what ran on the device in a
+    torch.profiler run (kernels, copies, sets; a range's span on the device
+    track is not one), summed by name over the profiler's raw events: the
+    rows of `key_averages()` with device time, without the event tree it
+    builds first (for 150,000 launches, about 40 s of the H100 machine's
+    host time, where the raw events take about 1 s)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_async() or e.is_user_annotation()
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        t, n = out.get(e.name(), (0.0, 0))
+        out[e.name()] = (t + (e.end_ns() - e.start_ns()) / 1e9, n + 1)
+    return {k: v for k, v in out.items() if v[0] > 0}
+
+
 def device_ms_by_kernel(fn, iters=20, warmup=2):
     """{kernel: device time per call in ms} of the CUDA kernels `fn` runs,
     under torch.profiler over `iters` calls; a kernel is named by its
@@ -392,7 +437,6 @@ def device_ms_by_kernel(fn, iters=20, warmup=2):
     time per call is its mean time a launch times its launches a call, so a
     launch the profiler misses does not pull the mean down."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -403,12 +447,10 @@ def device_ms_by_kernel(fn, iters=20, warmup=2):
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            name = kernel_label(e.key).split("<")[0].split("::")[-1]
-            per_call = max(1, round(e.count / iters))
-            out[name] = (out.get(name, 0.0)
-                         + e.self_device_time_total / e.count * per_call / 1e3)
+    for key, (t, count) in device_activities(prof).items():
+        name = kernel_label(key).split("<")[0].split("::")[-1]
+        per_call = max(1, round(count / iters))
+        out[name] = out.get(name, 0.0) + t / count * per_call * 1e3
     return out
 
 
@@ -1380,10 +1422,13 @@ def phase_ops():
 
 # ------------------------------------------------------------------ phase 3+
 def random_init_(model, seed):
-    """`ealdm_torch.utils.init.random_init_`: seeded random weights."""
+    """`ealdm_torch.utils.init.random_init_`'s seeded random weights, drawn
+    on the model's device (`on_device`): the host's draws took 6-7 ns a
+    parameter, 9.7 s for txt2img's 1.5 B. Every card-against-CPU check copies
+    the card model's weights, so nothing depends on the host's draws."""
     from ealdm_torch.utils.init import random_init_ as init
 
-    init(model, seed)
+    init(model, seed, on_device=True)
 
 
 def mixed_batch(b, res, seed, device):
@@ -1786,7 +1831,6 @@ def profile_groups(fn, label, unprofiled_s, top=20):
     host), device time by group, by flash kernel instance and of the `top`
     kernels. Each kernel counts in the first group whose name it contains."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1795,8 +1839,7 @@ def profile_groups(fn, label, unprofiled_s, top=20):
         fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = [(key, t, n) for key, (t, n) in device_activities(prof).items()]
     busy = sum(r[1] for r in rows)
     if busy <= 0:
         raise RuntimeError(f"{label}: the profiler saw no device time")
@@ -1902,17 +1945,16 @@ def phase_inpaint(cfg_module):
         nonlocal out
         out = run(steps)
 
-    walls = timed_runs(counted, 1)
+    walls = timed_runs(counted, 1)  # one timed run: host-bound, as phases 11-16
     details = check_launches("inpaint", census(steps))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    walls += timed_runs(lambda: run(steps), 2)
-    dt = sorted(walls)[1]
+    dt = walls[0]
     check_image("inpaint", out, (batch, res, res, 3))
     known = mask_px.expand_as(out) == 0
     if not torch.equal(out[known], img.expand_as(out)[known]):
         raise RuntimeError("inpaint: the composite changed the known pixels")
-    log(f"[inpaint] {dt:.4f} s = {batch / dt:.4f} img/s, the median of "
-        f"{[round(w, 4) for w in walls]} s (warm-up {warm_s:.1f} s), peak {peak:.2f} GiB")
+    log(f"[inpaint] {dt:.4f} s = {batch / dt:.4f} img/s, one timed run (warm-up "
+        f"{warm_s:.1f} s), peak {peak:.2f} GiB")
     prof = profile_groups(lambda: run(steps), "inpaint-profile", dt, top=12)
     t_mid = torch.full((batch,), 500, dtype=torch.int64, device="cuda")
 
@@ -2191,9 +2233,10 @@ def learned_conditioning(cond_input, uncond_input):
 
 def conditional_path(label, run, census, batch_images, hold_fn, widest_c=None,
                      small_pixels=None):
-    """The shared half of phases 11-14: a warm-up, a run with its launches
-    checked against `census` and its peak, two more timed runs (img/s of the
-    median), one profiled run, every kernel launch of `hold_fn` held against
+    """The shared half of phases 11-16: a warm-up, one timed run with its
+    launches checked against `census` and its peak (these paths are
+    host-bound and PERF.md keeps their ranges over three runs, so the card
+    budget keeps one), one profiled run, every kernel launch of `hold_fn` held against
     its plain version; with `widest_c`, the GroupNorm sites of that many
     channels must be among the held ones, and with `small_pixels` those of
     at most that many pixels a sample. Returns (launch details, numbers)."""
@@ -2210,16 +2253,15 @@ def conditional_path(label, run, census, batch_images, hold_fn, widest_c=None,
     walls = timed_runs(run, 1)
     details = check_launches(label, census)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    walls += timed_runs(run, 2)
-    dt = sorted(walls)[1]
+    dt = walls[0]
     by_rows = {f"{name}@{n}": c for (name, n), c in sorted(details.items())
                if name.startswith("flash")}
     gn = {}
     for (name, _), c in details.items():
         if name.startswith("group_norm"):
             gn[name] = gn.get(name, 0) + c
-    log(f"[{label}] {dt:.4f} s = {batch_images / dt:.4f} img/s, the median of "
-        f"{[round(w, 4) for w in walls]} s (warm-up {warm_s:.1f} s), peak {peak:.2f} GiB; "
+    log(f"[{label}] {dt:.4f} s = {batch_images / dt:.4f} img/s, one timed run "
+        f"(warm-up {warm_s:.1f} s), peak {peak:.2f} GiB; "
         f"flash launches by counter and rows {by_rows}; GroupNorm launches by path {gn}")
     prof = profile_groups(run, f"{label}-profile", dt, top=12)
     held = hold_sites(f"{label}-held", hold_fn)
@@ -2779,7 +2821,7 @@ def phase_superres(cfg_module):
     (a 1024^2 output: 15x15 encode crops, 3x3 crops of 128^2 latent for the
     UNet, whose d=32 attention then runs at 256 rows, and for the decode,
     at 512^2 each). Each: launches against the module tree at the crops'
-    sides, three timed runs, a profile, every kernel launch of one pass
+    sides, one timed run, a profile, every kernel launch of one pass
     (patched encode, one patched UNet call, patched decode) held. Then
     float32 card vs CPU at batch 1, 2 steps on input (a) with the crop grid
     cut to SR_REFERENCE_GRID."""
@@ -3215,24 +3257,24 @@ def phase_train(cfg_module):
             raise RuntimeError(f"{name} was not launched by the train step")
     busy, groups, n_kernels, prof_wall = profile_train_step("train-profile", step, state,
                                                             batch, 300, dt)
-    # the other remat policies, three steps each: median time, peak, launches
+    # the other remat policies, one step each: launches against the module
+    # tree and finite losses (PERF.md keeps their three-step timings)
     policies = {}
     for policy in ("none", "full"):
         other = make_train_step(model, opt, remat=policy)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        runs = [run_step(other, 400 + i) for i in range(3)]
+        wall, loss, gnorm, got = run_step(other, 400)
         expect, _ = expected_train_launches(model, batch_size, cfg, policy)
-        ok = all(r[3] == expect and math.isfinite(r[1]) for r in runs)
-        policies[policy] = dict(step_ms=sorted(r[0] for r in runs)[1] * 1e3,
-                                walls_s=[r[0] for r in runs],
+        ok = got == expect and math.isfinite(loss) and math.isfinite(gnorm)
+        policies[policy] = dict(step_s=wall,
                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        log(f"[train] remat {policy!r}: steps {[round(r[0], 4) for r in runs]} s, median "
-            f"{policies[policy]['step_ms']:.1f} ms, peak {policies[policy]['peak_gib']:.2f} "
-            f"GiB, launches as the module tree gives and finite losses: {ok}")
+        log(f"[train] remat {policy!r}: one step {wall:.4f} s (its first), peak "
+            f"{policies[policy]['peak_gib']:.2f} GiB, launches as the module tree gives "
+            f"and finite loss and grad norm: {ok}")
         if not ok:
-            raise RuntimeError(f"remat {policy!r}: launches {runs[0][3]} or losses "
-                               f"{[r[1] for r in runs]}")
+            raise RuntimeError(f"remat {policy!r}: launches {got} against {expect}, "
+                               f"loss {loss}, grad norm {gnorm}")
     out = dict(batch=batch_size, dtype=tc["dtype"], remat=tc["remat"],
                step_ms=dt * 1e3, walls_s=walls, img_per_s=batch_size / dt,
                warmup_s=warm_s, peak_gib=peak_gib, losses=[loss0] + [s[1] for s in steps],
@@ -4080,21 +4122,18 @@ def phase_ae_train(cfg_module, name):
     return details, out
 
 
-def phase_ae_kernels():
-    """The kernels at the first-stage step's float32 shapes, held against
-    their plain versions (1e-4) and timed (device time, inputs rotated past
-    the L2 for GroupNorm): flash [12,1,1024,512] (every VAE attention site
-    at batch 12) and the GroupNorm sites of the autoencoder (with SiLU) and
-    the discriminator (without: leaky ReLU follows), the odd sides 63^2 and
-    31^2 among them. Returns the JSON line's rows."""
+def f32_group_norm_rows(timed, gen):
+    """float32 channels_last GroupNorm sites (32 groups, eps 1e-6, SiLU or
+    not), each held against its plain version (one launch on the path
+    `group_norm_path` gives) and timed beside it and F.group_norm (device
+    time, inputs rotated past the L2). `timed`: [(row, shape, SiLU)].
+    Returns the JSON line's rows."""
     import torch
     import torch.nn.functional as F
 
     from ealdm_torch import kernels
-    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
     from ealdm_torch.ops.norms import group_norm_kernel, group_norm_path, group_norm_plain, silu
 
-    gen = torch.Generator(device="cuda").manual_seed(17)
     f32 = torch.float32
     errs, res = {}, {}
 
@@ -4102,35 +4141,8 @@ def phase_ae_kernels():
         x = torch.randn(*shape, generator=gen, device="cuda")
         return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
 
-    b, h, nq, d = shape = (12, 1, 1024, 512)
-    qkv = [randn(*shape) for _ in range(3)]
-    row = "flash_attention_f32_d512_b12_n1024"
-    compare(errs, row, f32, flash_attention(*qkv), flash_attention_plain(*qkv), str(list(shape)))
-    errs[row] = (flash_attention(*qkv) - flash_attention_plain(*qkv)).abs().max().item()
-    ms, seen = device_ms(lambda: flash_attention(*qkv), names=True)
-    bms, by = bound(3 * 4 * b * h * nq * nq * d, 4 * b * h * nq * d * 4, PEAK_TF32,
-                    exps=b * h * nq * nq)
-    res[row] = dict(
-        name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention_sm90_f32.cu",
-        replaces="ealdm_tpu/ops/attention.py:77", launches=None, max_abs_err=errs[row], ms=ms,
-        plain_ms=device_ms(lambda: flash_attention_plain(*qkv)), bound_ms=bms,
-        bound_by="bytes" if by == "bytes" else "operations", bound_kind=by,
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(*qkv)),
-        event_ms=cuda_ms(lambda: flash_attention(*qkv)), kernel=seen, shape=list(shape),
-        layout="split heads of the VAE's [B,1,N,C] tokens", dtype="float32",
-        key_splits=f32_flash_splits(b, h, nq, d), counter=(flash_counter(d, dtype=f32), nq))
-    del qkv
     single = "ealdm_tpu/ops/group_norm_pallas.py:103"
     chunked = "ealdm_tpu/ops/group_norm_pallas.py:123"
-    timed = [  # row, shape, SiLU (the autoencoder's norms) or not (the discriminator's)
-        ("ae_gn_f32_c128_256", (12, 128, 256, 256), True),
-        ("ae_gn_f32_c256_256", (12, 256, 256, 256), True),
-        ("ae_gn_f32_c512_32", (12, 512, 32, 32), True),
-        ("disc_gn_f32_c128_64", (12, 128, 64, 64), False),
-        ("disc_gn_f32_c256_63", (12, 256, 63, 63), False),
-        ("disc_gn_f32_c256_32", (12, 256, 32, 32), False),
-        ("disc_gn_f32_c512_31", (12, 512, 31, 31), False),
-    ]
     for row, shape, fuse in timed:
         n_, c = shape[:2]
         scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
@@ -4167,6 +4179,56 @@ def phase_ae_kernels():
             layout="channels_last", dtype="float32", pre_bias=False, silu=fuse,
             rotated_inputs=copies, counter=(path, ("channels_last", shape, "float32")))
         del inputs
+    return res
+
+
+def phase_ae_kernels():
+    """The kernels at the first-stage step's float32 shapes, held against
+    their plain versions (1e-4) and timed (device time, inputs rotated past
+    the L2 for GroupNorm): flash [12,1,1024,512] (every VAE attention site
+    at batch 12) and the GroupNorm sites of the autoencoder (with SiLU) and
+    the discriminator (without: leaky ReLU follows), the odd sides 63^2 and
+    31^2 among them. Returns the JSON line's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ealdm_torch.ops.attention import flash_attention, flash_attention_plain, flash_counter
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f32 = torch.float32
+    errs, res = {}, {}
+
+    def randn(*shape, layout="contiguous"):
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
+
+    b, h, nq, d = shape = (12, 1, 1024, 512)
+    qkv = [randn(*shape) for _ in range(3)]
+    row = "flash_attention_f32_d512_b12_n1024"
+    compare(errs, row, f32, flash_attention(*qkv), flash_attention_plain(*qkv), str(list(shape)))
+    errs[row] = (flash_attention(*qkv) - flash_attention_plain(*qkv)).abs().max().item()
+    ms, seen = device_ms(lambda: flash_attention(*qkv), names=True)
+    bms, by = bound(3 * 4 * b * h * nq * nq * d, 4 * b * h * nq * d * 4, PEAK_TF32,
+                    exps=b * h * nq * nq)
+    res[row] = dict(
+        name=row, route="cuda", source="ealdm_torch/kernels/csrc/flash_attention_sm90_f32.cu",
+        replaces="ealdm_tpu/ops/attention.py:77", launches=None, max_abs_err=errs[row], ms=ms,
+        plain_ms=device_ms(lambda: flash_attention_plain(*qkv)), bound_ms=bms,
+        bound_by="bytes" if by == "bytes" else "operations", bound_kind=by,
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(*qkv)),
+        event_ms=cuda_ms(lambda: flash_attention(*qkv)), kernel=seen, shape=list(shape),
+        layout="split heads of the VAE's [B,1,N,C] tokens", dtype="float32",
+        key_splits=f32_flash_splits(b, h, nq, d), counter=(flash_counter(d, dtype=f32), nq))
+    del qkv
+    res.update(f32_group_norm_rows([  # row, shape, SiLU (the autoencoder's norms) or not
+        ("ae_gn_f32_c128_256", (12, 128, 256, 256), True),
+        ("ae_gn_f32_c256_256", (12, 256, 256, 256), True),
+        ("ae_gn_f32_c512_32", (12, 512, 32, 32), True),
+        ("disc_gn_f32_c128_64", (12, 128, 64, 64), False),  # (the discriminator's:
+        ("disc_gn_f32_c256_63", (12, 256, 63, 63), False),  # leaky ReLU follows)
+        ("disc_gn_f32_c256_32", (12, 256, 32, 32), False),
+        ("disc_gn_f32_c512_31", (12, 512, 31, 31), False),
+    ], gen))
     torch.cuda.empty_cache()
     log_rows(res)
     return res
@@ -4450,20 +4512,21 @@ def phase_main_ldm(root, corpus):
             for key in ("path", "path_weather")]
     dots += [f"lightning.callbacks.image_logger.params.batch_frequency={MAIN_STEPS}",
              "lightning.callbacks.image_logger.params.max_images=4"]
-    common = ["-b", os.path.join(HERE, MAIN_YAML), "--dtype", "bfloat16", "--third_stage",
-              "false", "--device", "cuda"]
+    common = ["-b", os.path.join(HERE, MAIN_YAML), "--dtype", "bfloat16", "--device", "cuda"]
     steady = MAIN_STEPS - 1
     writes, probe, timer = [], LoopProbe((1, MAIN_STEPS - 1)), StepTimer()
     original_write = timed_checkpoint_writes(writes)
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        logdir, model, state = tmain.main(
-            common + ["-t", "--max_steps", str(MAIN_STEPS), "-l", os.path.join(root, "logs"),
-                      *dots], timer=timer, **probe.hooks)
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t0
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        # the loop, then the third stage as the JAX main.py runs it (phase 20)
+        with ThirdStageProbe() as third_probe:
+            logdir, model, state = tmain.main(
+                common + ["-t", "--max_steps", str(MAIN_STEPS), "-l", os.path.join(root, "logs"),
+                          "--third_stage", "true", "--third_stage_max_batches", "1", *dots],
+                timer=timer, **probe.hooks)
+        loop_s = third_probe.loop_end - t0
+        peak_gib = third_probe.loop_peak_gib
         batch_size = probe.first[0]["img"].shape[0]
         losses = [m["loss"].item() for m in probe.metrics]
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
@@ -4478,12 +4541,16 @@ def phase_main_ldm(root, corpus):
         if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses) or not vals:
             raise RuntimeError(f"the loop's losses {losses} and validations {vals}")
         files = logdir_files(logdir)
-        del model, state
+        del state
+        third_details, third = phase_third(logdir, model, third_probe, root,
+                                           os.path.join(HERE, MAIN_YAML))
+        del model
         release()
 
         # the bare step: the same first step, then the resident batch
         with tmain.kernel_settings():
-            _, model, state = tmain.main(common + ["-l", os.path.join(root, "bare"), *dots])
+            _, model, state = tmain.main(common + ["--third_stage", "false", "-l",
+                                                   os.path.join(root, "bare"), *dots])
             step = make_train_step(model, make_optimizer(batch_size * 1e-6))
             batch, gen_state = probe.first
             gen = torch.Generator()
@@ -4591,7 +4658,7 @@ def phase_main_ldm(root, corpus):
     if differ or restored_step != MAIN_STEPS or resumed_step != MAIN_RESUME_STEPS:
         raise RuntimeError(f"the resume restored step {restored_step} with {differ[:4]} "
                            f"differing, and reached step {resumed_step}")
-    return probe.launches[0], out
+    return probe.launches[0], out, third_details, third
 
 
 def phase_main_ae(root):
@@ -4662,10 +4729,12 @@ def phase_main_ae(root):
 def phase_main(cli=False):
     """Phase 18, the training entry point `python -m ealdm_torch.main` from
     the repo's YAMLs at full width: (a) the corpus, (b) the LDM loop beside
-    the bare step, (c) the resume, (d) the first-stage loop; with `cli`,
-    then phase 19 on (b)'s flagship run dir. Everything it writes lives in a
-    temporary directory it removes. Returns ({path: one step's launch
-    details}, numbers, phase 19's numbers or None)."""
+    the bare step, (c) the resume, (d) the first-stage loop; phase 20 runs
+    on (b)'s run, whose third stage it times; with `cli`, then phase 19 on
+    (b)'s flagship run dir. Everything it writes lives in a temporary
+    directory it removes. Returns ({path: one step's launch details},
+    numbers with phase 20's under "third_stage", phase 19's numbers or
+    None)."""
     import glob
     import shutil
     import tempfile
@@ -4676,10 +4745,11 @@ def phase_main(cli=False):
         t0 = time.perf_counter()
         corpus = os.path.join(root, "corpus")
         windows = main_corpus(corpus)
-        ldm_details, ldm = phase_main_ldm(root, corpus)
+        ldm_details, ldm, third_details, third = phase_main_ldm(root, corpus)
         ae_details, ae = phase_main_ae(root)
-        out = dict(windows=windows, ldm=ldm, ae=ae, seconds=time.perf_counter() - t0)
-        details = {"main_ldm_step": ldm_details, "main_ae_step": ae_details}
+        out = dict(windows=windows, ldm=ldm, ae=ae, seconds=time.perf_counter() - t0,
+                   third_stage=third)
+        details = {"main_ldm_step": ldm_details, "main_ae_step": ae_details, **third_details}
         if cli:
             flagship, = glob.glob(os.path.join(root, "logs", "*"))
             cli_details, cli_out = phase_cli(flagship, root)
@@ -4687,6 +4757,424 @@ def phase_main(cli=False):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return details, out, cli_out
+
+
+# ------------------------------------------------------------------ phase 20
+THIRD_KEYS = ["img", "latent", "w", "wlabel_nxt", "flabel", "flabel_nxt", "t"]
+THIRD_HEADS_BATCH = 4   # ThirdStageModel.run's batch, (c)'s decode + heads batch
+THIRD_CHECK_BATCH = 2   # (d)'s float32 card-against-CPU batch
+THIRD_REFINE_STEPS = 2  # (e)'s refine_decoder steps, at THIRD_HEADS_BATCH
+THIRD_DUMP_STEPS = 50   # dump_third_stage_data's DDIM steps, as ealdm_torch.main runs it
+
+
+class ThirdStageProbe:
+    """Wraps `ealdm_torch.third_stage`'s dump, `ThirdStageModel.train` and
+    `.test` while `ealdm_torch.main` runs the third stage: the seconds of
+    each (a synchronize at each end), each one's kernel launches (the
+    counts set to 0 as it starts and read as it ends: `launches`, by part,
+    and their sum over the stage, `stage_launches`), the results of `run`,
+    and the loop's end (its wall and peak before the third stage's first
+    dump)."""
+
+    def __init__(self):
+        self.seconds, self.results, self.loop_end, self.loop_peak_gib = {}, None, None, None
+        self.launches, self.stage_launches = {}, {}
+
+    def __enter__(self):
+        import torch
+
+        from ealdm_torch import kernels, third_stage
+
+        self._saved = (third_stage.dump_third_stage_data, third_stage.ThirdStageModel.train,
+                       third_stage.ThirdStageModel.test)
+        dump, train, test = self._saved
+        probe = self
+
+        def timed(name, fn):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                if probe.loop_end is None:
+                    probe.loop_end = time.perf_counter()
+                    probe.loop_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+                    torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                key = name(args, kwargs)
+                probe.seconds[key] = probe.seconds.get(key, 0.0) + time.perf_counter() - t0
+                probe.launches[key] = dict(kernels.launch_details)
+                for site, n in probe.launches[key].items():
+                    probe.stage_launches[site] = probe.stage_launches.get(site, 0) + n
+                return out
+            return wrapper
+
+        third_stage.dump_third_stage_data = timed(
+            lambda a, k: f"dump_{k.get('split', 'test')}", dump)
+        third_stage.ThirdStageModel.train = timed(lambda a, k: "heads_train", train)
+
+        def test_and_keep(*args, **kwargs):
+            probe.results = test(*args, **kwargs)
+            return probe.results
+
+        third_stage.ThirdStageModel.test = timed(lambda a, k: "test", test_and_keep)
+        return self
+
+    def __exit__(self, *exc):
+        from ealdm_torch import third_stage
+
+        (third_stage.dump_third_stage_data, third_stage.ThirdStageModel.train,
+         third_stage.ThirdStageModel.test) = self._saved
+
+
+def resnet50_census(trunk, n, side, dtype="float32"):
+    """{(counter, detail): launches} of one pooled forward of a "group"
+    ResNet-50 (`models/resnet.py`) on [n, side, side, 3] in `dtype`: its 53
+    GroupNorms, each on the path `group_norm_path` gives its channels_last
+    shape (the stem's at side / 2, each block's first norm at the block's
+    input side, the rest at its output side)."""
+    import collections
+
+    import torch
+
+    from ealdm_torch.ops.norms import group_norm_path
+
+    sites = [(trunk.bn1, side // 2)]
+    s = side // 4  # the stem's stride-2 convolution and max pool
+    for stage, n_blocks in enumerate(trunk.stage_sizes):
+        for b in range(n_blocks):
+            block = getattr(trunk, f"layer{stage + 1}_{b}")
+            out = s // 2 if stage > 0 and b == 0 else s
+            sites += [(block.bn1, s), (block.bn2, out), (block.bn3, out)]
+            if block.downsample_bn is not None:
+                sites.append((block.downsample_bn, out))
+            s = out
+    census = collections.Counter()
+    for norm, s in sites:
+        shape = (n, norm.weight.numel(), s, s)
+        path = group_norm_path(shape, getattr(torch, dtype), norm.num_groups)
+        census[(path, ("channels_last", shape, dtype))] += 1
+    return dict(census), len(sites)
+
+
+def third_dumps(logdir, batch):
+    """(a)'s dump files: one batch a split with JAX's seven keys, float32,
+    finite, at the flagship's shapes. Returns {split: path}."""
+    import numpy as np
+
+    out = {}
+    for split in ("train", "test"):
+        d = os.path.join(logdir, "third_stage_data", split)
+        files = sorted(os.listdir(d))
+        if files != ["batch_00000.npz"]:
+            raise RuntimeError(f"third stage: {split} dump files {files}")
+        with np.load(os.path.join(d, files[0])) as z:
+            shapes = {k: tuple(z[k].shape) for k in z.files}
+            ok = (z.files == THIRD_KEYS and all(z[k].dtype == np.float32 for k in z.files)
+                  and all(np.isfinite(z[k]).all() for k in z.files)
+                  and shapes["img"] == (batch, 256, 256, 3)
+                  and shapes["latent"] == (batch, 32, 32, 4)
+                  and shapes["wlabel_nxt"] == (batch, 10)
+                  and all(v[0] == batch for v in shapes.values()))
+        log(f"[third_stage] (a) {split} dump {files[0]}: {shapes}")
+        if not ok:
+            raise RuntimeError(f"third stage: the {split} dump's keys, dtypes or shapes")
+        out[split] = d
+    return out
+
+
+def third_weights(wdir, scorer, fid_net, lpips):
+    """(f)'s checkpoints, written into `wdir` from seeded values drawn on
+    the card: a torchvision-named `inception.npz`, an OpenAI-named
+    `clip.pth` and a taming `vgg_lpips.pth`, each the state of one of the
+    given modules (an InceptionV3Features, a CLIPZeroShot's towers, an
+    LPIPS), whose parameters are set to those values directly."""
+    import numpy as np
+    import torch
+
+    from ealdm_torch.losses import lpips as lpips_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(200)
+
+    def fill(module, bn_like=()):
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                leaf = name.rsplit(".", 1)[-1]
+                v = torch.randn(p.shape, generator=gen, device="cuda")
+                if leaf in ("bn_var",):
+                    v = 0.5 + v.abs()
+                elif leaf == "bn_scale" or (p.dim() == 1 and leaf == "weight"):
+                    v = 1 + 0.1 * v
+                elif p.dim() >= 2:
+                    v = v * math.sqrt(2.0 / p[0].numel())
+                else:
+                    v = 0.1 * v
+                p.copy_(v)
+        return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+    sd = fill(fid_net)
+    tv = {}
+    for k, v in sd.items():
+        scope, leaf = k.rsplit(".", 1)
+        leaf = {"bn_scale": "bn.weight", "bn_bias": "bn.bias", "bn_mean": "bn.running_mean",
+                "bn_var": "bn.running_var"}.get(leaf, leaf)
+        tv[f"{scope}.{leaf}"] = v.numpy()
+    np.savez(os.path.join(wdir, "inception.npz"), **tv)
+
+    def openai(name):
+        name = name.replace("token_embedding.embedding", "token_embedding.weight")
+        name = name.replace("attn.out_proj_", "attn.out_proj.").replace("mlp_c_", "mlp.c_")
+        return re.sub(r"resblocks_(\d+)", r"resblocks.\1", name)
+
+    clip = {openai(k): v for k, v in fill(scorer.text_model.model).items()}
+    clip.update({"visual." + openai(k): v for k, v in fill(scorer.image_model.visual).items()})
+    scorer.class_embeddings = scorer._embed_texts(scorer._tokens)
+    torch.save(clip, os.path.join(wdir, "clip.pth"))
+
+    lp = fill(lpips)
+    names = [f"conv{b}_{i}" for b, ws in enumerate(lpips_mod._VGG16_CFG) for i in range(len(ws))]
+    taming = {}
+    for idx, name in zip(lpips_mod._CONV_IDX, names):
+        for leaf in ("weight", "bias"):
+            taming[f"net.slice{lpips_mod._slice_of(idx)}.{idx}.{leaf}"] = lp[f"vgg.{name}.{leaf}"]
+    for i in range(len(lpips_mod._VGG16_CFG)):
+        taming[f"lin{i}.model.1.weight"] = lp[f"lin{i}.weight"]
+    torch.save(taming, os.path.join(wdir, "vgg_lpips.pth"))
+    return {n: os.path.getsize(os.path.join(wdir, n))
+            for n in ("inception.npz", "clip.pth", "vgg_lpips.pth")}
+
+
+def phase_third(logdir, model, probe, root, config_path):
+    """Phase 20 under `ealdm_torch.main`'s kernel settings (flash attention
+    at eligible sites), as the entry point runs the third stage."""
+    from ealdm_torch import main as tmain
+
+    with tmain.kernel_settings():
+        return _phase_third(logdir, model, probe, root, config_path)
+
+
+def _phase_third(logdir, model, probe, root, config_path):
+    """Phase 20, the third stage at full width, after `ealdm_torch.main`
+    ran it on `logdir` (flagship YAML, one dump batch a split, DDIM-50,
+    `probe` its seconds and launches): (a) the dumps (each one's launches
+    against the module tree, one UNet call at its guided batch held), the
+    CSVs and `run`'s results; (b)
+    `ThirdStageModel.test` on (a)'s test dump with CLIP at 224^2; (c) one
+    decode + heads batch's launches against the module tree, every one held
+    against its plain version; (d) float32 card against CPU at batch 2; (e)
+    `refine_decoder`; (f) the weights from $EALDM_WEIGHTS_DIR. Returns
+    ({"third_stage": the whole stage's launches under ealdm_torch.main},
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from ealdm_torch import kernels, training
+    from ealdm_torch.config import load_config, model_from_config
+    from ealdm_torch.data.pipeline import DataLoader
+    from ealdm_torch.inference import sample_images
+    from ealdm_torch.losses import LPIPS
+    from ealdm_torch.models.inception import InceptionV3Features
+    from ealdm_torch.third_stage import CLIPZeroShot, ThirdStageDataset, ThirdStageModel
+
+    t_phase = time.perf_counter()
+    out = {"main_seconds": dict(probe.seconds), "results": probe.results}
+    # (a) what ealdm_torch.main wrote
+    batch = int(load_config([config_path])["data"]["params"]["batch_size"])
+    dirs = third_dumps(logdir, batch)
+    with open(os.path.join(logdir, "third_stage_results.csv")) as f:
+        header, values = [line.strip().split(",") for line in f]
+    with open(os.path.join(logdir, "third_stage_flow.csv")) as f:
+        flow_rows = f.read().splitlines()
+    log(f"[third_stage] (a) seconds {probe.seconds}; results {probe.results}")
+    if (probe.results is None or list(probe.results) != header
+            or not all(math.isfinite(float(v)) for v in values)
+            or flow_rows[0] != "time,flow_true,flow_pred" or len(flow_rows) != batch + 1
+            or set(probe.seconds) != {"dump_train", "dump_test", "heads_train", "test"}):
+        raise RuntimeError(f"third stage (a): results {probe.results}, CSV {header} {values}, "
+                           f"{len(flow_rows)} flow rows")
+    # (a) each dump's launches against the module tree: log_images' encode,
+    # reconstruction and 6 diffusion-row decodes (of min(n, 4)), the 2N
+    # conditioning encode, DDIM's UNet on the 2N guided batch each step, the
+    # samples' and the quantized samples' decodes
+    fs, unet = model.first_stage_model, model.model.diffusion_model
+    dec_dtype = str(fs.decoder.dtype).removeprefix("torch.")
+    dump_want = path_census([(fs.encoder, batch, 256, 1), (fs.encoder, 2 * batch, 256, 1),
+                             (unet, 2 * batch, 32, THIRD_DUMP_STEPS),
+                             (fs.decoder, batch, 32, 3), (fs.decoder, min(batch, 4), 32, 6)],
+                            dtype=dec_dtype)
+    for split in ("train", "test"):
+        check_launches(f"third-stage dump {split}", dump_want, probe.launches[f"dump_{split}"])
+    # one UNet call at the dump's guided batch (and the 2N conditioning
+    # encode before it), every launch held
+    dump_gen = torch.Generator(device="cuda").manual_seed(21)
+    dump_held = hold_sites("third-stage dump held", lambda: sample_images(
+        model, batch, (32, 32, 4), steps=1, mixed=mixed_batch(batch, 256, 22, "cuda"),
+        decode=False, generator=dump_gen))
+    out["dump"] = dict(batch=batch, steps=THIRD_DUMP_STEPS, guided_batch=2 * batch,
+                       held_sites=len(dump_held), held_worst=max(dump_held.values()))
+    release()
+
+    # (b) test at CLIP's full width (InceptionV3 at 299^2, ResNet-50 at 256^2)
+    loader = DataLoader(ThirdStageDataset(dirs["test"]), THIRD_HEADS_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = ThirdStageModel(model, clip_image_size=224, device="cuda")
+    res_b = full.test(loader, os.path.join(root, "third_b"))
+    torch.cuda.synchronize()
+    out["full_width"] = dict(results=res_b, seconds=time.perf_counter() - t0)
+    log(f"[third_stage] (b) test at CLIP 224^2: {out['full_width']}")
+    if not all(math.isfinite(v) for v in res_b.values()):
+        raise RuntimeError(f"third stage (b): {res_b}")
+
+    # (c) one decode + heads batch: launches against the module tree, held
+    first = next(iter(loader))
+    latent = torch.from_numpy(first["latent"]).cuda()
+    want = path_census([(model.first_stage_model.decoder, THIRD_HEADS_BATCH, 32, 1)],
+                       dtype=dec_dtype)
+    heads_census, n_sites = resnet50_census(full.heads.trunk, THIRD_HEADS_BATCH, 256)
+    for key, n in heads_census.items():
+        want[key] = want.get(key, 0) + n
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        full._heads(full.decode(latent))
+    torch.cuda.synchronize()
+    check_launches("third-stage decode + heads", want)
+    held = hold_sites("third-stage held", lambda: full._heads(full.decode(latent)))
+    out["launches"] = dict(decoder_dtype=dec_dtype, resnet_group_norm_sites=n_sites,
+                           held_sites=len(held),
+                           held_worst=max(held.values()))
+    del full
+    release()
+    # ResNet-50's largest GroupNorm site (the stem's, at the heads' batch)
+    out["kernel_rows"] = f32_group_norm_rows(
+        [("resnet50_gn_f32_c64_128", (THIRD_HEADS_BATCH, 64, 128, 128), False)],
+        torch.Generator(device="cuda").manual_seed(20))
+    log_rows(out["kernel_rows"])
+
+    # (d) float32, card against CPU, batch 2, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = load_config([config_path])
+    sd = {k: v.float() for k, v in model.state_dict().items()}
+    lat2 = latent[:THIRD_CHECK_BATCH].cpu()
+    got, scorers = {}, {}
+    for dev in ("cpu", "cuda"):
+        m, _ = model_from_config(cfg["model"], dtype=torch.float32, device=dev)
+        m.load_state_dict(sd)
+        m.scale_factor = model.scale_factor
+        tsm = ThirdStageModel(m.eval(), clip_image_size=224, device=dev)
+        images = tsm.decode(lat2.to(dev))
+        x = got["images"]["cpu"].to(dev) if dev == "cuda" else images  # the CPU's decode
+        with torch.no_grad():
+            logits_w, pred_f = tsm._heads(x)
+            row = dict(images=images, resnet_pooled=tsm.heads.trunk(x, pool=True),
+                       fc_w=logits_w, fc_f=pred_f, inception_pool3=tsm._fid_feats(x),
+                       clip_logits=torch.from_numpy(tsm.clip_scorer.logits(x)))
+        for k, v in row.items():
+            got.setdefault(k, {})[dev] = v.float().cpu()
+        scorers[dev] = tsm
+    rel = {k: rel_err_to_max(v["cuda"], v["cpu"]) for k, v in got.items()}
+    out["float32_card_vs_cpu"] = dict(rel, seconds=time.perf_counter() - t0)
+    log(f"[third_stage] (d) float32 card vs CPU, batch {THIRD_CHECK_BATCH}: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + " (tolerance 1e-3 of max each)")
+    if not all(v <= 1e-3 for v in rel.values()):
+        raise RuntimeError("third stage (d): the card's float32 result disagrees with the CPU")
+    tsm = scorers.pop("cuda")
+    del scorers
+    release()
+
+    # (e) refine_decoder on the card's float32 model, batch 4
+    loss = tsm.refine_loss(0)
+    decoder = tsm.model.first_stage_model.decoder
+    dec0 = {k: p.detach().clone() for k, p in decoder.named_parameters()}
+    disc0 = {k: p.detach().clone() for k, p in loss.discriminator.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gl, dl = tsm.refine_decoder([first], steps=THIRD_REFINE_STEPS, lr=1e-5, loss_module=loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / THIRD_REFINE_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dec_moved = max(float((p - dec0[k]).abs().max()) for k, p in decoder.named_parameters())
+    disc_moved = max(float((p - disc0[k]).abs().max())
+                     for k, p in loss.discriminator.named_parameters())
+    refine_held = hold_sites("third-stage refine held", lambda: tsm.refine_decoder(
+        [first], steps=1, lr=1e-5, loss_module=loss), grad=True)
+    out["refine"] = dict(steps=THIRD_REFINE_STEPS, batch=THIRD_HEADS_BATCH, gl=gl, dl=dl,
+                         step_s=step_s, peak_gib=peak, decoder_moved=dec_moved,
+                         discriminator_moved=disc_moved, held_sites=len(refine_held),
+                         held_worst=max(refine_held.values()))
+    log(f"[third_stage] (e) refine_decoder: gl {gl:.6g}, dl {dl:.6g}, {step_s:.3f} s a step, "
+        f"peak {peak:.2f} GiB, decoder moved {dec_moved:.3g}, discriminator {disc_moved:.3g}")
+    if not (math.isfinite(gl) and math.isfinite(dl) and dec_moved > 0 and disc_moved > 0):
+        raise RuntimeError(f"third stage (e): {out['refine']}")
+    del dec0, disc0
+
+    # (f) the trunks' weights from $EALDM_WEIGHTS_DIR against a direct copy
+    t0 = time.perf_counter()
+    wdir = os.path.join(root, "weights")
+    os.makedirs(wdir)
+    with torch.device("cuda"):
+        fid_direct = InceptionV3Features().eval()
+    lpips_direct = LPIPS(device="cuda").eval()
+    scorer_direct = CLIPZeroShot(image_size=224, device="cuda")
+    sizes = third_weights(wdir, scorer_direct, fid_direct, lpips_direct)
+    x = got["images"]["cpu"].cuda()
+    y = torch.flip(x, dims=(2,))
+    saved_env = os.environ.get("EALDM_WEIGHTS_DIR")
+    os.environ["EALDM_WEIGHTS_DIR"] = wdir
+    try:
+        auto = ThirdStageModel(tsm.model, clip_image_size=224, device="cuda")
+        with torch.no_grad():
+            same_fid = torch.equal(auto._fid_feats(x), fid_direct((x + 1.0) * 0.5))
+        same_clip = np.array_equal(auto.clip_scorer.logits(x), scorer_direct.logits(x))
+        training.init_vae_train_state(tsm.model.first_stage_model, loss, 1e-5, device="cuda")
+        with torch.no_grad():
+            same_lpips = torch.equal(loss.perceptual(x, y), lpips_direct(x, y))
+    finally:
+        if saved_env is None:
+            os.environ.pop("EALDM_WEIGHTS_DIR")
+        else:
+            os.environ["EALDM_WEIGHTS_DIR"] = saved_env
+    out["weights"] = dict(bytes=sizes, inception_equal=same_fid, clip_equal=same_clip,
+                          lpips_equal=same_lpips, seconds=time.perf_counter() - t0)
+    log(f"[third_stage] (f) weights {sizes}: auto-loaded against directly copied, "
+        f"InceptionV3 features equal {same_fid}, CLIP logits {same_clip}, LPIPS {same_lpips}")
+    if not (same_fid and same_clip and same_lpips):
+        raise RuntimeError("third stage (f): the auto-loaded trunks differ from the direct copy")
+    del auto, tsm, loss, fid_direct, lpips_direct, scorer_direct
+    release()
+    out["seconds"] = sum(probe.seconds.values()) + time.perf_counter() - t_phase
+    out["card"] = nvidia_smi()
+    # the [kernels] line's third_stage column: the whole stage under
+    # ealdm_torch.main (both dumps, the heads' training and test)
+    return {"third_stage": dict(probe.stage_launches)}, out
+
+
+def phase_third_alone():
+    """`--third`: the corpus, `ealdm_torch.main` on the flagship YAML for one
+    step with the third stage, then phase 20, in a temporary directory it
+    removes."""
+    import shutil
+    import tempfile
+
+    from ealdm_torch import main as tmain
+
+    root = tempfile.mkdtemp(prefix="ealdm_third_")
+    try:
+        corpus = os.path.join(root, "corpus")
+        main_corpus(corpus)
+        dots = [f"data.params.{split}.params.{key}={corpus}/"
+                for split in ("train", "validation") for key in ("path", "path_weather")]
+        with ThirdStageProbe() as probe:
+            logdir, model, _ = tmain.main(
+                ["-b", os.path.join(HERE, MAIN_YAML), "--dtype", "bfloat16", "--device", "cuda",
+                 "-t", "--max_steps", "1", "--third_stage", "true",
+                 "--third_stage_max_batches", "1", "-l", os.path.join(root, "logs"), *dots])
+        return phase_third(logdir, model, probe, root, os.path.join(HERE, MAIN_YAML))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ phase 19
@@ -4734,8 +5222,9 @@ kernels.reset_launch_counts()
 with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
     svc.serve_pending()
     torch.cuda.synchronize()
-names = sorted({e.key for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0})
+# the profiler's raw events: key_averages() builds an event tree first
+names = sorted({e.name() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA and e.end_ns() > e.start_ns()})
 batch_launches = {f"{k[0]}|{k[1]}": v for k, v in kernels.launch_details.items()}
 latent = latents[0].float().cpu().numpy()  # the first batch's
 assert "ealdm_torch.models" not in sys.modules
@@ -4833,8 +5322,8 @@ def phase_cli(logdir, root):
     """Phase 19, the command-line tools and serving at full width on the
     card, in-process through each tool's `main(argv)`: (a) sample_diffusion
     on the flagship run dir (batch 24, DDIM-50, eta 1) with launches against
-    the module tree and one held pass, (b) txt2img (DDIM and PLMS), (c)
-    inpaint, (d) train_searcher, (e) knn2img (text and image query), (f)
+    the module tree and one held pass, (b) txt2img (DDIM), (c)
+    inpaint, (d) train_searcher, (e) knn2img (a text query), (f)
     export_sampler and a fresh serving process. Returns ({path: launch
     details}, numbers)."""
     import numpy as np
@@ -4896,9 +5385,10 @@ def phase_cli(logdir, root):
     out["sample_diffusion"]["held_worst"] = max(held.values())
 
     # (b) txt2img at 256^2, 2 samples (the card budget's cut from 4: the
-    # wall is the 1.5 B-parameter seeded init), 50 steps, scale 5: DDIM,
-    # then PLMS
-    for name, extra in (("txt2img_ddim", []), ("txt2img_plms", ["--plms"])):
+    # wall is the 1.5 B-parameter seeded init), 50 steps, scale 5, DDIM (the
+    # card budget's cut of the PLMS run, which re-ran that init; the CPU
+    # tests hold --plms)
+    for name, extra in (("txt2img_ddim", []),):
         d = os.path.join(cli_root, name)
         grid, nums, _, _ = cli_run(name, txt2img.main, [
             "--config", os.path.join(HERE, CLI_TXT2IMG_YAML), "--n_samples", "2",
@@ -4940,9 +5430,11 @@ def phase_cli(logdir, root):
     out["train_searcher_npz"] = nums
     del s
 
-    # (e) knn2img: the 768x768 RDM, 2 samples, the database, 10 neighbours
-    example = os.path.join(HERE, "data", "inpainting_examples", "example0.png")
-    for name, query in (("knn2img_text", []), ("knn2img_image", ["--query_image", example])):
+    # (e) knn2img: the 768x768 RDM, 2 samples, the database, 10 neighbours,
+    # the text query (the card budget's cut of the image query, which re-ran
+    # the RDM's 1.4 B-parameter seeded init; the CPU tests hold
+    # --query_image)
+    for name, query in (("knn2img_text", []),):
         d = os.path.join(cli_root, name)
         _, nums, _, _ = cli_run(name, knn2img.main, [
             "--config", os.path.join(HERE, CLI_RDM_YAML), "--database", db_path,
@@ -5097,10 +5589,11 @@ def main(argv):
     ae_only = "--ae" in argv
     main_only = "--main" in argv
     cli_only = "--cli" in argv
+    third_only = "--third" in argv
     rows, head_dim_grads = {}, None
     if "--groupnorm" in argv:
         rows = phase_group_norm()
-    elif not (train_only or ae_only or main_only or cli_only):
+    elif not (train_only or ae_only or main_only or cli_only or third_only):
         timed("1 sass", phase_sass)
         if not paths_only:
             rows = timed("2 kernels", phase_kernels)
@@ -5110,7 +5603,7 @@ def main(argv):
         rows.update(head_dim_rows)
     launches_by_path = {}
     if not {"--kernels", "--groupnorm", "--train", "--paths", "--ae", "--main",
-            "--cli"} & set(argv):
+            "--cli", "--third"} & set(argv):
         steps, batch = 50, 24
         t_main = time.perf_counter()
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
@@ -5134,31 +5627,45 @@ def main(argv):
         launches_by_path["flagship"] = details
         seconds["3-5 flagship"] = time.perf_counter() - t_main
     paths = None
-    if not {"--kernels", "--groupnorm", "--train", "--ae", "--main", "--cli"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--train", "--ae", "--main", "--cli",
+            "--third"} & set(argv):
         path_details, paths = timed("7-16 paths", phases_paths, cfg_module)
         launches_by_path.update(path_details)
         paths["flash_grad_worst"] = head_dim_grads
     train = None
-    if not {"--kernels", "--groupnorm", "--paths", "--ae", "--main", "--cli"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--paths", "--ae", "--main", "--cli",
+            "--third"} & set(argv):
         train_details, train = timed("6 train", phases_train, cfg_module)
         launches_by_path.update(train_details)
     ae_train = None
-    if not {"--kernels", "--groupnorm", "--paths", "--train", "--main", "--cli"} & set(argv):
+    if not {"--kernels", "--groupnorm", "--paths", "--train", "--main", "--cli",
+            "--third"} & set(argv):
         ae_details, ae_train, ae_rows = timed("17 first-stage training", phases_ae_train,
                                               cfg_module)
         launches_by_path.update(ae_details)
         rows.update(ae_rows)
-    main_run = cli_run_out = None
-    if not {"--kernels", "--groupnorm", "--paths", "--train", "--ae", "--cli"} & set(argv):
-        main_details, main_run, cli_run_out = timed("18-19 main and cli", phase_main,
-                                                    "--main" not in argv)
+    main_run = cli_run_out = third = None
+    if not {"--kernels", "--groupnorm", "--paths", "--train", "--ae", "--cli",
+            "--third"} & set(argv):
+        main_details, main_run, cli_run_out = timed("18-20 main, cli and third stage",
+                                                    phase_main, "--main" not in argv)
         launches_by_path.update(main_details)
+        third = main_run.pop("third_stage")
+        rows.update(third.pop("kernel_rows"))
+        seconds["20 third stage"] = third["seconds"]  # within phase 18's run
+        seconds["18-20 main, cli and third stage"] -= third["seconds"]
         if cli_run_out is not None:  # phase 19 ran inside phase 18's directory
             seconds["19 cli"] = cli_run_out["seconds"]
-            seconds["18-19 main and cli"] -= cli_run_out["seconds"]
+            seconds["18-20 main, cli and third stage"] -= cli_run_out["seconds"]
+        seconds["18 main"] = seconds.pop("18-20 main, cli and third stage")
     elif "--cli" in argv:
         cli_details, cli_run_out = timed("19 cli", phase_cli_alone)
         launches_by_path.update(cli_details)
+    elif third_only:
+        third_details, third = timed("20 third stage (with its one-step run)",
+                                     phase_third_alone)
+        rows.update(third.pop("kernel_rows"))
+        launches_by_path.update(third_details)
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row; a train path's: one step); a row the flagship does
@@ -5182,6 +5689,8 @@ def main(argv):
             log(f"[{key}] {json.dumps(numbers)}")
     if main_run is not None:
         log(f"[main] {json.dumps(main_run)}")
+    if third is not None:
+        log(f"[third_stage] {json.dumps(third)}")
     log(smi)
     if not train_only:
         log(json.dumps({"kernels": list(rows.values())}))

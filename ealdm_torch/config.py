@@ -378,7 +378,6 @@ class NotPorted:
 _SR_ITEM = "ROADMAP queue 1 item 9 (the JPEG data paths)"
 _IMAGE_SR = NotPorted("ImageSRDataset (JPEG re-encoding; no JPEG codec on the card)", _SR_ITEM)
 _LAYOUT = NotPorted("SyntheticLayoutDataset", _SR_ITEM)
-_THIRD_STAGE = NotPorted("ThirdStageDataset", "ROADMAP queue 1 item 6 (the third stage)")
 
 # the reference's dotted path -> "module:attr" in this package (the keys of
 # `ealdm_tpu/config.py` _REGISTRY)
@@ -426,7 +425,9 @@ _REGISTRY = {
     "main.DataModuleFromConfig": "ealdm_torch.data.pipeline:DataModule",
     "STDiff.dataset_wlbl.ImageNetVidDataset": "ealdm_torch.data.stdiff:StreamCameraDataset",
     "STDiff.dataset.ImageNetVidDataset": "ealdm_torch.data.stdiff:StreamCameraDataset",
-    "STDiff.third_stage_dataset.ThirdStageDataset": _THIRD_STAGE,
+    # JAX's entry names `ealdm_tpu.data.third_stage`, which does not exist;
+    # the class lives in `ealdm_tpu/third_stage.py`, as here
+    "STDiff.third_stage_dataset.ThirdStageDataset": "ealdm_torch.third_stage:ThirdStageDataset",
     "ldm.data.lsun.LSUNChurchesTrain": "ealdm_torch.data.images:ImageFolderDataset",
     "ldm.data.lsun.LSUNChurchesValidation": "ealdm_torch.data.images:ImageFolderDataset",
     "ldm.data.lsun.LSUNBedroomsTrain": "ealdm_torch.data.images:ImageFolderDataset",

@@ -1,7 +1,7 @@
 """The port's training entry point (counterpart of the root `main.py`):
 
     python -m ealdm_torch.main -b configs/latent-diffusion/stdiff_cin-ldm-vq-f8.yaml -t \\
-        --third_stage false [--dtype bfloat16] [--device cuda] [a.b.c=value ...]
+        [--dtype bfloat16] [--device cuda] [a.b.c=value ...]
 
 The YAML configs are merged left to right and the trailing `a.b.c=value`
 overrides applied (`config.load_config`, with the port's YAML reader); the
@@ -14,6 +14,11 @@ ImageLogger grids, validation through `make_eval_step` every
 --val_every_epochs, top-k and last checkpoints on the config's monitor, and
 a crash or SIGUSR1 checkpoint. A first-stage config (AutoencoderKL,
 VQModel) trains the two-optimizer VAE-GAN step (`train_autoencoder`).
+After an LDM's training on a `cond_stage_key: mixed` model, the third
+stage runs unless `--third_stage false` (`third_stage.py`): a dump of the
+train and the test split (`--third_stage_max_batches` batches each, with
+the CLIP scorer then at 64^2, else 224^2), the heads' training and the
+evaluation, with the flow scaler of the train data's path.
 `-r <logdir or checkpoint>` reads the run's configs/*.yaml back and
 restores its last checkpoint; without `-t` the run is set up and returned.
 
@@ -21,9 +26,7 @@ Deltas from the JAX `main.py`:
   * `--device` (default "cuda", which raises without a card; the tests
     pass "cpu");
   * refused up front, with NotImplementedError naming ROADMAP queue 1 item
-    6: `--devices` or `--tp` above 1 (one card), and the third stage
-    (`-t` with `--third_stage` true on a `cond_stage_key: mixed` model,
-    the JAX default for the flagship YAML: pass `--third_stage false`);
+    6: `--devices` or `--tp` above 1 (one card);
   * attention at eligible self-attention sites runs the flash kernel
     (`kernel_settings`; the JAX `main.py` keeps dense attention);
   * weights are seeded random (`utils.init.random_init_`, seed `--seed`);
@@ -31,7 +34,9 @@ Deltas from the JAX `main.py`:
     `--seed`, one draw a step;
   * `scale_by_std` measures 1/std of the first batch's latents through the
     model's own first stage (the JAX `main.py` encodes with a second random
-    initialisation).
+    initialisation);
+  * the third stage's two dumps draw from generators on the device, each
+    seeded by a draw of the loop's generator.
 """
 from __future__ import annotations
 
@@ -231,10 +236,6 @@ def _main(argv, on_batch, on_step, timer):
     # ---------------------------------------------------------------- model
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
     model, base_lr = model_from_config(config["model"], dtype=dtype, device=device)
-    if opt.train and opt.third_stage and model.cond_stage_key == "mixed":
-        raise NotImplementedError(
-            "the third stage (the data dump, CLIPZeroShot and the evaluation after training) is "
-            f"not ported ({_ITEM6}): pass --third_stage false")
     init_model_weights(model, opt.seed)
     model_params_cfg = config["model"].get("params", {})
 
@@ -365,6 +366,19 @@ def _main(argv, on_batch, on_step, timer):
 
     ckpt_mgr.save_last(state, step)
     print(f"Training done at step {step}; checkpoints in {logdir}/checkpoints")
+
+    # ---------------------------------------------------------- third stage
+    if opt.third_stage and model.cond_stage_key == "mixed":
+        from .third_stage import ThirdStageModel, dump_third_stage_data
+
+        mb = opt.third_stage_max_batches
+        for split in ("train", "test"):
+            g = torch.Generator(device=device).manual_seed(_seed(gen))
+            dump_third_stage_data(model, data, logdir, g, split=split, max_batches=mb,
+                                  device=device)
+        # capped (smoke) dumps score CLIP at 64^2; full runs at CLIP's 224^2
+        ThirdStageModel(model, clip_image_size=64 if mb is not None else 224,
+                        device=device).run(logdir, scaler_dir=train_ds_params.get("path"))
     return logdir, model, state
 
 

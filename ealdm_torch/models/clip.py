@@ -18,12 +18,13 @@ dtypes follow the flax modules: every LayerNorm returns float32, the packed
 projections compute in the wider of the input's dtype and `dtype` (jnp's
 promotion), the MLP's Dense layers in `dtype`.
 
-The weight loaders of the JAX module (`load_torch_clip_state`, the
-Hugging Face import) are not ported: ROADMAP queue 1 item 6.
+`load_torch_clip_state` reads an OpenAI CLIP or a Hugging Face CLIPModel
+state dict into the towers' own parameter names (the JAX module's import
+maps, in torch's layouts: no transposes but HF's projections).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -184,3 +185,114 @@ def clip_preprocess(x, image_size: int = 224):
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
     return (x - mean) / std
+
+
+# ------------------------------------------------------------------ import
+def _tensor(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32)
+    return torch.as_tensor(np.asarray(v, np.float32))
+
+
+def _block_params(sd, src: str, dst: str) -> Dict[str, torch.Tensor]:
+    """An OpenAI `ResidualAttentionBlock`'s tensors under the port's names."""
+    names = {"attn.in_proj_weight": "attn.in_proj_weight",
+             "attn.in_proj_bias": "attn.in_proj_bias",
+             "attn.out_proj.weight": "attn.out_proj_weight",
+             "attn.out_proj.bias": "attn.out_proj_bias",
+             "ln_1.weight": "ln_1.weight", "ln_1.bias": "ln_1.bias",
+             "ln_2.weight": "ln_2.weight", "ln_2.bias": "ln_2.bias",
+             "mlp.c_fc.weight": "mlp_c_fc.weight", "mlp.c_fc.bias": "mlp_c_fc.bias",
+             "mlp.c_proj.weight": "mlp_c_proj.weight", "mlp.c_proj.bias": "mlp_c_proj.bias"}
+    return {f"{dst}.{to}": _tensor(sd[f"{src}.{frm}"]) for frm, to in names.items()}
+
+
+def _hf_block_params(sd, src: str, dst: str) -> Dict[str, torch.Tensor]:
+    """A Hugging Face `CLIPEncoderLayer` as a `ResidualAttentionBlock` (q, k
+    and v packed into in_proj)."""
+    attn = f"{src}.self_attn"
+    out = {
+        f"{dst}.attn.in_proj_weight": torch.cat(
+            [_tensor(sd[f"{attn}.{x}_proj.weight"]) for x in "qkv"]),
+        f"{dst}.attn.in_proj_bias": torch.cat(
+            [_tensor(sd[f"{attn}.{x}_proj.bias"]) for x in "qkv"]),
+        f"{dst}.attn.out_proj_weight": _tensor(sd[f"{attn}.out_proj.weight"]),
+        f"{dst}.attn.out_proj_bias": _tensor(sd[f"{attn}.out_proj.bias"]),
+    }
+    for frm, to in (("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"), ("mlp.fc1", "mlp_c_fc"),
+                    ("mlp.fc2", "mlp_c_proj")):
+        for leaf in ("weight", "bias"):
+            out[f"{dst}.{to}.{leaf}"] = _tensor(sd[f"{src}.{frm}.{leaf}"])
+    return out
+
+
+def _layers(sd, prefix: str, index: int) -> int:
+    return len({k.split(".")[index] for k in sd if k.startswith(prefix)})
+
+
+def _norm(sd, src: str, dst: str) -> Dict[str, torch.Tensor]:
+    return {f"{dst}.weight": _tensor(sd[f"{src}.weight"]),
+            f"{dst}.bias": _tensor(sd[f"{src}.bias"])}
+
+
+def _hf_text_params(sd) -> Dict[str, torch.Tensor]:
+    base = "text_model"
+    out = {"token_embedding.embedding": _tensor(sd[f"{base}.embeddings.token_embedding.weight"]),
+           "positional_embedding": _tensor(sd[f"{base}.embeddings.position_embedding.weight"]),
+           "text_projection": _tensor(sd["text_projection.weight"]).T.contiguous(),
+           **_norm(sd, f"{base}.final_layer_norm", "ln_final")}
+    for i in range(_layers(sd, f"{base}.encoder.layers.", 3)):
+        out.update(_hf_block_params(sd, f"{base}.encoder.layers.{i}",
+                                    f"transformer.resblocks_{i}"))
+    return out
+
+
+def _hf_vision_params(sd) -> Dict[str, torch.Tensor]:
+    base = "vision_model"
+    # HF's pre-LN attribute is (sic) `pre_layrnorm` in shipped checkpoints
+    pre = (f"{base}.pre_layrnorm" if f"{base}.pre_layrnorm.weight" in sd
+           else f"{base}.pre_layernorm")
+    out = {"conv1.weight": _tensor(sd[f"{base}.embeddings.patch_embedding.weight"]),
+           "class_embedding": _tensor(sd[f"{base}.embeddings.class_embedding"]),
+           "positional_embedding": _tensor(sd[f"{base}.embeddings.position_embedding.weight"]),
+           "proj": _tensor(sd["visual_projection.weight"]).T.contiguous(),
+           **_norm(sd, pre, "ln_pre"), **_norm(sd, f"{base}.post_layernorm", "ln_post")}
+    for i in range(_layers(sd, f"{base}.encoder.layers.", 3)):
+        out.update(_hf_block_params(sd, f"{base}.encoder.layers.{i}",
+                                    f"transformer.resblocks_{i}"))
+    return out
+
+
+def load_torch_clip_state(state_dict: Mapping[str, Any]
+                          ) -> Tuple[Optional[Dict[str, torch.Tensor]],
+                                     Optional[Dict[str, torch.Tensor]]]:
+    """An OpenAI CLIP or Hugging Face CLIPModel `state_dict()` -> (text,
+    visual): state dicts of a `CLIPTextTower` and a `CLIPVisionTower` (ViT
+    trunk) under the port's names, float32 on the host, to give to
+    `load_state_dict`. Either half is None where the checkpoint lacks it
+    (a text-only checkpoint, say)."""
+    sd = state_dict
+    text = visual = None
+    if "token_embedding.weight" in sd:
+        text = {"token_embedding.embedding": _tensor(sd["token_embedding.weight"]),
+                "positional_embedding": _tensor(sd["positional_embedding"]),
+                "text_projection": _tensor(sd["text_projection"]),
+                **_norm(sd, "ln_final", "ln_final")}
+        for i in range(_layers(sd, "transformer.resblocks.", 2)):
+            text.update(_block_params(sd, f"transformer.resblocks.{i}",
+                                      f"transformer.resblocks_{i}"))
+    if "text_model.embeddings.token_embedding.weight" in sd:
+        text = _hf_text_params(sd)
+    if "vision_model.embeddings.patch_embedding.weight" in sd:
+        visual = _hf_vision_params(sd)
+    if "visual.conv1.weight" in sd:
+        visual = {"conv1.weight": _tensor(sd["visual.conv1.weight"]),
+                  "class_embedding": _tensor(sd["visual.class_embedding"]),
+                  "positional_embedding": _tensor(sd["visual.positional_embedding"]),
+                  "proj": _tensor(sd["visual.proj"]),
+                  **_norm(sd, "visual.ln_pre", "ln_pre"),
+                  **_norm(sd, "visual.ln_post", "ln_post")}
+        for i in range(_layers(sd, "visual.transformer.resblocks.", 3)):
+            visual.update(_block_params(sd, f"visual.transformer.resblocks.{i}",
+                                        f"transformer.resblocks_{i}"))
+    return text, visual

@@ -57,30 +57,32 @@ class BERTEmbedder(TransformerEmbedder):
         return self.tokenizer(texts)
 
 
-def linear_resize_weights(n_in: int, n_out: int) -> np.ndarray:
+def linear_resize_weights(n_in: int, n_out: int, antialias: bool = True) -> np.ndarray:
     """[n_in, n_out] float32 weights of `jax.image.resize(method="bilinear")`
-    along one axis (antialias=True, no translation): the triangle kernel
-    max(0, 1 - |x|) at the output samples' centres, widened by n_in / n_out
-    when downsampling (a low-pass filter), each column renormalised to sum
+    along one axis (no translation): the triangle kernel max(0, 1 - |x|) at
+    the output samples' centres, widened by n_in / n_out when downsampling
+    with `antialias` (a low-pass filter), each column renormalised to sum
     to 1 (the borders' cut-off taps), zero where a sample falls outside the
-    input (`jax._src.image.scale.compute_weight_mat`)."""
-    inv_scale = n_in / n_out
-    kernel_scale = max(inv_scale, 1.0)
-    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / kernel_scale
-    w = np.maximum(0.0, 1.0 - x)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1), 0.0)
+    input (`jax._src.image.scale.compute_weight_mat`, in its float32
+    arithmetic)."""
+    f32 = np.float32
+    inv_scale = 1.0 / (n_out / n_in)  # jax.image.resize's scale, inverted
+    kernel_scale = f32(max(inv_scale, 1.0) if antialias else 1.0)
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * f32(inv_scale) - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0), f32(1) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1)), f32(0))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+    return np.where(inside[None, :], w, f32(0)).astype(f32)
 
 
-def resize_nhwc(x, size, method: str = "bilinear"):
+def resize_nhwc(x, size, method: str = "bilinear", antialias: bool = True):
     """`jax.image.resize` of an NHWC tensor to `size` = (H', W'): "nearest"
     takes input index floor((i + 0.5) * n_in / n_out); "bilinear" contracts
-    each resized axis with `linear_resize_weights` in float32 (in x's dtype
-    if that is wider)."""
+    each resized axis with `linear_resize_weights(..., antialias)` in
+    float32 (in x's dtype if that is wider)."""
     _, h, w, _ = x.shape
     if method == "nearest":
         for axis, (n_in, n_out) in ((1, (h, size[0])), (2, (w, size[1]))):
@@ -92,7 +94,8 @@ def resize_nhwc(x, size, method: str = "bilinear"):
         x = x.float()
     for axis, (n_in, n_out) in ((1, (h, size[0])), (2, (w, size[1]))):
         if n_in != n_out:
-            wm = torch.from_numpy(linear_resize_weights(n_in, n_out)).to(x.device, x.dtype)
+            wm = torch.from_numpy(linear_resize_weights(n_in, n_out, antialias)).to(x.device,
+                                                                                    x.dtype)
             x = torch.movedim(torch.tensordot(x, wm, dims=([axis], [0])), -1, axis)
     return x
 

@@ -29,7 +29,6 @@ arithmetic: eps 1e-8 outside the root, bias-corrected).
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -39,11 +38,9 @@ from ..models.ddpm import build_first_stage
 from ..models.vae import AutoencoderKL
 from ..utils.device import check_module_device
 from ..utils.init import random_init_
+from ..weights import load_lpips_params
 from .trainer import AdamW, AdamWState, _copy_into, _seed
 
-# the LPIPS checkpoints the JAX package's init loads from $EALDM_WEIGHTS_DIR
-# (`ealdm_tpu/weights.py` CANONICAL_FILES["lpips"])
-LPIPS_WEIGHT_FILES = ("vgg_lpips.pth", "vgg.pth", "lpips.pth", "lpips.npz")
 _DISC = "discriminator."
 
 
@@ -96,27 +93,18 @@ class VAETrainState:
         self.step = sd["step"]
 
 
-def _check_no_lpips_weights() -> None:
-    d = os.environ.get("EALDM_WEIGHTS_DIR")
-    found = [n for n in LPIPS_WEIGHT_FILES if d and os.path.exists(os.path.join(d, n))]
-    if found:
-        raise NotImplementedError(
-            f"$EALDM_WEIGHTS_DIR holds {found[0]}: the JAX package would load it into LPIPS, "
-            "and the port's weight loaders are not ported yet (ROADMAP queue 1 item 6)")
-
-
 def init_vae_train_state(vae, loss_module, learning_rate: float, lr_g_factor: float = 1.0,
                          device=None) -> Tuple[VAETrainState, AdamW, AdamW]:
     """(state, opt_ae, opt_disc) of `vae` and `loss_module` as they stand
     (their parameters are the state's): Adam (0.5, 0.9) at learning_rate *
     lr_g_factor over the autoencoder's parameters and at learning_rate over
     the discriminator's. device: where both must live, "cuda" unless given.
-    Raises NotImplementedError where JAX would load LPIPS weights from
-    $EALDM_WEIGHTS_DIR."""
+    A canonical LPIPS checkpoint in $EALDM_WEIGHTS_DIR is copied into the
+    loss module's LPIPS first (`weights.load_lpips_params`)."""
     check_module_device(vae, device)
     check_module_device(loss_module, device)
     if hasattr(loss_module, "perceptual"):
-        _check_no_lpips_weights()
+        load_lpips_params(loss_module.perceptual)
     opt_ae = AdamW(learning_rate * lr_g_factor, weight_decay=0.0, b1=0.5, b2=0.9)
     opt_disc = AdamW(learning_rate, weight_decay=0.0, b1=0.5, b2=0.9)
     ae_params = dict(vae.named_parameters())

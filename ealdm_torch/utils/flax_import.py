@@ -14,7 +14,9 @@ flax module names, so a flax path `a/b/c/<leaf>` becomes the port name
   transformer's ScaleNorm / RMSNorm /
   ReZero gain g                          -> the same name, unchanged
   EqualizedDense weight (already [out, in]),
-  FrozenBatchNorm mean and var           -> the same name, unchanged
+  FrozenBatchNorm mean and var,
+  InceptionV3's frozen BatchNorm bn_scale,
+  bn_bias, bn_mean, bn_var               -> the same name, unchanged
   CLIP's attention in_proj_weight,
   in_proj_bias, out_proj_weight,
   out_proj_bias (already torch's layout),
@@ -87,7 +89,7 @@ def _leaf(name: str, v: np.ndarray):
     if last == "scale":
         return weight, v
     if last in ("bias", "embedding", "c_to_scales_weight", "weight", "mean", "var",
-                "logvar", "g", *_CLIP_LEAVES):
+                "logvar", "g", "bn_scale", "bn_bias", "bn_mean", "bn_var", *_CLIP_LEAVES):
         return name, v
     raise ValueError(f"{name}: no rule for flax leaf {last!r}")
 

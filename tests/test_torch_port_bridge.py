@@ -125,6 +125,16 @@ def test_source_scan_covers_the_cli_slice():
     assert set(CLI_SLICE_MODULES) <= scanned
 
 
+# the third stage's slice
+THIRD_STAGE_SLICE_MODULES = ("metrics.py", "weights.py", "third_stage.py", "models/inception.py",
+                             "models/clip.py", "training/vae_trainer.py", "main.py")
+
+
+def test_source_scan_covers_the_third_stage_slice():
+    scanned = {p.relative_to(REPO / "ealdm_torch").as_posix() for p in _sources()}
+    assert set(THIRD_STAGE_SLICE_MODULES) <= scanned
+
+
 def test_no_fallback_in_kernel_wrappers():
     """A wrapper given a CUDA tensor launches or raises: no try/except."""
     for rel in ("ops/attention.py", "ops/norms.py", "ops/bias_act.py", "kernels/build.py"):

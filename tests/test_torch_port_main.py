@@ -17,7 +17,8 @@ disk:
 - `-r <logdir>` restores step 2 bit for bit and continues to step 3;
 - `scale_by_std` gives JAX's factor (1/std of the first batch's latents)
   on the same weights;
-- `--devices 2`, `--tp 2` and the third stage raise before any step;
+- `--devices 2` and `--tp 2` raise before any step; `-t` with the third
+  stage dumps both splits, trains the heads and writes both CSVs;
 - `main` gives SIGUSR1 back to the caller's handler on return, so the run's
   model and state are freed once the caller drops them;
 - `train_autoencoder` on `configs/smoke/autoencoder_tiny.yaml` (a folder of
@@ -281,21 +282,46 @@ def test_scale_by_std_gives_jax_factor(ldm_run):
     assert model.scale_factor != 1.0
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--tp", "2"], ["--third_stage", "true"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"], ["--tp", "2"]])
 def test_refusals_raise_before_any_step(corpus, flags, monkeypatch):
     root, corpus_dir = corpus
     steps = []
     real = t_training.make_train_step
     monkeypatch.setattr(t_training, "make_train_step",
                         lambda *a, **k: steps.append(1) or real(*a, **k))
-    argv = _micro_argv(corpus_dir, root / "refused", "-t", "--max_steps", "1")
-    argv = [a for a in argv if a not in ("--third_stage", "false")] + flags
-    if flags[0] != "--third_stage":
-        argv += ["--third_stage", "false"]
+    argv = _micro_argv(corpus_dir, root / "refused", "-t", "--max_steps", "1") + flags
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         t_main.main(argv)
     assert not steps
     assert not (root / "refused").exists()
+
+
+def test_third_stage_runs_after_training(corpus):
+    """`-t --max_steps 1 --third_stage true --third_stage_max_batches 1`,
+    as tests/test_full_pipeline.py runs the JAX `main.py`: one dump batch a
+    split with JAX's seven keys, the heads trained on it, and both CSVs with
+    finite results."""
+    root, corpus_dir = corpus
+    argv = _micro_argv(corpus_dir, root / "third", "-t", "--max_steps", "1",
+                       "--third_stage_max_batches", "1")
+    argv[argv.index("--third_stage") + 1] = "true"
+    logdir, _, state = t_main.main(argv)
+    assert state.step == 1
+    for split in ("train", "test"):
+        d = pathlib.Path(logdir) / "third_stage_data" / split
+        assert sorted(p.name for p in d.iterdir()) == ["batch_00000.npz"]
+        with np.load(d / "batch_00000.npz") as z:
+            assert z.files == ["img", "latent", "w", "wlabel_nxt", "flabel", "flabel_nxt", "t"]
+            assert z["img"].shape == (2, 16, 16, 3) and z["latent"].shape == (2, 8, 8, 4)
+            assert z["wlabel_nxt"].shape == (2, 10) and z["latent"].dtype == np.float32
+            assert np.isfinite(z["latent"]).all()
+    with open(os.path.join(logdir, "third_stage_results.csv")) as f:
+        header, values = [line.strip().split(",") for line in f]
+    assert header == ["fid", "weather_f1", "clip_agreement", "head_agreement", "flow_mse"]
+    assert all(np.isfinite(float(v)) for v in values)
+    with open(os.path.join(logdir, "third_stage_flow.csv")) as f:
+        rows = f.read().splitlines()
+    assert rows[0] == "time,flow_true,flow_pred" and len(rows) == 3
 
 
 def test_the_card_is_the_default():

@@ -20,10 +20,10 @@ module-scoped fixture that the cases share. Compared:
   between packages;
 - the parameters LPIPS and logvar do not move, the discriminator and the
   autoencoder do; `make_vae_eval_step`'s val/* logs; a checkpoint round
-  trip of the `VAETrainState`; the LPIPS-weights refusal.
+  trip of the `VAETrainState`; LPIPS weights loaded from
+  $EALDM_WEIGHTS_DIR as JAX's `weights.load_lpips_params` loads them.
 """
 import copy
-import os
 
 import jax
 import jax.numpy as jnp
@@ -194,16 +194,53 @@ def test_eval_step_matches_jax(jax_run, tmp_path):
                 assert torch.equal(got[part][moment][k], v), k
 
 
-def test_init_refuses_lpips_weights(tmp_path, monkeypatch):
-    """Where JAX's init would load LPIPS weights from $EALDM_WEIGHTS_DIR the
-    port's raises (the loaders are ROADMAP queue 1 item 6)."""
-    vae, loss = _models("kl", device="meta")
+def _vgg_lpips_state(seed):
+    """A taming `vgg_lpips.pth` state dict (every VGG16 convolution and the
+    five heads) with seeded values."""
+    rng = np.random.RandomState(seed)
+    sd, cin = {}, 3
+    idx = iter((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28))
+    for b, width in enumerate((64, 128, 256, 512, 512)):
+        for _ in range((2, 2, 3, 3, 3)[b]):
+            i = next(idx)
+            key = f"net.slice{1 + sum(i >= s for s in (4, 9, 16, 23))}.{i}"
+            sd[f"{key}.weight"] = torch.from_numpy(
+                (rng.randn(width, cin, 3, 3) / np.sqrt(9 * cin)).astype(np.float32))
+            sd[f"{key}.bias"] = torch.from_numpy((0.1 * rng.randn(width)).astype(np.float32))
+            cin = width
+        sd[f"lin{b}.model.1.weight"] = torch.from_numpy(rng.rand(1, width, 1, 1).astype(
+            np.float32))
+    return sd
+
+
+def test_init_loads_lpips_weights(tmp_path, monkeypatch):
+    """With a `vgg_lpips.pth` written here in $EALDM_WEIGHTS_DIR,
+    `init_vae_train_state` loads it into the loss module's LPIPS: its value
+    on two images equals JAX's LPIPS given the same file through
+    `weights.load_lpips_params` (1e-5 relative). An empty directory leaves
+    LPIPS as it was."""
+    from ealdm_tpu import weights as j_weights
+
+    vae, loss = _models("kl")
     monkeypatch.setenv("EALDM_WEIGHTS_DIR", str(tmp_path))
-    init_vae_train_state(vae, loss, LR, device="meta")  # an empty directory
-    (tmp_path / "vgg_lpips.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        init_vae_train_state(vae, loss, LR, device="meta")
-    assert os.environ["EALDM_WEIGHTS_DIR"] == str(tmp_path)
+    before = {k: v.clone() for k, v in loss.perceptual.state_dict().items()}
+    init_vae_train_state(vae, loss, LR, device="cpu")
+    for k, v in loss.perceptual.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    torch.save(_vgg_lpips_state(42), str(tmp_path / "vgg_lpips.pth"))
+    init_vae_train_state(vae, loss, LR, device="cpu")
+    rng = np.random.RandomState(43)
+    x, y = (rng.uniform(-1, 1, (B, RES, RES, 3)).astype(np.float32) for _ in range(2))
+    with torch.no_grad():
+        got = loss.perceptual(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    variables = j_weights.load_lpips_params(random_tree(flax_shapes_of(loss.perceptual), 44))
+    net = j_losses.LPIPS()
+    with gc_paused():
+        want = np.asarray(jax.jit(net.apply).lower(variables, x, y).compile(
+            {"xla_backend_optimization_level": 0})(variables, x, y))
+    assert got.shape == want.shape == (B,)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert not np.allclose(got, 0)
 
 
 def test_entry_points_default_to_cuda():
