@@ -11,6 +11,7 @@
     python3 chip_smoke.py --host       # the build and the kernel wrappers' host cost
     python3 chip_smoke.py --cli        # the build and phase 19 (the CLIs and serving) only
     python3 chip_smoke.py --third      # the build and phase 20 (the third stage) only
+    python3 chip_smoke.py --dist       # the build, phase 18's corpus and phase 21 only
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc (the
@@ -191,9 +192,10 @@ Phases, each of which raises (non-zero exit) on failure:
      256² PNGs (ResNet-50), then on the 200,000 x 768 database with
      --num_leaves 8; (e) knn2img on the 768x768 RDM, 2 samples, the
      database, --use_neighbors --knn 10, a text and a PNG query; (f)
-     export_sampler at batch 8, 50 steps, then a fresh process (torch and
-     the kernel operator registry only) loads the artifact and a
-     SamplerService serves 10 requests: its latent and images against the
+     export_sampler at batch 8, 50 steps, first: a fresh process (torch and
+     the kernel operator registry only) loads the artifact while (a)-(e)
+     run, and after them a SamplerService serves 10 requests: its latent
+     and images against the
      direct `sample_images(hoist=False)` on the same draws (5e-2 of max
      |z|), a profiled batch's hand-written kernels by name and launches
      against the direct program's. Each tool's wall, img/s over the wall
@@ -208,7 +210,8 @@ Phases, each of which raises (non-zero exit) on failure:
      held), the heads' training and `test` at CLIP
      64^2, both CSVs and `run`'s five results, each part's seconds; (b)
      `test` on (a)'s dumps at CLIP 224^2 (InceptionV3 at 299^2, ResNet-50 at
-     256^2); (c) one decode + heads batch of 4: launches against the module
+     256^2; an FID on (a)'s very features takes (a)'s value, `FidMemo`);
+     (c) one decode + heads batch of 4: launches against the module
      tree (the VQ-f8 decoder's flash and GroupNorms, ResNet-50's 53
      GroupNorms), every launch held, and ResNet-50's largest GroupNorm site
      timed beside its plain version and F.group_norm; (d) float32 card
@@ -220,6 +223,17 @@ Phases, each of which raises (non-zero exit) on failure:
      held); (f) seeded `inception.npz`, `clip.pth` and `vgg_lpips.pth` in a
      temporary $EALDM_WEIGHTS_DIR: the trunks' outputs after auto-loading
      equal to those of the same parameters copied directly.
+  21. distributed training through `ealdm_torch.main` (`phase_distribution`),
+     after phase 18 (d) on its corpus: the flagship YAML at full width,
+     global batch 8, float32, TF32 off, 2 steps; (a) one process, continued
+     by one step as a resumed run takes it; (b) --devices 2 (the entry
+     point spawns two ranks of 4 rows) and (c) --devices 2 --tp 2 (a model
+     group of two), each two ranks on the one card over gloo, beside (a);
+     (d) (b)'s checkpoint resumed in one process for step 3. Losses within
+     1e-4 of (a)'s, grad norms within 1e-3, every parameter within 1e-3 of
+     its largest, each rank's launches against the module tree at its
+     rows, (c)'s state bytes a rank to the byte; each rank's backend,
+     device, step seconds and peak GiB.
   Each of phases 7-16 also holds every kernel launch of one bfloat16 pass
   (7, 14, 16: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet
   call and a decode; 9: one UNet call; 10: one round trip) against its
@@ -227,7 +241,7 @@ Phases, each of which raises (non-zero exit) on failure:
   gives it (`hold_sites`); 11-16 also report img/s (one timed run), peak
   GiB and the device's busy time and idle share from one profile.
   Phases 7-16 run after phase 5 and before phase 6; phases 17, 18 (with
-  20 inside it) and 19 run last. The models these phases seed draw their
+  20 inside it), 21 and 19 run last. The models these phases seed draw their
   weights on the card (`random_init_`).
 
 The last lines of output are a `[phase-seconds]` line (the wall seconds
@@ -236,7 +250,7 @@ phases 7-16's numbers, a `[train]` JSON line with phase 6's numbers, an
 `[ae_train_vq_f8]`, `[ae_train_kl_f8]`, `[convergence]` and
 `[ae_train_seconds]` line with phase 17's, a `[main]` line with phase
 18's, a `[cli]` line with phase 19's, a `[third_stage]` line with phase
-20's, the card's name and power
+20's, a `[distribution]` line with phase 21's, the card's name and power
 limit, a JSON line with every kernel's numbers (not with --train), and
 {"ok": true, "device": {...}}.
 """
@@ -3035,7 +3049,7 @@ def train_batch(b, res, seed, device):
     return {"img": img, "mixed": mixed_batch(b, res, seed + 1, device)}
 
 
-def expected_train_launches(model, batch, cfg, remat):
+def expected_train_launches(model, batch, cfg, remat, dtype="bfloat16"):
     """Kernel launches of one train step, from the module tree: the first
     stage's encoder once on the N target frames, and under the STDiff CFG
     pair once more on the 2N conditioning pair; the UNet once on the N
@@ -3053,7 +3067,7 @@ def expected_train_launches(model, batch, cfg, remat):
     passes = [(unet, (2 if pair else 1) * batch, cfg["zres"], runs), (enc, batch, cfg["res"], 1)]
     if pair:
         passes.append((enc, 2 * batch, cfg["res"], 1))
-    census = path_census(passes)
+    census = path_census(passes, dtype=dtype)
     totals = collections.Counter()
     for (name, _), n in census.items():
         totals[name] += n
@@ -4747,8 +4761,9 @@ def phase_main(cli=False):
         windows = main_corpus(corpus)
         ldm_details, ldm, third_details, third = phase_main_ldm(root, corpus)
         ae_details, ae = phase_main_ae(root)
+        distribution = phase_distribution(root, corpus)
         out = dict(windows=windows, ldm=ldm, ae=ae, seconds=time.perf_counter() - t0,
-                   third_stage=third)
+                   third_stage=third, distribution=distribution)
         details = {"main_ldm_step": ldm_details, "main_ae_step": ae_details, **third_details}
         if cli:
             flagship, = glob.glob(os.path.join(root, "logs", "*"))
@@ -4759,12 +4774,430 @@ def phase_main(cli=False):
     return details, out, cli_out
 
 
+# ------------------------------------------------------------------ phase 21
+DIST_BATCH, DIST_STEPS = 8, 2   # the global batch, float32, TF32 off
+DIST_TIMEOUT_S = 300            # every collective wait of the ranks (EALDM_DIST_TIMEOUT)
+DIST_LOSS_REL, DIST_NORM_REL, DIST_PARAM_REL = 1e-4, 1e-3, 1e-3  # PERF.md section 2
+
+
+class RankProbe:
+    """The hooks of one of phase 21's runs, for every rank of it (they
+    pickle: a spawned rank takes them): the rank's backend, device and
+    state bytes (`on_state`, which also turns TF32 off, as this script
+    runs); per step its seconds between a synchronize at the batch and one
+    after the step, its kernel launches and metrics; the peak GiB. Each
+    rank writes them to <out>/rank<r>.pkl after its last step; in this
+    process the first batch and its generator's state are kept too."""
+
+    def __init__(self, out, last_step):
+        self.out, self.last_step = out, last_step
+        self.rank, self.steps, self.first = 0, [], None
+        os.makedirs(out, exist_ok=True)
+
+    @property
+    def hooks(self):
+        return dict(on_batch=self.on_batch, on_step=self.on_step, on_state=self.on_state)
+
+    def on_state(self, model, state, mesh):
+        import torch
+        import torch.distributed as dist
+
+        from ealdm_torch.parallel.sharding import state_bytes
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.rank = mesh.rank
+        self.info = dict(rank=mesh.rank, data=mesh.data, model=mesh.model,
+                         backend=dist.get_backend() if dist.is_initialized() else "none",
+                         device=str(next(model.parameters()).device),
+                         state_bytes=state_bytes(state))
+        torch.cuda.reset_peak_memory_stats()
+
+    def on_batch(self, step, batch, generator):
+        import torch
+
+        from ealdm_torch import kernels
+
+        if self.first is None:
+            self.first = (batch, generator.get_state())
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        self._t0 = time.perf_counter()
+        self._rows = batch["img"].shape[0]
+
+    def on_step(self, step, metrics):
+        import pickle
+
+        import torch
+
+        from ealdm_torch import kernels
+
+        torch.cuda.synchronize()
+        self.steps.append(dict(step=step, seconds=time.perf_counter() - self._t0, rows=self._rows,
+                               launches=dict(kernels.launch_details),
+                               metrics={k: float(v) for k, v in metrics.items()}))
+        if step + 1 == self.last_step:
+            self.info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            with open(os.path.join(self.out, f"rank{self.rank}.pkl"), "wb") as f:
+                pickle.dump(dict(self.info, steps=self.steps), f)
+
+    def ranks(self, n):
+        import pickle
+
+        out = []
+        for r in range(n):
+            with open(os.path.join(self.out, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+class NoCheckpointWrites:
+    """`CheckpointManager._write` a no-op while open: phase 21's one-process
+    runs keep their state in memory, and nothing reads their checkpoints
+    (7.6 GB each in float32)."""
+
+    def __enter__(self):
+        from ealdm_torch.training import checkpoint
+
+        self._saved = checkpoint.CheckpointManager._write
+        checkpoint.CheckpointManager._write = lambda *args: None
+        return self
+
+    def __exit__(self, *exc):
+        from ealdm_torch.training import checkpoint
+
+        checkpoint.CheckpointManager._write = self._saved
+
+
+def _dist_rel(got, want):
+    return abs(got - want) / abs(want)
+
+
+def dist_hold(label, ranks, want_steps, want_params, params_of, launches_want):
+    """A run's gates against the one-process run: each rank's losses within
+    DIST_LOSS_REL and grad norms within DIST_NORM_REL of `want_steps`' (the
+    one process's metrics by step), every parameter tensor of `params_of()`
+    within DIST_PARAM_REL of its largest magnitude in `want_params`, each
+    rank's launches a step those of the module tree at its rows; logs each
+    rank's numbers. Returns the worst errors."""
+    import torch
+
+    worst = dict(loss=0.0, grad_norm=0.0, param=0.0)
+    for r in ranks:
+        for s in r["steps"]:
+            w = want_steps[s["step"]]
+            worst["loss"] = max(worst["loss"], _dist_rel(s["metrics"]["loss"], w["loss"]))
+            worst["grad_norm"] = max(worst["grad_norm"],
+                                     _dist_rel(s["metrics"]["grad_norm"], w["grad_norm"]))
+            check_launches(f"{label} rank {r['rank']} step {s['step']}",
+                           launches_want(s["rows"]), s["launches"])
+        secs = [s["seconds"] for s in r["steps"]]
+        counts = {}
+        for (name, _), n in r["steps"][-1]["launches"].items():
+            key = "flash" if name.startswith("flash") else "group_norm" if "group_norm" in name \
+                else name
+            counts[key] = counts.get(key, 0) + n
+        log(f"[dist] {label} rank {r['rank']} (data {r['data']} x model {r['model']}): backend "
+            f"{r['backend']}, {r['device']}, {r['steps'][-1]['rows']} rows, step seconds "
+            f"{[round(x, 4) for x in secs]}, peak {r['peak_gib']:.2f} GiB, state "
+            f"{r['state_bytes']} bytes, launches a step {counts} (module tree at its rows: equal), "
+            f"losses {[s['metrics']['loss'] for s in r['steps']]}, grad norms "
+            f"{[s['metrics']['grad_norm'] for s in r['steps']]}")
+    got = params_of()
+    for k, w in want_params.items():
+        g = got[k].to(w.device, w.dtype)
+        worst["param"] = max(worst["param"], float((g - w).abs().max() / w.abs().max().clamp_min(
+            torch.finfo(torch.float32).tiny)))
+    del got
+    return worst
+
+
+def resume_first_batch(config_path, dots, seed=23):
+    """The batch a run resumed from a checkpoint takes first, and the
+    generator its loop starts from, rebuilt as `ealdm_torch.main` builds
+    them: a fresh DataModule of the run's config whose train loader gives
+    the run's `example` (the first batch), then, epoch 0 again, the loop's
+    first batch (the datasets' own draws go on from the example's); the
+    loop's generator seeded with --seed."""
+    import torch
+
+    from ealdm_torch import main as tmain
+    from ealdm_torch.config import load_config
+    from ealdm_torch.data.pipeline import to_device
+
+    data = tmain._data(load_config([config_path], dots), seed)[0]
+    next(iter(data.train_dataloader(whole=True)))
+    loader = data.train_dataloader()
+    loader.set_epoch(0)
+    batch = to_device(next(iter(loader)), torch.device("cuda"))
+    return batch, torch.Generator().manual_seed(seed)
+
+
+def same_batch(a, b):
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(same_batch(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return bool((a == b).all()) if hasattr(a, "all") else a == b
+
+
+def phase_distribution(root, corpus):
+    """Phase 21, distributed training through `ealdm_torch.main` on the one
+    card: the flagship YAML at full width on phase 18's corpus, global batch
+    DIST_BATCH in float32 with TF32 off, DIST_STEPS steps at the base
+    learning rate (--scale_lr false: JAX's scaling multiplies it by the
+    device count), no validation. (a) one process, then continued by one
+    step on the batch and generator a resumed run takes first
+    (`resume_first_batch`); (b) --devices 2, two ranks of 4 rows spawned by
+    the entry point itself; (c) --devices 2 --tp 2, one data rank of a model
+    group of two (gloo: the ranks share the card); (d) (b)'s checkpoint
+    resumed in one process for step DIST_STEPS + 1, its first batch and
+    generator held to (a)'s continuation's. (b) and (c) run beside (a), and
+    (d) beside what is left of (c) (they fit the card's memory since frozen
+    cut layers gather their weight; the ranks' start and first steps, about
+    30 s a run, overlap). Gates: losses within
+    DIST_LOSS_REL of (a)'s, grad norms within DIST_NORM_REL, every parameter
+    within DIST_PARAM_REL of its largest magnitude, each rank's launches a
+    step those of the module tree at its rows; (c)'s state bytes on each
+    rank, to the byte, (a)'s cut leaves halved plus its whole ones. A rank
+    that fails fails the phase."""
+    import shutil
+    import threading
+
+    import torch
+
+    from ealdm_torch import main as tmain
+    from ealdm_torch.config import load_config
+    from ealdm_torch.parallel import param_sharding_rules
+    from ealdm_torch.training import make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    saved_timeout = os.environ.get("EALDM_DIST_TIMEOUT")
+    os.environ["EALDM_DIST_TIMEOUT"] = str(DIST_TIMEOUT_S)
+    base = os.path.join(root, "dist")
+    yaml = os.path.join(HERE, MAIN_YAML)
+    dots = [f"data.params.train.params.{key}={corpus}/" for key in ("path", "path_weather")]
+    dots += ["data.params.validation=null", f"data.params.batch_size={DIST_BATCH}"]
+    common = ["-b", yaml, "-t", "--device", "cuda", "--dtype", "float32", "--log_every", "1",
+              "--third_stage", "false", "--scale_lr", "false", *dots]
+    runs = {"b": ["--devices", "2"], "c": ["--devices", "2", "--tp", "2"]}
+    probes = {k: RankProbe(os.path.join(base, k), DIST_STEPS) for k in runs}
+    seconds, done, errors = {}, {}, {}
+
+    def spawned(key):
+        """(b) or (c) in a thread: `main` spawns the ranks and waits."""
+        def run():
+            t0 = time.perf_counter()
+            try:
+                done[key] = tmain.main(common + ["-l", os.path.join(base, f"logs_{key}"),
+                                                 "--max_steps", str(DIST_STEPS), *runs[key]],
+                                       **probes[key].hooks)
+            except BaseException as e:  # raised once the phase's own run is over
+                errors[key] = e
+            seconds[key] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=run)
+        thread.start()
+        return thread
+
+    def joined(thread):
+        thread.join()
+        if errors:
+            raise RuntimeError(f"phase 21: {sorted(errors)} failed") from next(
+                iter(errors.values()))
+
+    try:
+        # (a) one process, DIST_STEPS steps, then one more as a resumed run
+        # takes it; (b) and (c) beside it
+        t0 = time.perf_counter()
+        run_b, run_c = spawned("b"), spawned("c")
+        probe_a = RankProbe(os.path.join(base, "a"), DIST_STEPS)
+        try:
+            with NoCheckpointWrites():
+                logdir_a, model, state_a = tmain.main(
+                    common + ["-l", os.path.join(base, "logs_a"), "--max_steps",
+                              str(DIST_STEPS)], **probe_a.hooks)
+            shutil.rmtree(logdir_a)
+            ranks_a = probe_a.ranks(1)
+            want_steps = {s["step"]: s["metrics"] for s in ranks_a[0]["steps"]}
+            want_params = {k: p.detach().cpu() for k, p in state_a.params.items()}
+            census = {rows: expected_train_launches(model, rows, {"res": 256, "zres": 32},
+                                                    "dots", dtype="float32")[0]
+                      for rows in (DIST_BATCH // 2, DIST_BATCH)}
+            rules = param_sharding_rules(model, 2)
+            opt = state_a.opt_state
+            parts = [state_a.params, opt.mu, opt.nu, state_a.ema.shadow]
+            cut = sum(t.numel() * t.element_size() for part in parts for k, t in part.items()
+                      if rules[k])
+            whole = sum(t.numel() * t.element_size() for part in parts for k, t in part.items()
+                        if not rules[k])
+            n_params = sum(p.numel() for p in model.parameters())
+            batch3, gen3 = resume_first_batch(yaml, dots)
+            lr = load_config([yaml], [])["model"]["base_learning_rate"]
+            with tmain.kernel_settings():
+                _, m3 = make_train_step(model, make_optimizer(lr))(state_a, batch3, gen3)
+            want_d = {DIST_STEPS: {k: float(v) for k, v in m3.items()}}
+            want_params3 = {k: p.detach().cpu() for k, p in state_a.params.items()}
+            del model, state_a, opt, parts, m3
+            release()
+            seconds["a"] = time.perf_counter() - t0
+        finally:
+            joined(run_b)
+        dist_hold("(a) one process", ranks_a, want_steps, {}, dict, census.get)
+
+        # (d), beside (c): (b)'s checkpoint in one process, step DIST_STEPS + 1
+        try:
+            t0 = time.perf_counter()
+            logdir_b = done["b"][0]
+            probe_d = RankProbe(os.path.join(base, "d"), DIST_STEPS + 1)
+            with NoCheckpointWrites():
+                _, model_d, state_d = tmain.main(
+                    ["-r", logdir_b, "-t", "--device", "cuda", "--max_steps",
+                     str(DIST_STEPS + 1), "--log_every", "1", "--third_stage", "false",
+                     "--scale_lr", "false"], **probe_d.hooks)
+            params_d = {k: p.detach().cpu() for k, p in state_d.params.items()}
+            batch_d, gen_state_d = probe_d.first
+            same_d = (same_batch(batch_d, batch3) and torch.equal(
+                gen_state_d, torch.Generator().manual_seed(23).get_state()))
+            del model_d, state_d, batch_d, batch3
+            release()
+            seconds["d"] = time.perf_counter() - t0
+        finally:
+            joined(run_c)
+        if not same_d:
+            raise RuntimeError("phase 21 (d): the resumed run's first batch or generator is not "
+                               "the one (a) continued with")
+        held = {}
+        for key, flags in runs.items():
+            ckpt = os.path.join(done[key][0], "checkpoints", "last", "state.pt")
+            ranks = probes[key].ranks(2)
+            held[key] = (ranks, dist_hold(
+                f"({key}) {' '.join(flags)}", ranks, want_steps, want_params,
+                lambda: torch.load(ckpt, map_location="cpu", mmap=True,
+                                   weights_only=True)["params"], census.get))
+            shutil.rmtree(done[key][0])
+        (ranks_b, worst_b), (ranks_c, worst_c) = held["b"], held["c"]
+        want_bytes = cut // 2 + whole
+        got_bytes = [r["state_bytes"] for r in ranks_c]
+        log(f"[dist] (c) state bytes a rank {got_bytes}: (a)'s cut leaves {cut} / 2 + whole "
+            f"leaves {whole} = {want_bytes}; {sum(1 for r in rules.values() if r)} of "
+            f"{len(rules)} parameter tensors cut")
+        worst_d = dist_hold("(d) resumed", probe_d.ranks(1), want_d, want_params3,
+                            lambda: params_d, census.get)
+        del params_d
+    finally:
+        if saved_timeout is None:
+            os.environ.pop("EALDM_DIST_TIMEOUT", None)
+        else:
+            os.environ["EALDM_DIST_TIMEOUT"] = saved_timeout
+    step_s = {k: [[round(s["seconds"], 4) for s in r["steps"]] for r in ranks]
+              for k, ranks in (("a", ranks_a), ("b", ranks_b), ("c", ranks_c))}
+    img_s = {k: DIST_BATCH / max(r["steps"][-1]["seconds"] for r in ranks)
+             for k, ranks in (("a", ranks_a), ("b", ranks_b), ("c", ranks_c))}
+    out = dict(batch=DIST_BATCH, steps=DIST_STEPS, dtype="float32", parameters_m=n_params / 1e6,
+               backends={k: [r["backend"] for r in ranks]
+                         for k, ranks in (("b", ranks_b), ("c", ranks_c))},
+               devices={k: [r["device"] for r in ranks]
+                        for k, ranks in (("b", ranks_b), ("c", ranks_c))},
+               worst_b=worst_b, worst_c=worst_c, worst_d=worst_d, step_s=step_s,
+               img_per_s_shared_card=img_s,
+               peak_gib={k: [round(r["peak_gib"], 2) for r in ranks]
+                         for k, ranks in (("a", ranks_a), ("b", ranks_b), ("c", ranks_c))},
+               state_bytes_c=got_bytes, state_bytes_c_want=want_bytes,
+               losses_a=[want_steps[s]["loss"] for s in sorted(want_steps)],
+               loss_d=want_d[DIST_STEPS]["loss"], seconds=seconds)
+    release()
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    log(f"[dist] img/s of the last step, global batch over the slowest rank ((a), (b) and (c) "
+        f"side by side: ranks that share one card say nothing of scaling): {img_s}")
+    log(f"[dist] worst against (a): (b) {worst_b}, (c) {worst_c}; (d) against (a) continued "
+        f"{worst_d} (limits: loss {DIST_LOSS_REL}, grad_norm {DIST_NORM_REL}, parameters "
+        f"{DIST_PARAM_REL} of each tensor's largest)")
+    log(f"[dist] {json.dumps(out)}")
+    bad = [f"{k} {name} {v:.3g}" for k, worst in (("b", worst_b), ("c", worst_c), ("d", worst_d))
+           for name, v in worst.items()
+           if not (math.isfinite(v) and v <= {"loss": DIST_LOSS_REL, "grad_norm": DIST_NORM_REL,
+                                              "param": DIST_PARAM_REL}[name])]
+    if bad:
+        raise RuntimeError(f"phase 21: runs differ from one process: {bad}")
+    if got_bytes != [want_bytes, want_bytes]:
+        raise RuntimeError(f"phase 21 (c): state bytes {got_bytes}, want {want_bytes}")
+    if [r["backend"] for r in ranks_b + ranks_c] != ["gloo"] * 4:
+        raise RuntimeError("phase 21: ranks that share one card must run gloo")
+    return out
+
+
+def phase_distribution_alone():
+    """The build's libraries, phase 18's corpus and phase 21 (`--dist`)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="ealdm_dist_")
+    try:
+        corpus = os.path.join(root, "corpus")
+        main_corpus(corpus)
+        return phase_distribution(root, corpus)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ phase 20
 THIRD_KEYS = ["img", "latent", "w", "wlabel_nxt", "flabel", "flabel_nxt", "t"]
 THIRD_HEADS_BATCH = 4   # ThirdStageModel.run's batch, (c)'s decode + heads batch
 THIRD_CHECK_BATCH = 2   # (d)'s float32 card-against-CPU batch
 THIRD_REFINE_STEPS = 2  # (e)'s refine_decoder steps, at THIRD_HEADS_BATCH
 THIRD_DUMP_STEPS = 50   # dump_third_stage_data's DDIM steps, as ealdm_torch.main runs it
+
+
+class FidMemo:
+    """`ealdm_torch.metrics.frechet_distance` remembered by its inputs'
+    bytes while the context is open: a second call on the same features
+    (phase 20 (b)'s `test` scores (a)'s test dump with InceptionV3 again)
+    returns scipy's value of the first call without a second `sqrtm` of
+    the 2048^2 product (14.0-28.6 s on the card's host). Different
+    features are computed as ever. `computed` and `reused` count the
+    calls."""
+
+    def __enter__(self):
+        import hashlib
+
+        import numpy as np
+
+        from ealdm_torch import metrics
+
+        self.computed = self.reused = 0
+        self.saved_s = 0.0  # the reused calls' first computation seconds
+        self._real, memo = metrics.frechet_distance, {}
+
+        def frechet_distance(mu1, sigma1, mu2, sigma2, eps=1e-6):
+            h = hashlib.sha256(repr(eps).encode())
+            for a in (mu1, sigma1, mu2, sigma2):
+                a = np.ascontiguousarray(a)
+                h.update(f"{a.dtype}{a.shape}".encode())
+                h.update(a.tobytes())
+            key = h.hexdigest()
+            if key in memo:
+                self.reused += 1
+                self.saved_s += memo[key][1]
+            else:
+                self.computed += 1
+                t0 = time.perf_counter()
+                value = self._real(mu1, sigma1, mu2, sigma2, eps)
+                memo[key] = (value, time.perf_counter() - t0)
+            return memo[key][0]
+
+        metrics.frechet_distance = frechet_distance
+        return self
+
+    def __exit__(self, *exc):
+        from ealdm_torch import metrics
+
+        metrics.frechet_distance = self._real
+
+
+FID = FidMemo()  # open for the whole script (main)
 
 
 class ThirdStageProbe:
@@ -5019,9 +5452,11 @@ def _phase_third(logdir, model, probe, root, config_path):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     full = ThirdStageModel(model, clip_image_size=224, device="cuda")
+    reused = FID.reused
     res_b = full.test(loader, os.path.join(root, "third_b"))
     torch.cuda.synchronize()
-    out["full_width"] = dict(results=res_b, seconds=time.perf_counter() - t0)
+    out["full_width"] = dict(results=res_b, seconds=time.perf_counter() - t0,
+                             fid_reused=FID.reused > reused)
     log(f"[third_stage] (b) test at CLIP 224^2: {out['full_width']}")
     if not all(math.isfinite(v) for v in res_b.values()):
         raise RuntimeError(f"third stage (b): {res_b}")
@@ -5197,6 +5632,9 @@ art, requests, out = sys.argv[1:4]
 t0 = time.perf_counter()
 fn = serving.load_exported(art)
 load_s = time.perf_counter() - t0
+print("loaded", flush=True)
+if sys.stdin.readline().strip() != "go":  # the parent's runs on the card have ended
+    os._exit(3)  # the parent left without its go
 req = dict(np.load(requests))
 n = len(req["img"])
 latents = []
@@ -5339,6 +5777,34 @@ def phase_cli(logdir, root):
     cli_root = os.path.join(root, "cli")
     os.makedirs(cli_root, exist_ok=True)
 
+    # (f) export_sampler at batch 8, 50 steps; a fresh process serves 10.
+    # The process starts here and loads the artifact while (a)-(e) run; it
+    # serves after them, when the card is the parent's no more
+    art = os.path.join(cli_root, "sampler.pt2x")
+    built, real_model = [], export_sampler.sampling_model
+
+    def keep_model(*args, **kwargs):
+        """The model the CLI exports (its EMA weights): the direct program."""
+        built.append(real_model(*args, **kwargs))
+        return built[-1]
+
+    export_sampler.sampling_model = keep_model
+    try:
+        (_, export_s), serve_nums, _, _ = cli_run("export_sampler", export_sampler.main, [
+            "-r", logdir, "-o", art, "--batch_size", str(CLI_SERVE_BATCH), "--steps",
+            str(CLI_STEPS)], 0)
+    finally:
+        export_sampler.sampling_model = real_model
+    serve_nums.update(export_s=export_s, artifact_bytes=os.path.getsize(art))
+    requests = os.path.join(cli_root, "requests.npz")
+    mixed = mixed_batch(CLI_REQUESTS, 256, seed=194, device="cpu")
+    np.savez(requests, **{k: v.numpy() for k, v in mixed.items()})
+    served_json = os.path.join(cli_root, "served.json")
+    serve_log = open(os.path.join(cli_root, "serve.log"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", CLI_SERVE, art, requests, served_json,
+                             str(CLI_SERVE_SEED)], cwd=HERE, stdin=subprocess.PIPE,
+                            stdout=serve_log, stderr=subprocess.STDOUT, text=True)
+
     # (a) sample_diffusion with the EMA shadow
     used = []
     real_load = _common.load_sampling_weights
@@ -5444,34 +5910,20 @@ def phase_cli(logdir, root):
                    (768, 768, 3))
         out[name] = nums
 
-    # (f) export_sampler at batch 8, 50 steps; a fresh process serves 10
-    art = os.path.join(cli_root, "sampler.pt2x")
-    built, real_model = [], export_sampler.sampling_model
-
-    def keep_model(*args, **kwargs):
-        """The model the CLI exports (its EMA weights): the direct program."""
-        built.append(real_model(*args, **kwargs))
-        return built[-1]
-
-    export_sampler.sampling_model = keep_model
+    # (f) the serving process, which loaded the artifact meanwhile, serves
+    t_serve = time.perf_counter()
     try:
-        (_, export_s), nums, _, _ = cli_run("export_sampler", export_sampler.main, [
-            "-r", logdir, "-o", art, "--batch_size", str(CLI_SERVE_BATCH), "--steps",
-            str(CLI_STEPS)], 0)
+        proc.communicate("go\n", timeout=600)
     finally:
-        export_sampler.sampling_model = real_model
-    nums.update(export_s=export_s, artifact_bytes=os.path.getsize(art))
-    requests = os.path.join(cli_root, "requests.npz")
-    mixed = mixed_batch(CLI_REQUESTS, 256, seed=194, device="cpu")
-    np.savez(requests, **{k: v.numpy() for k, v in mixed.items()})
-    served_json = os.path.join(cli_root, "served.json")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CLI_SERVE, art, requests, served_json,
-                           str(CLI_SERVE_SEED)], cwd=HERE, capture_output=True, text=True,
-                          timeout=600)
-    process_s = time.perf_counter() - t0
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    process_s = time.perf_counter() - t_serve  # from the go to its end
+    serve_log.seek(0)
+    served_out = serve_log.read()
+    serve_log.close()
     if proc.returncode != 0:
-        raise RuntimeError(f"the serving process failed:\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"the serving process failed:\n{served_out[-4000:]}")
     with open(served_json) as f:
         served = json.load(f)
     served_imgs = np.load(served_json + ".npy")
@@ -5500,16 +5952,17 @@ def phase_cli(logdir, root):
     names = served["kernel_names"]
     hand = sorted({kernel_label(k) for k in names
                    if any(n in k for n in (*FLASH_KERNELS, *GN_KERNELS))})
-    nums.update(load_s=served["load_s"], serve_s=served["serve_s"],
+    serve_nums.update(load_s=served["load_s"], serve_s=served["serve_s"],
                 served_img_per_s=served["n"] / served["serve_s"], process_s=process_s,
                 served_vs_direct_latent_rel=rel, served_vs_direct_image_rel=img_rel,
                 served_vs_direct_image_mean_abs=img_mean, profiled_hand_written_kernels=hand,
                 launches_equal=served["batch_launches"] == direct_launches,
                 served_modules=served["modules"])
-    log(f"[cli] served: artifact {nums['artifact_bytes']} bytes, export {export_s:.1f} s, load "
-        f"{served['load_s']:.1f} s, {served['n']} requests in {served['serve_s']:.2f} s = "
-        f"{nums['served_img_per_s']:.4f} img/s; against the direct program: latent {rel:.3g} of "
-        f"max |z|, images {img_rel:.3g} of max (tolerance 5e-2 each), mean abs "
+    log(f"[cli] served: artifact {serve_nums['artifact_bytes']} bytes, export {export_s:.1f} s, "
+        f"load {served['load_s']:.1f} s (beside (a)-(e)), {served['n']} requests in "
+        f"{served['serve_s']:.2f} s = {serve_nums['served_img_per_s']:.4f} img/s; against the "
+        f"direct program: latent {rel:.3g} of max |z|, images {img_rel:.3g} of max (tolerance "
+        f"5e-2 each), mean abs "
         f"{img_mean:.3g}; "
         f"kernels profiled {hand}; launches a batch "
         f"{sum(served['batch_launches'].values())} (direct "
@@ -5524,10 +5977,10 @@ def phase_cli(logdir, root):
     if not any(h.startswith("flash_") for h in hand) or not any(h.startswith("gn_")
                                                                for h in hand):
         raise RuntimeError(f"the served profile lacks the hand-written kernels: {names}")
-    if not nums["launches_equal"]:
+    if not serve_nums["launches_equal"]:
         raise RuntimeError(f"served launches {served['batch_launches']} differ from the "
                            f"direct program's {direct_launches}")
-    out["export_sampler"] = nums
+    out["export_sampler"] = serve_nums
     del model
     release()
     out["seconds"] = time.perf_counter() - t_phase
@@ -5564,6 +6017,7 @@ def main(argv):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    FID.__enter__()
     smi = nvidia_smi()
     log(f"[card] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -5590,10 +6044,12 @@ def main(argv):
     main_only = "--main" in argv
     cli_only = "--cli" in argv
     third_only = "--third" in argv
+    dist_only = "--dist" in argv
+    dist_run = None
     rows, head_dim_grads = {}, None
     if "--groupnorm" in argv:
         rows = phase_group_norm()
-    elif not (train_only or ae_only or main_only or cli_only or third_only):
+    elif not (train_only or ae_only or main_only or cli_only or third_only or dist_only):
         timed("1 sass", phase_sass)
         if not paths_only:
             rows = timed("2 kernels", phase_kernels)
@@ -5603,7 +6059,7 @@ def main(argv):
         rows.update(head_dim_rows)
     launches_by_path = {}
     if not {"--kernels", "--groupnorm", "--train", "--paths", "--ae", "--main",
-            "--cli", "--third"} & set(argv):
+            "--cli", "--third", "--dist"} & set(argv):
         steps, batch = 50, 24
         t_main = time.perf_counter()
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
@@ -5628,32 +6084,35 @@ def main(argv):
         seconds["3-5 flagship"] = time.perf_counter() - t_main
     paths = None
     if not {"--kernels", "--groupnorm", "--train", "--ae", "--main", "--cli",
-            "--third"} & set(argv):
+            "--third", "--dist"} & set(argv):
         path_details, paths = timed("7-16 paths", phases_paths, cfg_module)
         launches_by_path.update(path_details)
         paths["flash_grad_worst"] = head_dim_grads
     train = None
     if not {"--kernels", "--groupnorm", "--paths", "--ae", "--main", "--cli",
-            "--third"} & set(argv):
+            "--third", "--dist"} & set(argv):
         train_details, train = timed("6 train", phases_train, cfg_module)
         launches_by_path.update(train_details)
     ae_train = None
     if not {"--kernels", "--groupnorm", "--paths", "--train", "--main", "--cli",
-            "--third"} & set(argv):
+            "--third", "--dist"} & set(argv):
         ae_details, ae_train, ae_rows = timed("17 first-stage training", phases_ae_train,
                                               cfg_module)
         launches_by_path.update(ae_details)
         rows.update(ae_rows)
     main_run = cli_run_out = third = None
     if not {"--kernels", "--groupnorm", "--paths", "--train", "--ae", "--cli",
-            "--third"} & set(argv):
+            "--third", "--dist"} & set(argv):
         main_details, main_run, cli_run_out = timed("18-20 main, cli and third stage",
                                                     phase_main, "--main" not in argv)
         launches_by_path.update(main_details)
         third = main_run.pop("third_stage")
+        dist_run = main_run.pop("distribution")
         rows.update(third.pop("kernel_rows"))
         seconds["20 third stage"] = third["seconds"]  # within phase 18's run
         seconds["18-20 main, cli and third stage"] -= third["seconds"]
+        seconds["21 distribution"] = dist_run["seconds"]["total"]  # on phase 18's corpus
+        seconds["18-20 main, cli and third stage"] -= dist_run["seconds"]["total"]
         if cli_run_out is not None:  # phase 19 ran inside phase 18's directory
             seconds["19 cli"] = cli_run_out["seconds"]
             seconds["18-20 main, cli and third stage"] -= cli_run_out["seconds"]
@@ -5666,6 +6125,8 @@ def main(argv):
                                      phase_third_alone)
         rows.update(third.pop("kernel_rows"))
         launches_by_path.update(third_details)
+    elif dist_only:
+        dist_run = timed("21 distribution (with its corpus)", phase_distribution_alone)
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row; a train path's: one step); a row the flagship does
@@ -5678,6 +6139,11 @@ def main(argv):
             for path, d in launches_by_path.items()}
         if row["launches"] is None and launches_by_path:
             row["launches"] = next((c for c in row["launches_by_path"].values() if c), 0)
+    if FID.reused:  # the cuts: the seconds each took where it ran before
+        seconds["cut: 20 (b) FID on (a)'s features reused"] = FID.saved_s
+    if cli_run_out is not None and "export_sampler" in cli_run_out:
+        seconds["cut: 19 (f) artifact load beside (a)-(e)"] = (
+            cli_run_out["export_sampler"]["load_s"])
     log(f"[phase-seconds] {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if paths is not None:
@@ -5691,6 +6157,8 @@ def main(argv):
         log(f"[main] {json.dumps(main_run)}")
     if third is not None:
         log(f"[third_stage] {json.dumps(third)}")
+    if dist_run is not None:
+        log(f"[distribution] {json.dumps(dist_run)}")
     log(smi)
     if not train_only:
         log(json.dumps({"kernels": list(rows.values())}))

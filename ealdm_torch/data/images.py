@@ -157,6 +157,11 @@ class ImageFolderDataset(Dataset):
             return arr
         return read_image(path)
 
+    def skip_item(self, idx) -> None:
+        """The flip's draw of `self[idx]`, nothing loaded (`DataLoader`'s rows)."""
+        if self.flip_p > 0:
+            self._rng.rand()
+
     def __getitem__(self, idx):
         arr = center_crop_resize(self._load(self.paths[idx]), self.size)
         if self.flip_p > 0 and self._rng.rand() < self.flip_p:

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Callable, Dict, Iterator, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,11 @@ class WrappedDataset(Dataset):
     def __getitem__(self, idx):
         return self.data[idx]
 
+    def skip_item(self, idx):
+        skip = getattr(self.data, "skip_item", None)
+        if skip is not None:
+            skip(idx)
+
 
 def _stack(items: Sequence[Any]) -> Any:
     first = items[0]
@@ -49,10 +54,19 @@ def _stack(items: Sequence[Any]) -> Any:
 class DataLoader:
     """Batches of `batch_size` items, shuffled each epoch by
     RandomState(seed + epoch) when `shuffle`, the last partial batch dropped
-    when `drop_last`."""
+    when `drop_last`. rows=(index, count): a data-parallel rank's loader,
+    which reads the same global batches in the same order and loads only
+    its rows [index * b, (index + 1) * b) of each, b = batch_size / count
+    (`jax.make_array_from_process_local_data`'s per-process rows). A dataset
+    whose items draw from a stream of its own (`skip_item(idx)`) is told of
+    the other rows, in order, so its draws stay those of one process."""
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = True, seed: int = 0, collate_fn: Optional[Callable] = None):
+                 drop_last: bool = True, seed: int = 0, collate_fn: Optional[Callable] = None,
+                 rows: Optional[Tuple[int, int]] = None):
+        if rows is not None and (batch_size % rows[1] or not drop_last):
+            raise ValueError(f"batch {batch_size} does not split over {rows[1]} data ranks")
+        self.rows = rows
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -78,7 +92,19 @@ class DataLoader:
         stop = n - (n % self.batch_size) if self.drop_last else n
         for start in range(0, stop, self.batch_size):
             idx = order[start:start + self.batch_size]
-            yield self.collate_fn([self.dataset[int(i)] for i in idx])
+            if self.rows is None:
+                yield self.collate_fn([self.dataset[int(i)] for i in idx])
+                continue
+            b = self.batch_size // self.rows[1]
+            mine = range(self.rows[0] * b, (self.rows[0] + 1) * b)
+            skip = getattr(self.dataset, "skip_item", lambda i: None)
+            items = []
+            for j, i in enumerate(idx):
+                if j in mine:
+                    items.append(self.dataset[int(i)])
+                else:
+                    skip(int(i))
+            yield self.collate_fn(items)
 
 
 def _numeric(x) -> bool:
@@ -194,11 +220,12 @@ class DataModule:
     """
 
     def __init__(self, batch_size: int, dataset_configs: Dict[str, Dict], num_workers: int = 0,
-                 wrap: bool = False, seed: int = 0):
+                 wrap: bool = False, seed: int = 0, rows: Optional[Tuple[int, int]] = None):
         from ..config import instantiate_from_config
 
         self.batch_size = batch_size
         self.seed = seed
+        self.rows = rows  # (data index, data ranks): each loader's rows
         self.datasets: Dict[str, Dataset] = {}
         for split, cfg in dataset_configs.items():
             if cfg is None:
@@ -206,20 +233,22 @@ class DataModule:
             ds = instantiate_from_config(cfg)
             self.datasets[split] = WrappedDataset(ds) if wrap else ds
 
-    def _loader(self, split: str, shuffle: bool) -> Optional[DataLoader]:
+    def _loader(self, split: str, shuffle: bool, rows) -> Optional[DataLoader]:
         ds = self.datasets.get(split)
         if ds is None:
             return None
-        return DataLoader(ds, self.batch_size, shuffle=shuffle, drop_last=True, seed=self.seed)
+        return DataLoader(ds, self.batch_size, shuffle=shuffle, drop_last=True, seed=self.seed,
+                          rows=rows)
 
-    def train_dataloader(self):
-        return self._loader("train", shuffle=True)
+    def train_dataloader(self, whole: bool = False):
+        """The train loader; with `whole`, of the global batches on any rank."""
+        return self._loader("train", True, None if whole else self.rows)
 
     def val_dataloader(self):
-        return self._loader("validation", shuffle=False)
+        return self._loader("validation", False, self.rows)
 
     def test_dataloader(self):
-        return self._loader("test", shuffle=False)
+        return self._loader("test", False, self.rows)
 
     def predict_dataloader(self):
-        return self._loader("predict", shuffle=False)
+        return self._loader("predict", False, self.rows)

@@ -427,6 +427,12 @@ class StreamCameraDataset(Dataset):
                   for i in range(self.l_seq + 1)]
         return np.stack(frames, axis=0)
 
+    def skip_item(self, idx: int) -> None:
+        """What `self[idx]` draws, nothing loaded: a data-parallel rank's
+        loader calls it for the other ranks' rows, so the other-site draws
+        of its own rows stay those of one process."""
+        self._other_site_index(idx)
+
     def __getitem__(self, idx: int) -> Dict:
         idx_rand = self._other_site_index(idx)
         imgs = self._load_window_images(idx)           # [T+1, H, W, 3]

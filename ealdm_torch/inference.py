@@ -17,6 +17,8 @@ import torch
 from .models.ddpm import LatentDiffusion
 from .models.unet import precompute_context_kv, precompute_emb_tables
 from .ops.schedules import DDIMSchedule, DiffusionSchedule
+from .parallel import draws, local_batch_size, shard_batch
+from .parallel.comm import all_gather
 from .samplers.ddim import DDIMConfig, _tree_map, ddim_sample
 from .samplers.plms import plms_sample
 from .utils.device import check_module_device
@@ -95,9 +97,17 @@ def sample_images(model: LatentDiffusion, batch_size: int, latent_shape,
                   quantize_denoised: bool = False, decode: bool = True,
                   x_T=None, mask=None, x0=None, hoist: bool = True,
                   generator: Optional[torch.Generator] = None, noise_fn=None,
-                  device=None):
+                  device=None, mesh=None):
     """The full pipeline. Returns (images [N, H, W, 3], latents [N, h, w, c])
     or, with decode=False, the latents.
+
+    mesh (`parallel.create_mesh`): data- and tensor-parallel sampling, as
+    the JAX program jitted over a mesh. Every rank passes the global batch's
+    inputs (batch_size N, the conditioning, x_T, mask, x0) and samples its
+    data rank's rows of them, its draws (or noise_fn's) the rows of the
+    global batch's; a model cut over the model group
+    (`parallel.shard_params`) runs its layers on their shards. The outputs
+    are gathered over the data group, whole on every rank.
 
     mixed: the STDiff conditioning dict, encoded into (uncond, cond) by
     `encode_cfg_conditioning` unless `cond` is given. cond / uncond: encoded
@@ -109,6 +119,19 @@ def sample_images(model: LatentDiffusion, batch_size: int, latent_shape,
     generator / noise_fn: the sampler's noise source (see ddim_sample)."""
     if sampler not in ("ddim", "plms"):
         raise ValueError(f"unknown sampler {sampler!r}")
+    if mesh is not None and mesh.data > 1:
+        b = local_batch_size(batch_size, mesh)
+        mixed, cond, uncond, x_T, mask, x0 = shard_batch(
+            [mixed, cond, uncond, x_T, mask, x0], mesh)
+        with draws.batch_rows(mesh.data_index, mesh.data, b):
+            out = sample_images(
+                model, b, latent_shape, steps=steps, eta=eta, guidance_scale=guidance_scale,
+                mixed=mixed, cond=cond, uncond=uncond, sampler=sampler,
+                quantize_denoised=quantize_denoised, decode=decode, x_T=x_T, mask=mask, x0=x0,
+                hoist=hoist, generator=generator, noise_fn=noise_fn, device=device)
+        if not decode:
+            return all_gather(out, mesh.data_group, 0)
+        return tuple(all_gather(t, mesh.data_group, 0) for t in out)
     dev = check_module_device(model, device)
     sched = DiffusionSchedule.create(
         timesteps=model.timesteps, beta_schedule=model.beta_schedule,

@@ -1,13 +1,14 @@
 """The port's training entry point (counterpart of the root `main.py`):
 
     python -m ealdm_torch.main -b configs/latent-diffusion/stdiff_cin-ldm-vq-f8.yaml -t \\
-        [--dtype bfloat16] [--device cuda] [a.b.c=value ...]
+        [--dtype bfloat16] [--device cuda] [--devices N] [--tp T] [a.b.c=value ...]
+    torchrun --nproc_per_node N -m ealdm_torch.main -b ... -t [--tp T]
 
 The YAML configs are merged left to right and the trailing `a.b.c=value`
 overrides applied (`config.load_config`, with the port's YAML reader); the
 run lives in a timestamped logdir with configs/, checkpoints/, images/,
 metrics.jsonl and tb/. The learning rate scales as accumulate x devices x
-batch x base_lr with one device. An LDM config trains `make_train_step`
+batch x base_lr. An LDM config trains `make_train_step`
 over the config's DataModule through the device prefetcher, with
 `scale_by_std` from the first batch, the YAML's scheduler, EMA,
 ImageLogger grids, validation through `make_eval_step` every
@@ -22,11 +23,31 @@ evaluation, with the flow scaler of the train data's path.
 `-r <logdir or checkpoint>` reads the run's configs/*.yaml back and
 restores its last checkpoint; without `-t` the run is set up and returned.
 
+Distribution, as the JAX `main.py`'s mesh: an LDM trains over a `data` x
+`model` layout of N ranks (`--devices N`, `--tp T`: N / T data ranks, each
+a model group of T ranks cutting the state by `parallel.shard_state`), one
+process a rank. Under a launcher (torchrun, or any that sets the
+environment `serving.maybe_initialize_distributed` reads) the ranks are its
+processes and --devices defaults to WORLD_SIZE; otherwise --devices
+defaults to the visible cards (1 on the CPU), and above 1 this process
+builds the kernels once and spawns its N workers itself, after JAX's rule
+(reduce N by T until the batch splits over N / T data ranks, with JAX's
+"Reduced device count" line); a launcher's world the batch does not split
+over is refused. Each rank loads its rows of the global batches; every rank
+draws the same step seeds; the first batch's `scale_by_std` is the global
+batch's. Rank 0 writes every file and the whole, gathered state as one
+process writes it, so a checkpoint resumes under any layout. The image log
+runs on the ranks of data index 0 (its batch: rank 0's rows), validation on
+every rank; the third stage runs on rank 0 on the gathered model after the
+others have left. A first-stage config is not distributed, as in JAX: its
+learning rate scales by --devices, and under a launcher each rank runs the
+whole step.
+
 Deltas from the JAX `main.py`:
   * `--device` (default "cuda", which raises without a card; the tests
     pass "cpu");
-  * refused up front, with NotImplementedError naming ROADMAP queue 1 item
-    6: `--devices` or `--tp` above 1 (one card);
+  * no crash checkpoint when more than one rank runs (it would need every
+    rank to gather the state);
   * attention at eligible self-attention sites runs the flash kernel
     (`kernel_settings`; the JAX `main.py` keeps dense attention);
   * weights are seeded random (`utils.init.random_init_`, seed `--seed`);
@@ -53,7 +74,6 @@ import time
 import numpy as np
 import torch
 
-_ITEM6 = "ROADMAP queue 1 item 6"
 _AE_TARGETS = ("AutoencoderKL", "VQModel", "VQModelInterface")
 
 
@@ -84,8 +104,9 @@ def get_parser():
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--max_epochs", type=int, default=1000)
     p.add_argument("--devices", type=int, default=None,
-                   help="number of devices for the data axis (one card: 1)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (1)")
+                   help="ranks, one a device: WORLD_SIZE under a launcher, else the "
+                        "visible cards (1 on the CPU)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree")
     p.add_argument("--accumulate_grad_batches", type=int, default=1)
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--profile", type=int, default=0, metavar="N",
@@ -123,8 +144,9 @@ def std_scale_factor(model, img) -> float:
     return float(1.0 / z.float().std(unbiased=False))
 
 
-def _data(config, seed: int):
-    """(DataModule, batch size, dataset configs) of config.data."""
+def _data(config, seed: int, rows=None):
+    """(DataModule, batch size, dataset configs) of config.data; rows: a
+    data rank's (index, count)."""
     from .data.pipeline import DataModule
 
     data_cfg = dict(config["data"]["params"])
@@ -132,8 +154,72 @@ def _data(config, seed: int):
     dataset_cfgs = {k: data_cfg.pop(k) for k in ("train", "validation", "test", "predict")
                     if k in data_cfg}
     return (DataModule(batch_size=batch_size, dataset_configs=dataset_cfgs,
-                       wrap=data_cfg.get("wrap", False), seed=seed),
+                       wrap=data_cfg.get("wrap", False), seed=seed, rows=rows),
             batch_size, dataset_cfgs)
+
+
+def shrink_devices(n_dev: int, batch_size: int, tp: int) -> int:
+    """JAX's rule: the per-step batch must split over the data ranks, so
+    the device count drops by the tensor-parallel degree until it does."""
+    while n_dev > 1 and batch_size % (n_dev // tp) != 0:
+        n_dev -= tp
+    return n_dev
+
+
+def _visible_devices(device) -> int:
+    """The default --devices outside a launcher: the visible cards (as JAX's
+    len(jax.devices())), 1 on the CPU."""
+    if torch.device(device).type != "cuda":
+        return 1
+    return max(1, torch.cuda.device_count())
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _worker(rank, world, port, argv, now, cpu, on_batch, on_step, on_state):
+    """One spawned rank: the launcher's environment, then `main`. Ranks on
+    the CPU share its cores."""
+    if cpu:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                      RANK=str(rank), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      EALDM_RUN_TIME=now)
+    main(argv, on_batch=on_batch, on_step=on_step, on_state=on_state)
+
+
+def spawn(argv, n: int, now: str, device, on_batch=None, on_step=None, on_state=None) -> None:
+    """Run `main(argv)` in n new processes, ranks 0..n-1 of one group on
+    this host (the hooks must pickle). The kernels are built first, so the
+    ranks load one build instead of racing to make it. Raises when a rank
+    fails, after ending the others."""
+    import torch.multiprocessing as mp
+
+    cpu = torch.device(device).type == "cpu"
+    if not cpu:
+        from .kernels.build import build_all
+
+        build_all()
+    mp.start_processes(_worker, nprocs=n, start_method="spawn", join=True,
+                       args=(n, _free_port(), list(argv), now, cpu, on_batch, on_step, on_state))
+
+
+def _with_devices(argv, n: int):
+    """argv with --devices n."""
+    argv = list(argv)
+    for i, a in enumerate(argv):
+        if a == "--devices":
+            argv[i + 1] = str(n)
+            return argv
+        if a.startswith("--devices="):
+            argv[i] = f"--devices={n}"
+            return argv
+    return argv + ["--devices", str(n)]
 
 
 def _seed(generator: torch.Generator) -> int:
@@ -176,34 +262,46 @@ def kernel_settings():
         norms.set_norm_stats_precision(saved[1])
 
 
-def main(argv=None, *, on_batch=None, on_step=None, timer=None):
+def main(argv=None, *, on_batch=None, on_step=None, on_state=None, timer=None):
     """Train (with -t) or set up the run of `argv` (sys.argv[1:] if None);
-    returns (logdir, model, state). `on_batch(step, batch, generator)`, if
-    given, sees each training batch on the device before its step and the
-    generator the step will draw from; `on_step(step, metrics)` sees each
-    step's metrics (tensors on the device) right after it; `timer` (a
-    `utils.profiling.StepTimer`) collects the loop's "data_wait" and
-    "train_step" seconds. Runs under `kernel_settings()`. The SIGUSR1
-    handler it installs (the crash checkpoint, which holds the run's state)
-    gives way to the caller's own on return."""
+    returns (logdir, model, state), or (logdir, None, None) where it spawned
+    the ranks. `on_batch(step, batch, generator)`, if given, sees each
+    training batch on the device before its step and the generator the step
+    will draw from; `on_step(step, metrics)` sees each step's metrics
+    (tensors on the device) right after it; `on_state(model, state, mesh)`
+    sees an LDM's model and train state once, cut to the rank's slices,
+    before the first step; `timer` (a `utils.profiling.StepTimer`) collects
+    the loop's "data_wait" and "train_step" seconds. Spawned ranks take the
+    three hooks (they must pickle), not the timer. Runs under
+    `kernel_settings()`. The SIGUSR1 handler it installs (the crash
+    checkpoint, which holds the run's state) gives way to the caller's own
+    on return."""
     # finalize CUPTI when a trace ends (see utils/profiling.py)
     os.environ.setdefault("TEARDOWN_CUPTI", "1")
     previous = signal.getsignal(signal.SIGUSR1)
     try:
         with kernel_settings():
-            return _main(argv, on_batch, on_step, timer)
+            return _main(argv, on_batch, on_step, on_state, timer)
     finally:
         if threading.current_thread() is threading.main_thread():
             signal.signal(signal.SIGUSR1, signal.SIG_DFL if previous is None else previous)
 
 
-def _main(argv, on_batch, on_step, timer):
+def _main(argv, on_batch, on_step, on_state, timer):
+    argv = sys.argv[1:] if argv is None else list(argv)
     opt, unknown = get_parser().parse_known_args(argv)
-    if (opt.devices or 1) > 1 or opt.tp > 1:
-        raise NotImplementedError(f"--devices {opt.devices} --tp {opt.tp}: the port trains on "
-                                  f"one card; distribution is {_ITEM6}")
+    from .parallel import comm
+    from .parallel.mesh import world
+    from .serving import maybe_initialize_distributed
 
-    now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+    # the process group of a launcher's environment (a no-op without one)
+    maybe_initialize_distributed(opt.device)
+    size, rank = world()
+    launched = size > 1
+    # one run time on every rank: the spawner's, else rank 0's
+    now = os.environ.get("EALDM_RUN_TIME") or datetime.datetime.now().strftime(
+        "%Y-%m-%dT%H-%M-%S")
+    now = comm.broadcast_object(now)
     if opt.resume:
         paths = opt.resume.split("/")
         if os.path.isdir(opt.resume) and "checkpoints" not in paths:
@@ -223,15 +321,41 @@ def _main(argv, on_batch, on_step, timer):
     from .training import (CheckpointManager, DeviceStatsCallback, ImageLogger, MetricLogger,
                            SetupCallback, build_scheduler, init_train_state, make_eval_step,
                            make_optimizer, make_train_step)
-    from .utils.device import resolve_device
+    from .parallel import MeshConfig, create_mesh, scale_learning_rate, shard_state
+    from .parallel.sharding import unshard_params
+    from .utils.device import rank_device
     from .utils.profiling import StepTimer, fence, trace
 
     config = load_config(opt.base, unknown)
     lightning_cfg = config.get("lightning", {})
-    device = resolve_device(opt.device)
+    device = rank_device(opt.device)
     if config["model"].get("target", "").endswith(_AE_TARGETS):
-        return train_autoencoder(opt, config, logdir, now, device, on_batch=on_batch,
+        n_dev = opt.devices or (size if launched else _visible_devices(device))
+        return train_autoencoder(opt, config, logdir, now, device, n_dev, on_batch=on_batch,
                                  on_step=on_step, timer=timer)
+
+    # ----------------------------------------------------------------- mesh
+    batch_size = config["data"]["params"]["batch_size"]
+    if launched:
+        if opt.devices is not None and opt.devices != size:
+            raise ValueError(f"--devices {opt.devices} under a launcher of {size} ranks")
+        n_dev = size
+        if shrink_devices(n_dev, batch_size, opt.tp) != n_dev:
+            raise ValueError(
+                f"batch {batch_size} does not split over {n_dev // opt.tp} data ranks of "
+                f"{size} ranks at --tp {opt.tp}; JAX's main.py reduces the device count by "
+                f"the tensor-parallel degree until it does "
+                f"({shrink_devices(n_dev, batch_size, opt.tp)} here): launch that many ranks")
+    else:
+        asked = opt.devices or _visible_devices(device)
+        n_dev = shrink_devices(asked, batch_size, opt.tp)
+        if n_dev != asked:
+            print(f"Reduced device count to {n_dev} so batch {batch_size} shards evenly")
+        if n_dev > 1:
+            spawn(_with_devices(argv, n_dev), n_dev, now, device, on_batch, on_step, on_state)
+            return logdir, None, None
+    mesh = create_mesh(MeshConfig(data=n_dev // opt.tp, model=opt.tp), n_dev)
+    step_mesh = mesh if mesh.size > 1 else None
 
     # ---------------------------------------------------------------- model
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
@@ -240,14 +364,14 @@ def _main(argv, on_batch, on_step, timer):
     model_params_cfg = config["model"].get("params", {})
 
     # ----------------------------------------------------------------- data
-    data, batch_size, dataset_cfgs = _data(config, opt.seed)
-    n_dev = 1
-    if opt.scale_lr:
-        lr = opt.accumulate_grad_batches * n_dev * batch_size * base_lr
+    data, batch_size, dataset_cfgs = _data(config, opt.seed,
+                                           rows=(mesh.data_index, mesh.data))
+    lr = scale_learning_rate(base_lr, batch_size, n_dev, opt.accumulate_grad_batches,
+                             opt.scale_lr)
+    if rank == 0 and opt.scale_lr:
         print(f"Setting learning rate to {lr:.2e} = {opt.accumulate_grad_batches} (accumulate) "
               f"* {n_dev} (devices) * {batch_size} (bs) * {base_lr:.2e} (base)")
-    else:
-        lr = base_lr
+    elif rank == 0:
         print(f"Using base learning rate {lr:.2e} (no scaling)")
 
     # ---------------------------------------------------------------- setup
@@ -263,13 +387,14 @@ def _main(argv, on_batch, on_step, timer):
     device_stats = DeviceStatsCallback(device)
     monitor = model_params_cfg.get("monitor", "val/loss_simple_ema")
     ckpt_mgr = CheckpointManager(os.path.join(logdir, "checkpoints"), save_top_k=3,
-                                 monitor=monitor)
+                                 monitor=monitor, mesh=mesh)
 
     # ---------------------------------------------------------------- state
     train_loader = data.train_dataloader()
     if train_loader is None:
         raise ValueError("config.data must define a train dataset")
-    example = next(iter(train_loader))
+    # the global first batch (JAX's `example`) on every rank
+    example = next(iter(data.train_dataloader(whole=True)))
     schedule_fn = None
     if "scheduler_config" in model_params_cfg:
         schedule_fn = build_scheduler(model_params_cfg["scheduler_config"])
@@ -287,15 +412,21 @@ def _main(argv, on_batch, on_step, timer):
                                    accumulate_grad_batches=opt.accumulate_grad_batches)
         state.opt_state = optimizer.init(state.params)
     if resume_ckpt_dir is not None:
+        # every rank reads the whole checkpoint, then cuts its slices
         CheckpointManager(resume_ckpt_dir, monitor=monitor).restore_last(state)
         print(f"Restored state at step {state.step} from {resume_ckpt_dir}")
-    train_step = make_train_step(model, optimizer, device=device)
-    eval_step = make_eval_step(model, device=device)
+    shard_state(state, mesh, model)
+    if on_state is not None:
+        on_state(model, state, mesh)
+    train_step = make_train_step(model, optimizer, device=device, mesh=step_mesh)
+    eval_step = make_eval_step(model, device=device, mesh=step_mesh)
 
     def melk(*args):
-        """The crash (or SIGUSR1) checkpoint."""
-        print("Saving crash checkpoint...", flush=True)
-        ckpt_mgr.save_last(state, state.step)
+        """The crash (or SIGUSR1) checkpoint (one rank only: with more, it
+        would need every rank)."""
+        if mesh.size == 1:
+            print("Saving crash checkpoint...", flush=True)
+            ckpt_mgr.save_last(state, state.step)
         if args:
             sys.exit(0)
 
@@ -336,8 +467,11 @@ def _main(argv, on_batch, on_step, timer):
                 if step % opt.log_every == 0:
                     metric_logger.log(step, _host(metrics), prefix="train/", echo=True)
                 if image_logger.check_frequency(step):
+                    # every rank draws the seed, so the step seeds stay alike
                     g = torch.Generator(device=device).manual_seed(_seed(gen))
-                    image_logger.log_img(model, batch, step, g, split="train", device=device)
+                    if mesh.data_index == 0:
+                        image_logger.log_img(model, batch, step, g, split="train",
+                                             device=device)
                 if opt.max_steps and step >= opt.max_steps:
                     break
             metric_logger.log(step, device_stats.on_epoch_end(), prefix="sys/")
@@ -365,12 +499,18 @@ def _main(argv, on_batch, on_step, timer):
         timer.report()
 
     ckpt_mgr.save_last(state, step)
-    print(f"Training done at step {step}; checkpoints in {logdir}/checkpoints")
+    if rank == 0:
+        print(f"Training done at step {step}; checkpoints in {logdir}/checkpoints")
 
     # ---------------------------------------------------------- third stage
     if opt.third_stage and model.cond_stage_key == "mixed":
         from .third_stage import ThirdStageModel, dump_third_stage_data
 
+        # rank 0 alone, on the gathered model and the global batches
+        unshard_params(model, mesh)
+        if rank != 0:
+            return logdir, model, state
+        data.rows = None
         mb = opt.third_stage_max_batches
         for split in ("train", "test"):
             g = torch.Generator(device=device).manual_seed(_seed(gen))
@@ -382,13 +522,15 @@ def _main(argv, on_batch, on_step, timer):
     return logdir, model, state
 
 
-def train_autoencoder(opt, config, logdir, now, device, on_batch=None, on_step=None,
+def train_autoencoder(opt, config, logdir, now, device, n_dev=1, on_batch=None, on_step=None,
                       timer=None):
     """First-stage VAE-GAN training (AutoencoderKL / VQModel configs): the
     reference's two-optimizer protocol, both updates in one step
     (`training/vae_trainer.py`), float32 as the JAX `main.py` builds a first
     stage; after each epoch the validation logs, a checkpoint and the
-    reconstruction grid of the first validation batch as a PNG."""
+    reconstruction grid of the first validation batch as a PNG. As the JAX
+    `main.py`, the learning rate scales by `n_dev` devices and the step is
+    not distributed (under a launcher every rank runs it; rank 0 writes)."""
     from .config import instantiate_from_config
     from .data.pipeline import DevicePrefetcher
     from .models.ddpm import build_first_stage
@@ -407,7 +549,8 @@ def train_autoencoder(opt, config, logdir, now, device, on_batch=None, on_step=N
     init_autoencoder_weights(vae, loss_module, opt.seed)
 
     data, batch_size, _ = _data(config, opt.seed)
-    lr = (opt.accumulate_grad_batches * 1 * batch_size * base_lr if opt.scale_lr else base_lr)
+    lr = (opt.accumulate_grad_batches * n_dev * batch_size * base_lr if opt.scale_lr
+          else base_lr)
     print(f"Autoencoder learning rate: {lr:.2e}")
 
     SetupCallback(logdir, config, name="project").on_start(now)
@@ -465,8 +608,9 @@ def train_autoencoder(opt, config, logdir, now, device, on_batch=None, on_step=N
                         rec = vae(x, torch.Generator(device=device).manual_seed(_seed(gen)))[0]
                     else:
                         rec = vae(x)[0]
-                save_png(os.path.join(logdir, "images", "val", f"recon_gs-{step:06d}.png"),
-                         to_uint8_grid(rec))
+                if ckpt_mgr.writer:
+                    save_png(os.path.join(logdir, "images", "val", f"recon_gs-{step:06d}.png"),
+                             to_uint8_grid(rec))
         else:
             ckpt_mgr.save_last(state, step)
         if opt.max_steps and step >= opt.max_steps:

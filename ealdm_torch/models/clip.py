@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.sharding import whole
 from .encoders import resize_nhwc
 from .layers import Conv2D, Dense, Embed
 from .text_transformer import LayerNormF32
@@ -64,7 +65,7 @@ class CLIPAttention(nn.Module):
     def forward(self, x, mask: Optional[torch.Tensor] = None):
         b, n, d = x.shape
         hd = d // self.heads
-        q, k, v = self._linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
+        q, k, v = self._linear(x, whole(self.in_proj_weight), self.in_proj_bias).chunk(3, dim=-1)
         q, k, v = (t.reshape(b, n, self.heads, hd).transpose(1, 2) for t in (q, k, v))
         logits = torch.matmul(q, k.transpose(-1, -2)) / np.sqrt(hd)
         if mask is not None:
@@ -72,7 +73,7 @@ class CLIPAttention(nn.Module):
         attn = torch.softmax(logits.float(), dim=-1).to(self.dtype)
         ct = torch.promote_types(attn.dtype, v.dtype)
         out = torch.matmul(attn.to(ct), v.to(ct)).transpose(1, 2).reshape(b, n, d)
-        return self._linear(out, self.out_proj_weight, self.out_proj_bias)
+        return self._linear(out, whole(self.out_proj_weight), self.out_proj_bias)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -133,12 +134,12 @@ class CLIPTextTower(nn.Module):
         tokens = tokens.to(self.positional_embedding.device)
         n = tokens.shape[1]
         x = self.token_embedding(tokens).to(self.dtype)
-        x = x + self.positional_embedding[:n].to(self.dtype)
+        x = x + whole(self.positional_embedding)[:n].to(self.dtype)
         mask = torch.triu(torch.full((n, n), float("-inf"), device=x.device), diagonal=1)
         x = self.ln_final(self.transformer(x, mask))
         x = x[torch.arange(x.shape[0], device=x.device), eot_positions(tokens, self.eot_id)]
         x = _promoted(x, self.dtype)
-        return x @ self.text_projection.to(self.dtype).to(x.dtype)
+        return x @ whole(self.text_projection).to(self.dtype).to(x.dtype)
 
 
 class CLIPVisionTower(nn.Module):
@@ -164,10 +165,10 @@ class CLIPVisionTower(nn.Module):
         b, c = x.shape[:2]
         x = x.permute(0, 2, 3, 1).reshape(b, -1, c)
         cls = self.class_embedding.to(self.dtype).expand(b, 1, c)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(self.dtype)
+        x = torch.cat([cls, x], dim=1) + whole(self.positional_embedding).to(self.dtype)
         x = self.transformer(self.ln_pre(x))
         x = _promoted(self.ln_post(x[:, 0]), self.dtype)
-        return x @ self.proj.to(self.dtype).to(x.dtype)
+        return x @ whole(self.proj).to(self.dtype).to(x.dtype)
 
 
 # CLIP preprocessing channel statistics (clip/clip.py _transform)

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops.patching import clamp_patch_params, patched_apply, unfold2d
 from ..ops.schedules import DiffusionSchedule, extract
+from ..parallel import draws
 from ..utils.device import resolve_device
 from .distributions import normal_kl
 from .encoders import build_encoder
@@ -507,11 +508,12 @@ class LatentDiffusion(nn.Module):
         `encode_inputs(batch)`, if the caller already ran it."""
         enc = self.encode_inputs(batch, generator) if encoded is None else encoded
         z = enc["z"]
+        # under data parallelism each draw is the rank's rows of the global
+        # batch's (`parallel.draws`)
         if t is None:
-            t = torch.randint(0, self.timesteps, (z.shape[0],), generator=generator,
-                              device=z.device)
+            t = draws.randint(self.timesteps, (z.shape[0],), generator, device=z.device)
         if noise is None:
-            noise = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+            noise = draws.randn(z.shape, generator, dtype=z.dtype, device=z.device)
         drop = generator if train else None
         cond_context = None
         if self.conditioning_key is not None and self.cond_stage_key == "mixed":
@@ -532,7 +534,8 @@ class LatentDiffusion(nn.Module):
             # noise the conditioning at the shortened schedule's timestep
             tc = self.cond_ids[t]
             if cond_noise is None:
-                cond_noise = torch.randn(cond_context.shape, generator=generator,
+                cond_noise = draws.randn(cond_context.shape, generator,
+                                         groups=cond_context.shape[0] // t.shape[0],
                                          device=cond_context.device)
             if cond_context.shape[0] == 2 * t.shape[0]:
                 tc = torch.cat([tc, tc])

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel import draws
+
 
 @dataclasses.dataclass(frozen=True)
 class DiagonalGaussian:
@@ -38,7 +40,7 @@ class DiagonalGaussian:
         """mean + std * noise, the noise drawn from `generator` unless given
         (a test replays another framework's draw through `noise`)."""
         if noise is None:
-            noise = torch.randn(self.mean.shape, generator=generator, dtype=self.mean.dtype,
+            noise = draws.randn(self.mean.shape, generator, dtype=self.mean.dtype,
                                 device=self.mean.device)
         return self.mean + self.std * noise.to(self.mean)
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.sharding import whole
+
 
 class VectorQuantizer(nn.Module):
     """Codebook of `n_embed` x `embed_dim`; input NHWC with C == embed_dim."""
@@ -25,7 +27,7 @@ class VectorQuantizer(nn.Module):
         if c != self.embed_dim:
             raise ValueError(f"expected {self.embed_dim} channels, got {c}")
         flat = z.reshape(-1, c).float()
-        codebook = self.embedding.float()
+        codebook = whole(self.embedding).float()
         dist = (
             flat.square().sum(1, keepdim=True)
             - 2.0 * flat @ codebook.T
@@ -43,4 +45,4 @@ class VectorQuantizer(nn.Module):
 
     def embed_code(self, indices):
         """Integer codes [...] -> embeddings [..., embed_dim]."""
-        return self.embedding[indices]
+        return whole(self.embedding)[indices]

@@ -21,6 +21,8 @@ from torch import nn
 
 from ..ops.bias_act import bias_act
 from ..ops.norms import instance_norm_2d
+from ..parallel import draws
+from ..parallel.sharding import whole
 from .layers import Conv2D, Dense
 from .resnet import FrozenBatchNorm
 
@@ -75,8 +77,9 @@ class EqualizedDense(nn.Module):
         self.bias = nn.Parameter(torch.full((features,), float(bias_init_value)))
 
     def forward(self, x):
-        weight_gain = self.lr_multiplier / math.sqrt(self.weight.shape[1])
-        y = x @ (self.weight.to(x.dtype).T * weight_gain)
+        w = whole(self.weight)
+        weight_gain = self.lr_multiplier / math.sqrt(w.shape[1])
+        y = x @ (w.to(x.dtype).T * weight_gain)
         b = self.bias if self.lr_multiplier == 1 else self.bias * self.lr_multiplier
         if self.activation == "linear":
             return y + b.to(y.dtype)
@@ -103,16 +106,17 @@ class CondScale(nn.Module):
             styles = self.w_affine(w)
         if self.cond_args.get("type") == "fourier":
             gain = float(self.cond_args.get("lr", 1)) / math.sqrt(c.shape[-1])
-            scales = c @ (self.c_to_scales_weight.to(c.dtype).T * gain)
+            scales = c @ (whole(self.c_to_scales_weight).to(c.dtype).T * gain)
             styles = styles * scales if styles is not None else scales
         return styles
 
 
 def dropout(x, rate: float, generator: torch.Generator):
     """flax nn.Dropout: keep each element with probability 1 - rate (a
-    uniform draw from `generator` below it) and scale it by 1 / (1 - rate)."""
+    uniform draw from `generator` below it, the data rank's rows of the global
+    batch's draw: `parallel.draws`) and scale it by 1 / (1 - rate)."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = draws.rand(x.shape, generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -144,7 +148,13 @@ class EnvLSTM(nn.Module):
         b, t, _ = x.shape
         h = x.to(self.dtype).float()
         for layer in range(self.num_layers):
-            h, _ = getattr(self, f"lstm_{layer}")(h)
+            lstm = getattr(self, f"lstm_{layer}")
+            if any(getattr(p, "tp_shard", None) is not None for p in lstm.parameters()):
+                # weights cut over a model group run whole
+                h, _ = torch.func.functional_call(
+                    lstm, {k: whole(p) for k, p in lstm.named_parameters()}, (h,))
+            else:
+                h, _ = lstm(h)
         h = h.reshape(b * t, self.hidden_size)
         h = F.relu(self.fc_0(h))
         if self.training and generator is not None:

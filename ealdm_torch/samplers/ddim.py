@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..ops.schedules import DDIMSchedule, DiffusionSchedule, extract
+from ..parallel import draws
 
 
 class DDIMConfig(NamedTuple):
@@ -86,11 +87,11 @@ def _draw(noise_fn, generator, i, shape, device, kind="step", drop=0.0):
     or for "keep" a 0/1 mask that keeps each element with probability
     1 - `drop`."""
     if noise_fn is not None:
-        args = (i, shape) if kind == "step" else (i, shape, kind)
-        return noise_fn(*args).to(device=device, dtype=torch.float32)
+        return draws.cut(lambda s: noise_fn(*((i, s) if kind == "step" else (i, s, kind)))
+                         .to(device=device, dtype=torch.float32), shape)
     if kind == "keep":
-        return (torch.rand(shape, generator=generator, device=device) < 1.0 - drop).float()
-    return torch.randn(shape, generator=generator, device=device)
+        return (draws.rand(shape, generator, device=device) < 1.0 - drop).float()
+    return draws.randn(shape, generator, device=device)
 
 
 def renoise_known(x, x0, mask, schedule: DiffusionSchedule, t_vec, noise):
@@ -123,7 +124,7 @@ def ddim_sample(eps_fn: Callable, shape, ddim: DDIMSchedule,
     if mask is not None and (x0 is None or schedule is None):
         raise ValueError("a mask needs x0 and the full schedule")
     if x_T is None:
-        x_T = torch.randn(shape, generator=generator, device=device)
+        x_T = draws.randn(shape, generator, device=device)
     x = x_T.to(device=device, dtype=torch.float32)
     b = shape[0]
     timesteps = ddim.timesteps.flip(0)
@@ -173,7 +174,7 @@ def ancestral_sample(eps_fn: Callable, shape, schedule: DiffusionSchedule, cond=
     device = schedule.betas.device
     b = shape[0]
     if x_T is None:
-        x_T = torch.randn(shape, generator=generator, device=device)
+        x_T = draws.randn(shape, generator, device=device)
     x = x_T.to(device=device, dtype=torch.float32)
     T = schedule.num_timesteps
     for j, i in enumerate(range(T - 1, -1, -1)):

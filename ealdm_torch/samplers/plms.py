@@ -14,6 +14,7 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.schedules import DDIMSchedule, DiffusionSchedule
+from ..parallel import draws
 from .ddim import DDIMConfig, _draw, _guided_eps, ddim_step, renoise_known
 
 
@@ -31,7 +32,7 @@ def plms_sample(eps_fn: Callable, shape, ddim: DDIMSchedule,
         raise ValueError("a mask needs x0 and the full schedule")
     device = ddim.alphas.device
     if x_T is None:
-        x_T = torch.randn(shape, generator=generator, device=device)
+        x_T = draws.randn(shape, generator, device=device)
     x = x_T.to(device=device, dtype=torch.float32)
     b = shape[0]
     ts = ddim.timesteps.flip(0)

@@ -339,14 +339,40 @@ class SamplerService:
         return out
 
 
-def maybe_initialize_distributed() -> bool:
-    """Initialise `torch.distributed` from the standard environment
-    (MASTER_ADDR / MASTER_PORT, WORLD_SIZE, RANK; nccl on the card, gloo on
-    the CPU) when WORLD_SIZE is set above 1; a silent no-op otherwise."""
+def distributed_backend(device, local_world: int) -> str:
+    """The backend rule: "nccl" when each of a host's `local_world` ranks has
+    a card of its own; "gloo" when they share cards (NCCL refuses two ranks
+    on one card), the collectives on the cards' tensors staged through host
+    memory (`parallel/comm.py`); "gloo" on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    return "nccl" if local_world <= torch.cuda.device_count() else "gloo"
+
+
+def maybe_initialize_distributed(device=None) -> bool:
+    """The one place that starts a process group, from the launcher's
+    environment: MASTER_ADDR and MASTER_PORT (the rendezvous), WORLD_SIZE,
+    RANK, LOCAL_RANK (the card: `cuda:{LOCAL_RANK % cards}`,
+    `utils.device.rank_device`) and LOCAL_WORLD_SIZE (ranks on this host;
+    WORLD_SIZE without it). Runs when WORLD_SIZE is above 1 and no group is
+    up, else returns False. device: "cuda" (default) or "cpu"; the backend
+    follows `distributed_backend`, and one line names it with the rank's
+    device. EALDM_DIST_TIMEOUT (seconds), if set, bounds every collective
+    wait, so a rank that stops failing the others instead of hanging them."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1 or torch.distributed.is_initialized():
         return False
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    from .utils.device import rank_device
+
+    dev = rank_device(device)
+    rank = int(os.environ["RANK"])
+    backend = distributed_backend(dev, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    kw = {}
+    if os.environ.get("EALDM_DIST_TIMEOUT"):
+        import datetime
+
+        kw["timeout"] = datetime.timedelta(seconds=float(os.environ["EALDM_DIST_TIMEOUT"]))
     torch.distributed.init_process_group(backend=backend, init_method="env://",
-                                         world_size=world, rank=int(os.environ["RANK"]))
+                                         world_size=world, rank=rank, **kw)
+    print(f"[dist] rank {rank}/{world} backend {backend} device {dev}", flush=True)
     return True

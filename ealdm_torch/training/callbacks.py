@@ -6,6 +6,11 @@ the epoch time with the device's memory.
 Nothing here needs PyYAML or PIL (the card's machine has neither): the
 config is written by a small YAML emitter (`to_yaml`) and images by
 `utils/png.py`.
+
+Under `torch.distributed` rank 0 alone writes (and echoes): the other
+ranks' `SetupCallback`, `MetricLogger` and `ImageLogger` compute what rank
+0 does (an image log's sampling is collective under tensor parallelism) and
+write nothing.
 """
 from __future__ import annotations
 
@@ -19,7 +24,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import world
 from ..utils.png import save_png
+
+
+def _writes() -> bool:
+    """Whether this process writes the run's files (rank 0, or no group)."""
+    return world()[1] == 0
 
 __all__ = ["DeviceStatsCallback", "ImageLogger", "MetricLogger", "SetupCallback", "save_png",
            "to_uint8_grid", "to_yaml"]
@@ -117,9 +128,11 @@ class SetupCallback:
         self.name = name
 
     def on_start(self, now: str = "") -> str:
+        path = os.path.join(self.cfgdir, f"{now}-{self.name}.yaml")
+        if not _writes():
+            return path
         for d in (self.logdir, self.ckptdir, self.cfgdir):
             os.makedirs(d, exist_ok=True)
-        path = os.path.join(self.cfgdir, f"{now}-{self.name}.yaml")
         with open(path, "w") as f:
             f.write(to_yaml(self.config))
         return path
@@ -130,10 +143,12 @@ class MetricLogger:
     TensorBoard event file under logdir/tb, and optionally to stdout."""
 
     def __init__(self, logdir: str, filename: str = "metrics.jsonl", tensorboard: bool = True):
-        os.makedirs(logdir, exist_ok=True)
         self.path = os.path.join(logdir, filename)
         self.tb = None
-        if tensorboard:
+        self.write = _writes()
+        if self.write:
+            os.makedirs(logdir, exist_ok=True)
+        if tensorboard and self.write:
             from .tensorboard import TBEventWriter
 
             self.tb = TBEventWriter(os.path.join(logdir, "tb"))
@@ -145,6 +160,8 @@ class MetricLogger:
                 row[f"{prefix}{k}"] = float(v)
             except (TypeError, ValueError, RuntimeError):
                 continue  # not a scalar
+        if not self.write:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(row) + "\n")
         if self.tb is not None:
@@ -193,6 +210,8 @@ class ImageLogger:
 
         logs = log_images(model, batch, generator, n=self.max_images, steps=self.log_steps,
                           eta=self.eta, sample=sample, device=device)
+        if not _writes():
+            return logs
         root = os.path.join(self.logdir, "images", split)
         for key, imgs in logs.items():
             if key.endswith("_latent") or key == "mask" or imgs.dim() != 4:

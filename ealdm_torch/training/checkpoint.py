@@ -16,6 +16,14 @@ A checkpoint is written to `<name>.tmp` and renamed into place; the one it
 replaces is first renamed to `<name>.old` and removed last, so a crash at
 any point leaves a whole checkpoint under one of the two names, and the
 readers take `<name>.old` where `<name>` is missing.
+
+Under `torch.distributed` every rank calls `save` and `save_last`: with a
+`mesh` whose model group cuts the state, the state is first gathered whole
+(`parallel.gather_state`, collective over the model group); rank 0 alone
+writes, in the format one process writes, so a checkpoint resumes under any
+layout; and every rank then waits at a barrier, so none reads or leaves
+before the files are whole. Every rank reads a checkpoint whole; the caller
+cuts it (`parallel.shard_state`).
 """
 from __future__ import annotations
 
@@ -26,6 +34,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.comm import barrier
+from ..parallel.mesh import world
+
 _STATE, _META = "state.pt", "meta.json"
 _ASIDE = ".old"
 
@@ -33,20 +44,31 @@ _ASIDE = ".old"
 class CheckpointManager:
     def __init__(self, directory: str, save_top_k: int = 3,
                  monitor: Optional[str] = "val/loss_simple_ema", mode: str = "min",
-                 every_n_train_steps: Optional[int] = None):
+                 every_n_train_steps: Optional[int] = None, mesh=None):
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', not {mode!r}")
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        self.writer = world()[1] == 0
+        if self.writer:
+            os.makedirs(self.directory, exist_ok=True)
         self.save_top_k, self.monitor, self.mode = save_top_k, monitor, mode
         self.every_n_train_steps = every_n_train_steps
         self._last_dir = os.path.join(self.directory, "last")
 
-    def _write(self, path: str, state: Any, meta: dict) -> None:
+    def _state_dict(self, state: Any) -> dict:
+        """The state's whole state_dict (gathered over a cutting model group)."""
+        if self.mesh is None or self.mesh.model == 1:
+            return state.state_dict()
+        from ..parallel.sharding import gather_state
+
+        return gather_state(state, self.mesh)
+
+    def _write(self, path: str, sd: dict, meta: dict) -> None:
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, _STATE))
+        torch.save(sd, os.path.join(tmp, _STATE))
         with open(os.path.join(tmp, _META), "w") as f:
             json.dump(meta, f)
         if os.path.isdir(path):
@@ -67,14 +89,20 @@ class CheckpointManager:
     def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> None:
         metrics = {k: float(v) for k, v in (metrics or {}).items()
                    if getattr(v, "ndim", 0) == 0}
-        self._write(os.path.join(self.directory, str(int(step))), state,
-                    {"step": int(step), "metrics": metrics})
-        self._prune()
-        self.save_last(state, step)
+        sd = self._state_dict(state)
+        if self.writer:
+            self._write(os.path.join(self.directory, str(int(step))), sd,
+                        {"step": int(step), "metrics": metrics})
+            self._prune()
+            self._write(self._last_dir, sd, {"step": int(step)})
+        barrier()
 
     def save_last(self, state: Any, step: int) -> None:
         """The unconditional `last.ckpt` (also the crash-path save)."""
-        self._write(self._last_dir, state, {"step": int(step)})
+        sd = self._state_dict(state)
+        if self.writer:
+            self._write(self._last_dir, sd, {"step": int(step)})
+        barrier()
 
     def _metrics(self) -> Dict[int, dict]:
         out = {}

@@ -21,16 +21,29 @@
 The state is updated in place: TrainState.params are the model's own
 parameters, and the optimizer and EMA tensors are updated where they lie.
 A step returns the same state object with its step count advanced.
+
+With a `mesh` (`parallel.create_mesh`) the step is data- and tensor-
+parallel, as the JAX step jitted over a mesh: each rank takes its rows of
+the global batch and its slices of a state cut by `parallel.shard_state`;
+the step's draws are its rows of the global batch's (`parallel.draws`);
+after the backward every gradient is averaged over the data group in flat
+buckets; grad_norm is the norm of the whole gradient (the squares of cut
+leaves summed over the model group, whole leaves counted once); the
+optimizer and the EMA then update the rank's slices; the metrics are
+averaged over the data group, so every rank returns the global batch's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.ddpm import LatentDiffusion
+from ..parallel import draws
+from ..parallel.comm import all_reduce_
 from ..utils.device import check_module_device
 from ..utils.remat import check_policy
 from .ema import EmaState, ema_init, ema_update
@@ -188,15 +201,90 @@ def _seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**62, (), generator=generator))
 
 
+# bytes of one flat bucket of the gradients' all-reduce over the data group
+GRAD_BUCKET_BYTES = 64 << 20
+
+
+def _rows(batch) -> int:
+    """The leading size of a batch's first tensor (the rank's rows)."""
+    for v in batch.values():
+        if isinstance(v, torch.Tensor):
+            return v.shape[0]
+        if isinstance(v, dict):
+            return _rows(v)
+    raise ValueError("the batch holds no tensor")
+
+
+def _draw_rows(mesh, batch):
+    """The step's draws as the rank's rows of the global batch's."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return draws.batch_rows(mesh.data_index, mesh.data, _rows(batch))
+
+
+@torch.no_grad()
+def average_gradients(grads: List[torch.Tensor], group, n: int,
+                      bucket_bytes: int = GRAD_BUCKET_BYTES) -> None:
+    """Each gradient replaced by its mean over `group` (n ranks), in place,
+    one all-reduce a flat bucket of at most `bucket_bytes` (or one leaf)."""
+    if group is None:
+        return
+    bucket, size = [], 0
+
+    def flush():
+        if bucket:
+            flat = torch._utils._flatten_dense_tensors(bucket)
+            all_reduce_(flat, group).div_(n)
+            for g, r in zip(bucket, torch._utils._unflatten_dense_tensors(flat, bucket)):
+                g.copy_(r)
+            bucket.clear()
+
+    for g in grads:
+        nbytes = g.numel() * g.element_size()
+        if bucket and (size + nbytes > bucket_bytes or g.dtype != bucket[0].dtype):
+            flush()
+            size = 0
+        bucket.append(g)
+        size += nbytes
+    flush()
+
+
+def global_grad_norm(grads: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
+                     mesh=None) -> torch.Tensor:
+    """optax.global_norm of the whole gradient: under a model group the
+    squares of the cut leaves are summed over it once, and whole leaves
+    (alike on every rank of it) are counted once."""
+    norms = torch._foreach_norm(list(grads.values()))
+    if mesh is None or mesh.model_group is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).float().square()
+    cut = torch.tensor([getattr(params[k], "tp_shard", None) is not None for k in grads],
+                       device=sq.device)
+    cut_sq = all_reduce_(sq[cut].sum().reshape(1), mesh.model_group)
+    return torch.sqrt(cut_sq[0] + sq[~cut].sum())
+
+
+def average_metrics(metrics: Dict[str, torch.Tensor], mesh=None) -> Dict[str, torch.Tensor]:
+    """The 0-d metrics averaged over the data group (one all-reduce)."""
+    if mesh is None or mesh.data_group is None:
+        return metrics
+    names = list(metrics)
+    v = all_reduce_(torch.stack([metrics[k].detach().float() for k in names]),
+                    mesh.data_group) / mesh.data
+    return {k: v[i] for i, k in enumerate(names)}
+
+
 def make_train_step(model: LatentDiffusion, optimizer: AdamW, remat: str = "dots",
-                    device=None):
+                    device=None, mesh=None):
     """(state, batch, generator) -> (state, metrics): the frozen first-stage
     encodes, the loss with the UNet's blocks under `remat`, its backward
     into each parameter's .grad, the optimizer and the EMA. `generator` (on
     any device) gives the step's seed; t, the noise and the dropout masks
     come from a generator on the model's device seeded with it. metrics:
     loss, loss_simple, loss_vlb and grad_norm (the global norm of this
-    call's gradients), as 0-d tensors."""
+    call's gradients), as 0-d tensors. mesh: the rank's place when the step
+    runs data- or tensor-parallel (the module docstring); batch is then the
+    rank's rows and every rank calls the step with the same generator."""
     dev = check_module_device(model, device)
     unet = model.model.diffusion_model
     check_policy(remat)
@@ -206,30 +294,33 @@ def make_train_step(model: LatentDiffusion, optimizer: AdamW, remat: str = "dots
         g = torch.Generator(device=dev).manual_seed(_seed(generator))
         for p in state.params.values():
             p.grad = None
-        with unet.remat_blocks(remat):
+        with unet.remat_blocks(remat), _draw_rows(mesh, batch):
             loss, metrics = model.training_loss(batch, g, train=True)
         loss.backward()
         grads = {k: state.params[k].grad for k in state.opt_state.mu}
         missing = [k for k, gr in grads.items() if gr is None]
         if missing:
             raise RuntimeError(f"no gradient reached {missing[:8]} ({len(missing)})")
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(list(grads.values()))))
+        if mesh is not None:
+            average_gradients(list(grads.values()), mesh.data_group, mesh.data)
+        grad_norm = global_grad_norm(grads, state.params, mesh)
         optimizer.apply(state.params, grads, state.opt_state)
         if state.ema is not None:
             ema_update(state.ema, state.params)
         state.step += 1
-        out = {k: v.detach() for k, v in metrics.items()}
+        out = average_metrics({k: v.detach() for k, v in metrics.items()}, mesh)
         out["grad_norm"] = grad_norm
         return state, out
 
     return step
 
 
-def make_eval_step(model: LatentDiffusion, device=None):
+def make_eval_step(model: LatentDiffusion, device=None, mesh=None):
     """(state, batch, generator) -> metrics of the loss with the current
     parameters and, suffixed "_ema", with the EMA shadow swapped in; both on
-    the same t and noise, dropout off (the reference's validation_step)."""
+    the same t and noise, dropout off (the reference's validation_step).
+    With a `mesh` batch is the rank's rows and the metrics are averaged over
+    the data group."""
     dev = check_module_device(model, device)
 
     @torch.no_grad()
@@ -240,7 +331,8 @@ def make_eval_step(model: LatentDiffusion, device=None):
 
         def metrics():
             g = torch.Generator(device=dev).manual_seed(seed)
-            return model.training_loss(batch, g, train=False, encoded=encoded)[1]
+            with _draw_rows(mesh, batch):
+                return model.training_loss(batch, g, train=False, encoded=encoded)[1]
 
         out = dict(metrics())
         if state.ema is not None:
@@ -252,6 +344,6 @@ def make_eval_step(model: LatentDiffusion, device=None):
             finally:
                 for k, p in state.params.items():
                     p.data = saved[k]
-        return out
+        return average_metrics(out, mesh)
 
     return eval_step

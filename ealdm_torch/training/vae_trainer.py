@@ -39,7 +39,9 @@ from ..models.vae import AutoencoderKL
 from ..utils.device import check_module_device
 from ..utils.init import random_init_
 from ..weights import load_lpips_params
-from .trainer import AdamW, AdamWState, _copy_into, _seed
+from ..parallel.comm import all_reduce_
+from .trainer import (AdamW, AdamWState, _copy_into, _draw_rows, _seed, average_gradients,
+                      average_metrics)
 
 _DISC = "discriminator."
 
@@ -138,37 +140,60 @@ def _grads(loss, params: Dict[str, torch.Tensor], names) -> Dict[str, torch.Tens
     return dict(zip(names, torch.autograd.grad(loss, [params[k] for k in names])))
 
 
-def make_vae_train_step(vae, loss_module, opt_ae: AdamW, opt_disc: AdamW, device=None):
+def make_vae_train_step(vae, loss_module, opt_ae: AdamW, opt_disc: AdamW, device=None,
+                        mesh=None):
     """(state, batch, generator=None, noise=None) -> (state, metrics): one
     step of both updates on batch["image"] [N, H, W, 3]. A KL posterior's
     noise is `noise` when given (a checked step replays host noise: the
     card's and the CPU's generators differ), else drawn from a generator on
     the model's device seeded from `generator`. metrics: the loss modules'
-    train/* logs, "aeloss" and "discloss", as detached 0-d tensors."""
+    train/* logs, "aeloss" and "discloss", as detached 0-d tensors.
+
+    mesh: data-parallel over the mesh's data group, as the JAX step jitted
+    with one: batch is the rank's rows, the posterior's noise its rows of
+    the global batch's draw, d_weight comes from the global batch's
+    gradient norms, both updates from gradients averaged over the group, and
+    the metrics are the group's means. A model group is refused: no
+    configuration cuts a first stage's step."""
     dev = check_module_device(vae, device)
     is_kl = isinstance(vae, AutoencoderKL)
+    if mesh is not None and mesh.model > 1:
+        raise NotImplementedError("the first-stage step is data-parallel only")
+    group = None if mesh is None else mesh.data_group
+
+    def reduced(grads):
+        if group is not None:
+            average_gradients(list(grads.values()), group, mesh.data)
+        return grads
 
     def step(state: VAETrainState, batch, generator: Optional[torch.Generator] = None,
              noise=None):
         x = batch["image"]
         gstep = state.step
-        rec, aux = _forward(vae, is_kl, x, generator, noise, dev)
+        with _draw_rows(mesh, batch):
+            rec, aux = _forward(vae, is_kl, x, generator, noise, dev)
 
         def d_weight(nll, g):
             nll_grad, = torch.autograd.grad(nll, rec, retain_graph=True)
             g_grad, = torch.autograd.grad(g, rec, retain_graph=True)
-            return adaptive_d_weight(nll_grad, g_grad, loss_module.disc_weight).detach()
+            if group is None:
+                return adaptive_d_weight(nll_grad, g_grad, loss_module.disc_weight).detach()
+            # the global batch's norms: each rank's gradients are D times the
+            # global mean's on its rows
+            sq = torch.stack([nll_grad.float().square().sum(), g_grad.float().square().sum()])
+            num, den = all_reduce_(sq, group).sqrt() / mesh.data
+            return (torch.clamp(num / (den + 1e-4), 0.0, 1e4) * loss_module.disc_weight).detach()
 
         g_total, g_log = _generator_loss(loss_module, is_kl, x, rec, aux, gstep, d_weight)
-        grads = _grads(g_total, state.ae_params, state.opt_ae_state.mu)
+        grads = reduced(_grads(g_total, state.ae_params, state.opt_ae_state.mu))
         opt_ae.apply(state.ae_params, grads, state.opt_ae_state)
         del grads
         d_total, d_log = loss_module.discriminator_loss(x, rec.detach(), gstep)
-        d_grads = _grads(d_total, state.loss_params, state.opt_disc_state.mu)
+        d_grads = reduced(_grads(d_total, state.loss_params, state.opt_disc_state.mu))
         opt_disc.apply(state.loss_params, d_grads, state.opt_disc_state)
         state.step += 1
         metrics = {**g_log, **d_log, "aeloss": g_total, "discloss": d_total}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, average_metrics({k: v.detach() for k, v in metrics.items()}, mesh)
 
     return step
 

@@ -1,6 +1,8 @@
 """The port's device rule: entry points run on the card unless asked not to."""
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -22,3 +24,16 @@ def check_module_device(module: torch.nn.Module, device=None) -> torch.device:
     if have.type != dev.type:
         raise RuntimeError(f"model is on {have}, but device={dev} was asked for")
     return have
+
+
+def rank_device(device=None) -> torch.device:
+    """The device of this rank: for "cuda" without an index,
+    `cuda:{LOCAL_RANK % cards}` (LOCAL_RANK from the launcher's environment, 0
+    without one), made the current card; otherwise `resolve_device(device)`."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                           % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev

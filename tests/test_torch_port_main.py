@@ -17,8 +17,8 @@ disk:
 - `-r <logdir>` restores step 2 bit for bit and continues to step 3;
 - `scale_by_std` gives JAX's factor (1/std of the first batch's latents)
   on the same weights;
-- `--devices 2` and `--tp 2` raise before any step; `-t` with the third
-  stage dumps both splits, trains the heads and writes both CSVs;
+- `-t` with the third stage dumps both splits, trains the heads and
+  writes both CSVs (`--devices` and `--tp` are tests/test_torch_port_parallel.py's);
 - `main` gives SIGUSR1 back to the caller's handler on return, so the run's
   model and state are freed once the caller drops them;
 - `train_autoencoder` on `configs/smoke/autoencoder_tiny.yaml` (a folder of
@@ -280,20 +280,6 @@ def test_scale_by_std_gives_jax_factor(ldm_run):
                                       method=jm.encode_first_stage))(params, jnp.asarray(img))
     assert model.scale_factor == pytest.approx(float(1.0 / jnp.std(z)), rel=1e-5)
     assert model.scale_factor != 1.0
-
-
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--tp", "2"]])
-def test_refusals_raise_before_any_step(corpus, flags, monkeypatch):
-    root, corpus_dir = corpus
-    steps = []
-    real = t_training.make_train_step
-    monkeypatch.setattr(t_training, "make_train_step",
-                        lambda *a, **k: steps.append(1) or real(*a, **k))
-    argv = _micro_argv(corpus_dir, root / "refused", "-t", "--max_steps", "1") + flags
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        t_main.main(argv)
-    assert not steps
-    assert not (root / "refused").exists()
 
 
 def test_third_stage_runs_after_training(corpus):

@@ -226,15 +226,25 @@ def test_header_headerless_and_device(run, tmp_path):
 
 def test_maybe_initialize_distributed(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("EALDM_DIST_TIMEOUT", raising=False)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
     assert serving.maybe_initialize_distributed() is False
     calls = {}
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "1")
     monkeypatch.setattr(torch.distributed, "init_process_group",
                         lambda **kw: calls.update(kw))
-    assert serving.maybe_initialize_distributed() is True
-    assert calls == {"backend": "nccl" if torch.cuda.is_available() else "gloo",
-                     "init_method": "env://", "world_size": 2, "rank": 1}
+    assert serving.maybe_initialize_distributed(device="cpu") is True
+    assert calls == {"backend": "gloo", "init_method": "env://", "world_size": 2, "rank": 1}
+    # the backend rule: nccl only where each rank of a host has a card
+    n = torch.cuda.device_count()
+    assert serving.distributed_backend("cpu", 1) == "gloo"
+    if n:
+        assert serving.distributed_backend("cuda", n) == "nccl"
+        assert serving.distributed_backend("cuda", n + 1) == "gloo"
+    elif not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serving.maybe_initialize_distributed()
 
 
 @pytest.fixture
