@@ -12,6 +12,7 @@
     python3 chip_smoke.py --cli        # the build and phase 19 (the CLIs and serving) only
     python3 chip_smoke.py --third      # the build and phase 20 (the third stage) only
     python3 chip_smoke.py --dist       # the build, phase 18's corpus and phase 21 only
+    python3 chip_smoke.py --jaxckpt    # the build and phase 22 (the JAX checkpoints) only
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build every kernel from `ealdm_torch/kernels/csrc/*.cu` with nvcc (the
@@ -194,13 +195,14 @@ Phases, each of which raises (non-zero exit) on failure:
      database, --use_neighbors --knn 10, a text and a PNG query; (f)
      export_sampler at batch 8, 50 steps, first: a fresh process (torch and
      the kernel operator registry only) loads the artifact while (a)-(e)
-     run, and after them a SamplerService serves 10 requests: its latent
+     run, and after them a SamplerService serves 10 requests, the first
+     batch timed and the second (2 requests, padded) profiled: its latent
      and images against the
      direct `sample_images(hoist=False)` on the same draws (5e-2 of max
-     |z|), a profiled batch's hand-written kernels by name and launches
+     |z|), the profiled batch's hand-written kernels by name and launches
      against the direct program's. Each tool's wall, img/s over the wall
      and peak GiB, and (f)'s export seconds, artifact bytes, load seconds
-     and served img/s, are the `[cli]` line.
+     and served img/s (of the timed batch), are the `[cli]` line.
   20. the third stage (`ealdm_torch/third_stage.py`), run by phase 18 (b)'s
      `ealdm_torch.main` call with --third_stage true
      --third_stage_max_batches 1 on the flagship YAML (`--third`: a
@@ -234,6 +236,20 @@ Phases, each of which raises (non-zero exit) on failure:
      its largest, each rank's launches against the module tree at its
      rows, (c)'s state bytes a rank to the byte; each rank's backend,
      device, step seconds and peak GiB.
+  22. the JAX package's orbax checkpoints (`training/orbax_format.py`
+     over the port's zstd, OCDBT and zarr readers), after phase 19 on phase
+     18 (b)'s flagship run dir (`--jaxckpt`: the build and a one-step
+     flagship run of its own): (a) the committed fixture
+     `ealdm_torch/data/jax_ckpt_micro.tar.xz` that the JAX package wrote
+     (the micro YAML after two steps): every leaf of both items decoded to
+     the digest it records, then the third step on the card, float32, with
+     JAX's batch and draws, its loss within 1e-4 of JAX's; (b) the
+     flagship's `last` written in the JAX layout (`write_jax_checkpoint`)
+     and read back into a fresh state, equal to the bit; `ealdm_torch.main
+     -r` on that JAX logdir and on the port's run dir take one step, bf16,
+     on the same batch and draws, their losses and parameters equal to the
+     bit; sample_diffusion on the JAX logdir with phase 19 (a)'s arguments,
+     its latent equal to 19 (a)'s; bytes, write and read seconds and GB/s.
   Each of phases 7-16 also holds every kernel launch of one bfloat16 pass
   (7, 14, 16: encode, one UNet call, decode; 8, 11, 12, 13, 15: one UNet
   call and a decode; 9: one UNet call; 10: one round trip) against its
@@ -241,7 +257,7 @@ Phases, each of which raises (non-zero exit) on failure:
   gives it (`hold_sites`); 11-16 also report img/s (one timed run), peak
   GiB and the device's busy time and idle share from one profile.
   Phases 7-16 run after phase 5 and before phase 6; phases 17, 18 (with
-  20 inside it), 21 and 19 run last. The models these phases seed draw their
+  20 inside it), 21, 19 and 22 run last. The models these phases seed draw their
   weights on the card (`random_init_`).
 
 The last lines of output are a `[phase-seconds]` line (the wall seconds
@@ -250,12 +266,13 @@ phases 7-16's numbers, a `[train]` JSON line with phase 6's numbers, an
 `[ae_train_vq_f8]`, `[ae_train_kl_f8]`, `[convergence]` and
 `[ae_train_seconds]` line with phase 17's, a `[main]` line with phase
 18's, a `[cli]` line with phase 19's, a `[third_stage]` line with phase
-20's, a `[distribution]` line with phase 21's, the card's name and power
-limit, a JSON line with every kernel's numbers (not with --train), and
-{"ok": true, "device": {...}}.
+20's, a `[distribution]` line with phase 21's, a `[jaxckpt]` line with
+phase 22's, the card's name and power limit, a JSON line with every
+kernel's numbers (not with --train), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -540,19 +557,41 @@ def phase_build():
     return secs
 
 
-def sass_census(source, names):
-    """{kernel: counts of SASS_OPS} from `cuobjdump -sass` of the library
-    built from `csrc/<source>.cu`, and {kernel: registers and spill bytes}
-    from its nvcc report, each summed (counts) or maximised (registers,
-    spills) over a kernel's template instances."""
+def sass_texts(sources):
+    """{source: `cuobjdump -sass` of the library built from
+    `csrc/<source>.cu`}, one cuobjdump a library, all started together
+    (each writes to a file of its own, so none waits on a full pipe)."""
+    import tempfile
+
+    from ealdm_torch.kernels import build
+
+    procs = {}
+    for source in sources:
+        f = tempfile.TemporaryFile("w+")
+        procs[source] = (f, subprocess.Popen(
+            [build.cuda_tool("cuobjdump"), "-sass", str(build.library_path(source))],
+            stdout=f, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for source, (f, proc) in procs.items():
+        with f:
+            proc.wait(timeout=300)
+            f.seek(0)
+            out[source] = f.read()
+        if proc.returncode:
+            raise RuntimeError(f"cuobjdump -sass of {source} failed:\n{out[source][-2000:]}")
+    return out
+
+
+def sass_census(source, names, sass):
+    """{kernel: counts of SASS_OPS} from `sass`, the `cuobjdump -sass` of
+    the library built from `csrc/<source>.cu` (`sass_texts`), and {kernel:
+    registers and spill bytes} from its nvcc report, each summed (counts)
+    or maximised (registers, spills) over a kernel's template instances."""
     import re
 
     from ealdm_torch.kernels import build
 
     lib = build.library_path(source)
-    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)],
-                          capture_output=True, text=True,
-                          check=True, timeout=300).stdout
     op_re = re.compile(r"\b(" + "|".join(re.escape(op) for op in SASS_OPS) + r")\b")
     census, current = {}, None
     for line in sass.splitlines():
@@ -603,13 +642,13 @@ def phase_sass():
 
     from ealdm_torch.kernels import build
 
-    flash = sass_census("flash_attention", MMA_KERNELS)
-    f32 = sass_census("flash_attention_sm90_f32", (F32_KERNEL, F32_COMBINE_KERNEL))
+    texts = sass_texts(["flash_attention", "flash_attention_sm90_f32", "group_norm",
+                        *(s.removesuffix(".cu") for s in KERNEL_SOURCES.values())])
+    flash = sass_census("flash_attention", MMA_KERNELS, texts["flash_attention"])
+    sass = texts["flash_attention_sm90_f32"]
+    f32 = sass_census("flash_attention_sm90_f32", (F32_KERNEL, F32_COMBINE_KERNEL), sass)
     if not f32[F32_KERNEL]["HMMA"] or not f32[F32_KERNEL]["LDGSTS"]:
         raise RuntimeError(f"{F32_KERNEL} needs HMMA and LDGSTS: {f32[F32_KERNEL]}")
-    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
-                           str(build.library_path("flash_attention_sm90_f32"))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
     tf32, tf32_wg = sass.count("HMMA.1688.F32.TF32"), len(re.findall(r"HGMMA\.\S*\.TF32", sass))
     log(f"[sass] {F32_KERNEL}: {tf32} HMMA.1688.F32.TF32 (of {f32[F32_KERNEL]['HMMA']} HMMA), "
         f"{tf32_wg} TF32 HGMMA (of {f32[F32_KERNEL]['HGMMA']} HGMMA)")
@@ -619,7 +658,8 @@ def phase_sass():
         raise RuntimeError(f"{F32_KERNEL} needs both mma.sync and wgmma TF32 products")
     for kernel, source in {**KERNEL_SOURCES, F32_KERNEL: "flash_attention_sm90_f32.cu"}.items():
         if kernel != F32_KERNEL:
-            flash.update(sass_census(source.removesuffix(".cu"), (kernel,)))
+            name = source.removesuffix(".cu")
+            flash.update(sass_census(name, (kernel,), texts[name]))
         serialized = [line for line in build.build_report(source.removesuffix(".cu")).splitlines()
                       if "Potential Performance Loss" in line and "wgmma" in line]
         if serialized:
@@ -632,7 +672,7 @@ def phase_sass():
     for kernel in KERNEL_SOURCES:
         if not (flash[kernel]["HGMMA"] and flash[kernel]["UTMALDG"]):
             raise RuntimeError(f"{kernel} needs HGMMA and UTMALDG: {flash[kernel]}")
-    gn = sass_census("group_norm", GN_KERNELS)
+    gn = sass_census("group_norm", GN_KERNELS, texts["group_norm"])
     for name in GN_STAGING_KERNELS:
         if not any(gn[name][op] for op in ASYNC_COPY_OPS):
             raise RuntimeError(f"{name} has no asynchronous copy")
@@ -4744,11 +4784,11 @@ def phase_main(cli=False):
     """Phase 18, the training entry point `python -m ealdm_torch.main` from
     the repo's YAMLs at full width: (a) the corpus, (b) the LDM loop beside
     the bare step, (c) the resume, (d) the first-stage loop; phase 20 runs
-    on (b)'s run, whose third stage it times; with `cli`, then phase 19 on
-    (b)'s flagship run dir. Everything it writes lives in a temporary
-    directory it removes. Returns ({path: one step's launch details},
-    numbers with phase 20's under "third_stage", phase 19's numbers or
-    None)."""
+    on (b)'s run, whose third stage it times; with `cli`, then phase 19 and
+    phase 22 on (b)'s flagship run dir. Everything it writes lives in a
+    temporary directory it removes. Returns ({path: one step's launch
+    details}, numbers with phase 20's under "third_stage" and phase 22's
+    under "jax_checkpoints", phase 19's numbers or None)."""
     import glob
     import shutil
     import tempfile
@@ -4769,6 +4809,9 @@ def phase_main(cli=False):
             flagship, = glob.glob(os.path.join(root, "logs", "*"))
             cli_details, cli_out = phase_cli(flagship, root)
             details.update(cli_details)
+            # phase 22 on the same run dir, after phase 19
+            out["jax_checkpoints"] = dict(fixture=phase_jax_fixture(), flagship=phase_jaxckpt(
+                flagship, root, CLI_LATENT.pop("z")))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return details, out, cli_out
@@ -5646,19 +5689,20 @@ def program(mixed, x_T, noise):  # fn, keeping each batch's last latent
 
 
 program.meta = fn.meta
-svc = serving.SamplerService(program, batch_size=fn.meta["batch_size"], seed=int(sys.argv[4]))
-for i in range(n):
+batch = fn.meta["batch_size"]
+svc = serving.SamplerService(program, batch_size=batch, seed=int(sys.argv[4]))
+# the first batch timed, the rest (one batch, padded) profiled
+for i in range(batch):
     svc.submit({k: v[i] for k, v in req.items()})
-kernels.reset_launch_counts()
 t0 = time.perf_counter()
 imgs = svc.serve_pending()
 torch.cuda.synchronize()
 serve_s = time.perf_counter() - t0
-for i in range(fn.meta["batch_size"]):
+for i in range(batch, n):
     svc.submit({k: v[i] for k, v in req.items()})
 kernels.reset_launch_counts()
 with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-    svc.serve_pending()
+    imgs += svc.serve_pending()
     torch.cuda.synchronize()
 # the profiler's raw events: key_averages() builds an event tree first
 names = sorted({e.name() for e in prof.profiler.kineto_results.events()
@@ -5669,7 +5713,7 @@ assert "ealdm_torch.models" not in sys.modules
 np.save(out + ".npy", np.stack(imgs))
 np.save(out + ".latent.npy", latent)
 with open(out, "w") as f:
-    json.dump(dict(load_s=load_s, serve_s=serve_s, n=n, kernel_names=names,
+    json.dump(dict(load_s=load_s, serve_s=serve_s, n=n, timed=batch, kernel_names=names,
                    batch_launches=batch_launches,
                    modules=sorted(m for m in sys.modules if m.startswith("ealdm_torch"))), f)
 sys.stdout.flush()
@@ -5818,9 +5862,11 @@ def phase_cli(logdir, root):
     _common.load_sampling_weights = recording
     try:
         sample_dir = os.path.join(cli_root, "sample")
-        _, nums, det, text = cli_run("sample_diffusion", sample_diffusion.main, [
-            "-r", logdir, "-n", str(CLI_BATCH), "--batch_size", str(CLI_BATCH), "-c",
-            str(CLI_STEPS), "-e", "1", "-l", sample_dir], CLI_BATCH)
+        with kept_latents() as kept:  # the run's latent, for phase 22 (b)
+            _, nums, det, text = cli_run("sample_diffusion", sample_diffusion.main, [
+                "-r", logdir, "-n", str(CLI_BATCH), "--batch_size", str(CLI_BATCH), "-c",
+                str(CLI_STEPS), "-e", "1", "-l", sample_dir], CLI_BATCH)
+        CLI_LATENT["z"] = kept[-1]
     finally:
         _common.load_sampling_weights = real_load
     line = [ln for ln in text.splitlines() if ln.startswith("Throughput for this batch")]
@@ -5953,14 +5999,15 @@ def phase_cli(logdir, root):
     hand = sorted({kernel_label(k) for k in names
                    if any(n in k for n in (*FLASH_KERNELS, *GN_KERNELS))})
     serve_nums.update(load_s=served["load_s"], serve_s=served["serve_s"],
-                served_img_per_s=served["n"] / served["serve_s"], process_s=process_s,
+                served_img_per_s=served["timed"] / served["serve_s"], process_s=process_s,
                 served_vs_direct_latent_rel=rel, served_vs_direct_image_rel=img_rel,
                 served_vs_direct_image_mean_abs=img_mean, profiled_hand_written_kernels=hand,
                 launches_equal=served["batch_launches"] == direct_launches,
                 served_modules=served["modules"])
     log(f"[cli] served: artifact {serve_nums['artifact_bytes']} bytes, export {export_s:.1f} s, "
-        f"load {served['load_s']:.1f} s (beside (a)-(e)), {served['n']} requests in "
-        f"{served['serve_s']:.2f} s = {serve_nums['served_img_per_s']:.4f} img/s; against the "
+        f"load {served['load_s']:.1f} s (beside (a)-(e)), {served['n']} requests: the first "
+        f"{served['timed']} in {served['serve_s']:.2f} s = {serve_nums['served_img_per_s']:.4f} "
+        f"img/s, the rest profiled; against the "
         f"direct program: latent {rel:.3g} of max |z|, images {img_rel:.3g} of max (tolerance "
         f"5e-2 each), mean abs "
         f"{img_mean:.3g}; "
@@ -5997,6 +6044,345 @@ def phase_cli_alone():
     root = tempfile.mkdtemp(prefix="ealdm_cli_")
     try:
         return phase_cli(cli_flagship_logdir(root), root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ phase 22
+JAX_FIXTURE = "ealdm_torch/data/jax_ckpt_micro.tar.xz"
+JAX_STEP_REL = 1e-4     # the fixture's third step against JAX's loss (phase 6's gate)
+CLI_LATENT = {}         # phase 19 (a)'s latent, for phase 22 (b)
+
+
+def _replay_dropout(masks):
+    """`models.stdiff.dropout` replaying JAX's keep masks in call order."""
+    import torch
+
+    def dropout(x, rate, generator):
+        keep = masks.pop(0).to(x.device)
+        if keep.shape != x.shape:
+            raise RuntimeError(f"a replayed dropout mask {tuple(keep.shape)} for {tuple(x.shape)}")
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                                device=x.device))
+    return dropout
+
+
+def phase_jax_fixture():
+    """(a) The committed fixture `JAX_FIXTURE`, a checkpoint the JAX
+    package wrote (`tests/jax_ckpt_fixture.py`: the micro YAML's TrainState
+    after two JAX steps, `CheckpointManager.save`'s `2/default` and
+    `last/state`): every leaf of both items decoded by the port's zstd,
+    OCDBT and zarr code to the sha256 `fixture.json` records; then the
+    state imported on the card (`CheckpointManager.restore_last`) takes the
+    third step on the committed batch with JAX's draws (t, noise, dropout
+    masks), float32 with TF32 off, its loss within JAX_STEP_REL of JAX's."""
+    import hashlib
+    import shutil
+    import tarfile
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ealdm_torch.config import load_config, model_from_config
+    from ealdm_torch.models import stdiff
+    from ealdm_torch.training import (CheckpointManager, init_train_state, make_optimizer,
+                                      make_train_step, orbax_format)
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ealdm_jaxfix_")
+    try:
+        with tarfile.open(os.path.join(HERE, JAX_FIXTURE)) as tar:
+            tar.extractall(tmp, filter="data")
+        with open(os.path.join(tmp, "fixture.json")) as f:
+            meta = json.load(f)
+        ckpt = os.path.join(tmp, "checkpoints")
+        decoded, equal = 0, 0
+        for item in (os.path.join(ckpt, "2", "default"), os.path.join(ckpt, "last", "state")):
+            reader = orbax_format.OrbaxItem(item)
+            for path, vt in reader.leaves.items():
+                if vt in ("None", "Tuple", "Dict", "List"):
+                    continue
+                t = reader.read(path).contiguous()
+                digest = hashlib.sha256(t.view(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+                decoded += 1
+                equal += digest == meta["leaves"].get(orbax_format.path_name(path))
+            reader.close()
+        decode_s = time.perf_counter() - t0
+        n_leaves = len(meta["leaves"])
+        if decoded != 2 * n_leaves or equal != decoded:
+            raise RuntimeError(f"jax fixture: {equal} of {decoded} decoded leaves equal the "
+                               f"digests of {n_leaves}")
+        config = load_config([os.path.join(tmp, "configs", "micro-project.yaml")])
+        model, _ = model_from_config(config["model"], dtype=torch.float32, device="cuda")
+        opt = make_optimizer(meta["learning_rate"])
+        state, _ = init_train_state(model, opt, device="cuda")
+        CheckpointManager(ckpt, monitor=meta["monitor"]).restore_last(state, model)
+        if state.step != meta["step"]:
+            raise RuntimeError(f"jax fixture: restored step {state.step}, not {meta['step']}")
+        with np.load(os.path.join(tmp, "step3.npz")) as z:
+            arrays = {k: torch.from_numpy(z[k]) for k in z.files}
+        batch = {"img": arrays["img"].cuda(),
+                 "mixed": {k[len("mixed_"):]: v.cuda() for k, v in arrays.items()
+                           if k.startswith("mixed_")}}
+        masks = [arrays[f"mask_{i}"] for i in range(sum(k.startswith("mask_") for k in arrays))]
+        model.training_loss = functools.partial(
+            type(model).training_loss, model, t=arrays["t"].long().cuda(),
+            noise=arrays["noise"].cuda())
+        real = stdiff.dropout
+        stdiff.dropout = _replay_dropout(masks)
+        try:
+            step = make_train_step(model, opt, remat="none", device="cuda")
+            _, metrics = step(state, batch, torch.Generator().manual_seed(0))
+            loss = float(metrics["loss"])
+        finally:
+            stdiff.dropout = real
+            del model.training_loss
+        if masks:
+            raise RuntimeError(f"jax fixture: {len(masks)} dropout masks were not replayed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = abs(loss - meta["loss"]) / abs(meta["loss"])
+    out = dict(leaves=n_leaves, decoded=decoded, equal=equal, decode_s=decode_s,
+               step=meta["step"] + 1, loss=loss, jax_loss=meta["loss"], loss_rel=rel,
+               seconds=time.perf_counter() - t0)
+    log(f"[jaxckpt] (a) fixture: {equal} of {decoded} leaves of both items equal JAX's "
+        f"digests ({decode_s:.2f} s to unpack and decode); step {meta['step'] + 1} on the card "
+        f"(float32, TF32 off) loss {loss!r} vs JAX's {meta['loss']!r}: {rel:.3g} relative "
+        f"(limit {JAX_STEP_REL:g})")
+    del state, model
+    release()
+    if rel > JAX_STEP_REL:
+        raise RuntimeError("jax fixture: the card's step disagrees with JAX's loss")
+    return out
+
+
+def _card_copy(tree):
+    """A state_dict's nested dicts with each tensor cloned (numbers as they are)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _card_copy(v) for k, v in tree.items()}
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _differ(a, b, where=""):
+    """The paths where two state_dicts differ (a tensor not equal to the bit,
+    a number not equal, a key on one side only)."""
+    import torch
+
+    if isinstance(a, dict) and isinstance(b, dict):
+        out = [f"{where}.{k}" for k in set(a) ^ set(b)]
+        for k in set(a) & set(b):
+            out += _differ(a[k], b[k], f"{where}.{k}")
+        return out
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        same = a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+        return [] if same else [where]
+    return [] if a == b else [where]
+
+
+class ResumeProbe:
+    """Hooks of one resumed `ealdm_torch.main` run: the restored state (a
+    card copy, or a comparison with `want`), `on_restored(model, state)` at
+    it, the first batch and its generator's state, each step's loss."""
+
+    def __init__(self, want=None, on_restored=None):
+        self.want, self.on_restored = want, on_restored
+        self.kept = self.differ = self.first = None
+        self.losses = []
+
+    def on_state(self, model, state, mesh):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sd = state.state_dict()
+        if self.want is None:
+            self.kept = _card_copy(sd)
+        else:
+            self.differ = _differ(self.want, sd)
+        if self.on_restored is not None:
+            self.on_restored(model, state)
+
+    def on_batch(self, step, batch, generator):
+        if self.first is None:
+            self.first = (_card_copy(batch), generator.get_state())
+
+    def on_step(self, step, metrics):
+        self.losses.append(metrics["loss"].detach().clone())
+
+    @property
+    def hooks(self):
+        return dict(on_batch=self.on_batch, on_step=self.on_step, on_state=self.on_state)
+
+
+@contextlib.contextmanager
+def kept_latents():
+    """sample_diffusion's latents on the host, a list that each batch
+    joins while the block runs."""
+    from ealdm_torch.scripts import sample_diffusion
+
+    kept, real = [], sample_diffusion.sample_batch
+
+    def keep(*args, **kwargs):
+        imgs, z = real(*args, **kwargs)
+        kept.append(z.detach().float().cpu())
+        return imgs, z
+
+    sample_diffusion.sample_batch = keep
+    try:
+        yield kept
+    finally:
+        sample_diffusion.sample_batch = real
+
+
+def sample_latent(logdir, out_dir):
+    """sample_diffusion on `logdir` with phase 19 (a)'s arguments; returns
+    its latent (the tool's last batch)."""
+    from ealdm_torch.scripts import sample_diffusion
+
+    with kept_latents() as kept:
+        sample_diffusion.main(["-r", logdir, "-n", str(CLI_BATCH), "--batch_size",
+                               str(CLI_BATCH), "-c", str(CLI_STEPS), "-e", "1", "-l", out_dir])
+    return kept[-1]
+
+
+def phase_jaxckpt(logdir, root, port_latent):
+    """(b) The flagship at full width in the JAX package's layout: the run
+    dir `logdir`'s `last` (the port's checkpoint of the flagship YAML at
+    batch 32) resumed by `ealdm_torch.main -r` for one step, bf16, under
+    deterministic algorithms (cuDNN's, and torch's where it has one); at
+    the restored state `write_jax_checkpoint` writes it as the JAX
+    manager's `save` and `save_last` into a JAX logdir (one store, which
+    `last/state` links; the run's configs beside it; timed); `main -r` on
+    that logdir reads `last/state` into a
+    fresh state (timed: `import_jax_state`), equal to the port's restored
+    state to the bit, tensor for tensor and number for number, and takes
+    the same step on the same batch and draws: the loss and every parameter
+    after it equal to the bit. Then sample_diffusion on the JAX logdir with
+    phase 19 (a)'s arguments: its latent differs by 0 from `port_latent`,
+    phase 19 (a)'s on the port's checkpoint. No validation, no checkpoint
+    of the port written (`NoCheckpointWrites`)."""
+    import shutil
+
+    import torch
+
+    from ealdm_torch import main as tmain
+    from ealdm_torch.training import checkpoint
+
+    t0 = time.perf_counter()
+    with open(os.path.join(logdir, "checkpoints", "last", "meta.json")) as f:
+        step = json.load(f)["step"]
+    jax_logdir = os.path.join(root, "jax_flagship")
+    shutil.copytree(os.path.join(logdir, "configs"), os.path.join(jax_logdir, "configs"))
+    jax_ckpt = os.path.join(jax_logdir, "checkpoints")
+    argv = ["--device", "cuda", "--dtype", "bfloat16", "-t", "--max_steps", str(step + 1),
+            "--log_every", "1", "--third_stage", "false", "data.params.validation=null"]
+    wrote = {}
+
+    def write(model, state):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wrote["bytes"] = checkpoint.write_jax_checkpoint(jax_ckpt, state, state.step, model)
+        wrote["seconds"] = time.perf_counter() - t1
+
+    read = {}
+    real_import = checkpoint.import_jax_state
+
+    def timed_import(item, state, model):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real_import(item, state, model)
+        torch.cuda.synchronize()
+        read["seconds"] = time.perf_counter() - t1
+        return out
+
+    deterministic = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        port = ResumeProbe(on_restored=write)
+        t1 = time.perf_counter()
+        with NoCheckpointWrites():
+            _, model, state = tmain.main(["-r", logdir, *argv], **port.hooks)
+        mains_s = [time.perf_counter() - t1]
+        port_params = {k: p.detach().clone() for k, p in state.params.items()}
+        port_step = state.step
+        del model, state
+        release()
+        jax = ResumeProbe(want=port.kept)
+        checkpoint.import_jax_state = timed_import
+        t1 = time.perf_counter()
+        try:
+            with NoCheckpointWrites():
+                _, model, state = tmain.main(["-r", jax_logdir, *argv], **jax.hooks)
+        finally:
+            checkpoint.import_jax_state = real_import
+        mains_s.append(time.perf_counter() - t1)
+        after = [k for k, p in state.params.items() if not torch.equal(p.detach(), port_params[k])]
+        jax_step = state.step
+        del model, state, port_params
+        port.kept = None
+        release()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic[0]
+        torch.use_deterministic_algorithms(deterministic[1])
+    same_first = same_batch(port.first[0], jax.first[0]) and torch.equal(port.first[1],
+                                                                         jax.first[1])
+    losses = [float(v) for v in port.losses], [float(v) for v in jax.losses]
+    same_loss = len(port.losses) == len(jax.losses) == 1 and torch.equal(port.losses[0],
+                                                                         jax.losses[0])
+    t1 = time.perf_counter()
+    z = sample_latent(jax_logdir, os.path.join(root, "jax_sample"))
+    sample_s = time.perf_counter() - t1
+    latent_diff = float((z - port_latent).abs().max())
+    shutil.rmtree(jax_logdir, ignore_errors=True)
+    gb = wrote["bytes"] / 1e9
+    out = dict(step=step, bytes=wrote["bytes"], write_s=wrote["seconds"],
+               write_gb_s=gb / wrote["seconds"], read_s=read["seconds"],
+               read_gb_s=gb / read["seconds"], restored_differ=len(jax.differ),
+               steps=[port_step, jax_step], losses=losses, same_loss=same_loss,
+               same_first_batch=same_first, params_differ_after=len(after),
+               main_s=mains_s, sample_s=sample_s, latent_max_abs_diff=latent_diff,
+               seconds=time.perf_counter() - t0)
+    log(f"[jaxckpt] (b) flagship step {step}: {wrote['bytes']} bytes written in "
+        f"{wrote['seconds']:.2f} s ({out['write_gb_s']:.3f} GB/s), read into a fresh state in "
+        f"{read['seconds']:.2f} s ({out['read_gb_s']:.3f} GB/s); {len(jax.differ)} tensors or "
+        f"numbers differ from the port's restored state {jax.differ[:4]}; step {step + 1} "
+        f"resumed from the port's checkpoint and from JAX's: same batch and draws "
+        f"{same_first}, losses {losses[0]} / {losses[1]} (equal to the bit: {same_loss}), "
+        f"{len(after)} parameter tensors differ after it; sample_diffusion on the JAX logdir "
+        f"{sample_s:.1f} s, its latent differs from phase 19 (a)'s by {latent_diff!r}")
+    if jax.differ or not same_first or not same_loss or after or latent_diff != 0 or \
+            port_step != step + 1 or jax_step != step + 1:
+        raise RuntimeError("jaxckpt: the JAX layout's round trip or resume differs")
+    return out
+
+
+def phase_jaxckpt_alone():
+    """`--jaxckpt`: the build, (a), and (b) on a flagship run dir of its own:
+    phase 18's corpus, one bf16 step of `ealdm_torch.main` on the flagship
+    YAML (its `last` checkpoint), sample_diffusion on it as phase 19 (a)
+    runs it; in a temporary directory it removes."""
+    import shutil
+    import tempfile
+
+    from ealdm_torch import main as tmain
+
+    fixture = phase_jax_fixture()
+    root = tempfile.mkdtemp(prefix="ealdm_jaxckpt_")
+    try:
+        corpus = os.path.join(root, "corpus")
+        main_corpus(corpus)
+        dots = [f"data.params.train.params.{key}={corpus}/" for key in ("path", "path_weather")]
+        logdir, _, _ = tmain.main(
+            ["-b", os.path.join(HERE, MAIN_YAML), "--dtype", "bfloat16", "--device", "cuda",
+             "-t", "--max_steps", "1", "--third_stage", "false", "-l",
+             os.path.join(root, "logs"), "data.params.validation=null", *dots])
+        release()
+        latent = sample_latent(logdir, os.path.join(root, "port_sample"))
+        return dict(fixture=fixture, flagship=phase_jaxckpt(logdir, root, latent))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -6045,11 +6431,13 @@ def main(argv):
     cli_only = "--cli" in argv
     third_only = "--third" in argv
     dist_only = "--dist" in argv
-    dist_run = None
+    jax_only = "--jaxckpt" in argv
+    dist_run = jaxck = None
     rows, head_dim_grads = {}, None
     if "--groupnorm" in argv:
         rows = phase_group_norm()
-    elif not (train_only or ae_only or main_only or cli_only or third_only or dist_only):
+    elif not (train_only or ae_only or main_only or cli_only or third_only or dist_only
+              or jax_only):
         timed("1 sass", phase_sass)
         if not paths_only:
             rows = timed("2 kernels", phase_kernels)
@@ -6059,7 +6447,7 @@ def main(argv):
         rows.update(head_dim_rows)
     launches_by_path = {}
     if not {"--kernels", "--groupnorm", "--train", "--paths", "--ae", "--main",
-            "--cli", "--third", "--dist"} & set(argv):
+            "--cli", "--third", "--dist", "--jaxckpt"} & set(argv):
         steps, batch = 50, 24
         t_main = time.perf_counter()
         model, mixed, details, e2e = phase_main_path(cfg_module, steps, batch)
@@ -6084,25 +6472,25 @@ def main(argv):
         seconds["3-5 flagship"] = time.perf_counter() - t_main
     paths = None
     if not {"--kernels", "--groupnorm", "--train", "--ae", "--main", "--cli",
-            "--third", "--dist"} & set(argv):
+            "--third", "--dist", "--jaxckpt"} & set(argv):
         path_details, paths = timed("7-16 paths", phases_paths, cfg_module)
         launches_by_path.update(path_details)
         paths["flash_grad_worst"] = head_dim_grads
     train = None
     if not {"--kernels", "--groupnorm", "--paths", "--ae", "--main", "--cli",
-            "--third", "--dist"} & set(argv):
+            "--third", "--dist", "--jaxckpt"} & set(argv):
         train_details, train = timed("6 train", phases_train, cfg_module)
         launches_by_path.update(train_details)
     ae_train = None
     if not {"--kernels", "--groupnorm", "--paths", "--train", "--main", "--cli",
-            "--third", "--dist"} & set(argv):
+            "--third", "--dist", "--jaxckpt"} & set(argv):
         ae_details, ae_train, ae_rows = timed("17 first-stage training", phases_ae_train,
                                               cfg_module)
         launches_by_path.update(ae_details)
         rows.update(ae_rows)
     main_run = cli_run_out = third = None
     if not {"--kernels", "--groupnorm", "--paths", "--train", "--ae", "--cli",
-            "--third", "--dist"} & set(argv):
+            "--third", "--dist", "--jaxckpt"} & set(argv):
         main_details, main_run, cli_run_out = timed("18-20 main, cli and third stage",
                                                     phase_main, "--main" not in argv)
         launches_by_path.update(main_details)
@@ -6116,6 +6504,11 @@ def main(argv):
         if cli_run_out is not None:  # phase 19 ran inside phase 18's directory
             seconds["19 cli"] = cli_run_out["seconds"]
             seconds["18-20 main, cli and third stage"] -= cli_run_out["seconds"]
+        jaxck = main_run.pop("jax_checkpoints", None)
+        if jaxck is not None:  # phase 22 ran inside phase 18's directory, after 19
+            seconds["22 jax checkpoints"] = (jaxck["fixture"]["seconds"]
+                                             + jaxck["flagship"]["seconds"])
+            seconds["18-20 main, cli and third stage"] -= seconds["22 jax checkpoints"]
         seconds["18 main"] = seconds.pop("18-20 main, cli and third stage")
     elif "--cli" in argv:
         cli_details, cli_run_out = timed("19 cli", phase_cli_alone)
@@ -6127,6 +6520,8 @@ def main(argv):
         launches_by_path.update(third_details)
     elif dist_only:
         dist_run = timed("21 distribution (with its corpus)", phase_distribution_alone)
+    elif jax_only:
+        jaxck = timed("22 jax checkpoints (with a flagship run of its own)", phase_jaxckpt_alone)
     for row in rows.values():
         # each path's launches of the row's counter (at its shape, for a
         # shape's row; a train path's: one step); a row the flagship does
@@ -6159,6 +6554,8 @@ def main(argv):
         log(f"[third_stage] {json.dumps(third)}")
     if dist_run is not None:
         log(f"[distribution] {json.dumps(dist_run)}")
+    if jaxck is not None:
+        log(f"[jaxckpt] {json.dumps(jaxck)}")
     log(smi)
     if not train_only:
         log(json.dumps({"kernels": list(rows.values())}))

@@ -28,20 +28,22 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(source: str = SOURCE, name: str = "libealdm_loader.so") -> str:
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, digest, "libealdm_loader.so")
+    return os.path.join(BUILD_DIR, digest, name)
 
 
-def _build(path: str) -> None:
+def build_library(source: str, path: str) -> None:
+    """Compile `source` with g++ (or $CXX) into the shared library `path`;
+    raises if the build fails."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cxx = os.environ.get("CXX", "g++")
-    out = subprocess.run([cxx, *_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True,
+    out = subprocess.run([cxx, *_FLAGS, "-o", tmp, source], capture_output=True, text=True,
                          timeout=300)
     if out.returncode != 0:
-        raise RuntimeError(f"building {SOURCE} with {cxx} failed:\n{out.stderr}")
+        raise RuntimeError(f"building {source} with {cxx} failed:\n{out.stderr}")
     os.replace(tmp, path)
 
 
@@ -53,7 +55,7 @@ def get_lib() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not os.path.exists(path):
-            _build(path)
+            build_library(SOURCE, path)
         lib = ctypes.CDLL(path)
         lib.ealdm_probe_npy.restype = ctypes.c_int
         lib.ealdm_probe_npy.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),

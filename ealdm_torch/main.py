@@ -21,7 +21,9 @@ train and the test split (`--third_stage_max_batches` batches each, with
 the CLIP scorer then at 64^2, else 224^2), the heads' training and the
 evaluation, with the flow scaler of the train data's path.
 `-r <logdir or checkpoint>` reads the run's configs/*.yaml back and
-restores its last checkpoint; without `-t` the run is set up and returned.
+restores its last checkpoint, the port's or one the JAX `main.py` wrote
+(an orbax `last/state`, known by its files: `training/orbax_format.py`),
+and trains on from its step; without `-t` the run is set up and returned.
 
 Distribution, as the JAX `main.py`'s mesh: an LDM trains over a `data` x
 `model` layout of N ranks (`--devices N`, `--tp T`: N / T data ranks, each
@@ -57,7 +59,9 @@ Deltas from the JAX `main.py`:
     model's own first stage (the JAX `main.py` encodes with a second random
     initialisation);
   * the third stage's two dumps draw from generators on the device, each
-    seeded by a draw of the loop's generator.
+    seeded by a draw of the loop's generator;
+  * `-r` resumes a first-stage run too, from its step (the JAX `main.py`
+    reads the logdir's configs and starts its autoencoder at step 0).
 """
 from __future__ import annotations
 
@@ -332,7 +336,7 @@ def _main(argv, on_batch, on_step, on_state, timer):
     if config["model"].get("target", "").endswith(_AE_TARGETS):
         n_dev = opt.devices or (size if launched else _visible_devices(device))
         return train_autoencoder(opt, config, logdir, now, device, n_dev, on_batch=on_batch,
-                                 on_step=on_step, timer=timer)
+                                 on_step=on_step, timer=timer, resume_ckpt_dir=resume_ckpt_dir)
 
     # ----------------------------------------------------------------- mesh
     batch_size = config["data"]["params"]["batch_size"]
@@ -413,7 +417,7 @@ def _main(argv, on_batch, on_step, on_state, timer):
         state.opt_state = optimizer.init(state.params)
     if resume_ckpt_dir is not None:
         # every rank reads the whole checkpoint, then cuts its slices
-        CheckpointManager(resume_ckpt_dir, monitor=monitor).restore_last(state)
+        CheckpointManager(resume_ckpt_dir, monitor=monitor).restore_last(state, model)
         print(f"Restored state at step {state.step} from {resume_ckpt_dir}")
     shard_state(state, mesh, model)
     if on_state is not None:
@@ -523,14 +527,16 @@ def _main(argv, on_batch, on_step, on_state, timer):
 
 
 def train_autoencoder(opt, config, logdir, now, device, n_dev=1, on_batch=None, on_step=None,
-                      timer=None):
+                      timer=None, resume_ckpt_dir=None):
     """First-stage VAE-GAN training (AutoencoderKL / VQModel configs): the
     reference's two-optimizer protocol, both updates in one step
     (`training/vae_trainer.py`), float32 as the JAX `main.py` builds a first
     stage; after each epoch the validation logs, a checkpoint and the
     reconstruction grid of the first validation batch as a PNG. As the JAX
     `main.py`, the learning rate scales by `n_dev` devices and the step is
-    not distributed (under a launcher every rank runs it; rank 0 writes)."""
+    not distributed (under a launcher every rank runs it; rank 0 writes).
+    resume_ckpt_dir: a checkpoints dir whose `last` (the port's or the JAX
+    package's) the state resumes from."""
     from .config import instantiate_from_config
     from .data.pipeline import DevicePrefetcher
     from .models.ddpm import build_first_stage
@@ -566,6 +572,10 @@ def train_autoencoder(opt, config, logdir, now, device, n_dev=1, on_batch=None, 
     state, opt_ae, opt_disc = init_vae_train_state(
         vae, loss_module, learning_rate=lr, lr_g_factor=mp.get("lr_g_factor", 1.0),
         device=device)
+    if resume_ckpt_dir is not None:
+        CheckpointManager(resume_ckpt_dir, monitor=monitor).restore_last(
+            state, (vae, loss_module))
+        print(f"Restored state at step {state.step} from {resume_ckpt_dir}")
     step_fn = make_vae_train_step(vae, loss_module, opt_ae, opt_disc, device=device)
     eval_fn = make_vae_eval_step(vae, loss_module, device=device)
 
@@ -575,7 +585,7 @@ def train_autoencoder(opt, config, logdir, now, device, n_dev=1, on_batch=None, 
 
     timer = timer if timer is not None else StepTimer()
     gen = torch.Generator().manual_seed(opt.seed)
-    step = 0
+    step = state.step
     for epoch in range(opt.max_epochs):
         device_stats.on_epoch_start()
         train_loader.set_epoch(epoch)

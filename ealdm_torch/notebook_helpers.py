@@ -77,7 +77,8 @@ def get_model(mode: str = "stdiff", run_dir: Optional[str] = None,
         from .training import CheckpointManager, init_train_state
 
         state, _ = init_train_state(model, device=next(model.parameters()).device)
-        CheckpointManager(os.path.join(run_dir, "checkpoints"), monitor=None).restore_last(state)
+        CheckpointManager(os.path.join(run_dir, "checkpoints"), monitor=None).restore_last(
+            state, model)
         if state.ema is not None:
             with torch.no_grad():
                 for k, p in model.named_parameters():

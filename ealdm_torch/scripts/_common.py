@@ -1,7 +1,7 @@
 """What the command-line tools share: the device flag, the compute dtype,
 the inference settings, reading a run back (`load_run`) and its checkpoints
-(the port's `CheckpointManager` layout only), reading a PNG, and the uint8
-conversion."""
+(the port's `CheckpointManager` layout and the JAX package's orbax one),
+reading a PNG, and the uint8 conversion."""
 from __future__ import annotations
 
 import contextlib
@@ -11,8 +11,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-
-_WEIGHTS_ITEM = "ROADMAP queue 1 item 6 (the weight loaders)"
 
 # The models' dtype: the JAX scripts build theirs at LatentDiffusion's
 # float32 default and take no dtype flag.
@@ -67,24 +65,25 @@ def load_run(resume: str):
 def read_checkpoint(path: str, last: bool = False) -> dict:
     """The saved train state of `path`: a `state.pt`, a checkpoint dir
     (`.../checkpoints/<step>` or `.../last`) or a checkpoints dir (its
-    latest step, else `last`; `last` itself with last=True), memory-mapped
-    on the host: a tool reads only the tensors it copies to the device (the
-    EMA shadow, not the optimizer's moments). An orbax directory of the JAX
-    package raises."""
-    from ..training.checkpoint import CheckpointManager
+    latest step, else `last`; `last` itself with last=True), of the port or
+    of the JAX package (also an orbax item, `.../last/state` or
+    `.../<step>/default`, as JAX's knn2img.py takes), read lazily on the
+    host: a tool reads only the tensors it copies to the device (the EMA
+    shadow, not the optimizer's moments)."""
+    from ..training import orbax_format
+    from ..training.checkpoint import CheckpointManager, read_jax_state
 
     norm = os.path.normpath(path)
     if os.path.isfile(norm):
         return torch.load(norm, map_location="cpu", weights_only=True, mmap=True)
-    base = os.path.basename(norm)
     if os.path.exists(os.path.join(norm, "state.pt")):
         return torch.load(os.path.join(norm, "state.pt"), map_location="cpu",
                           weights_only=True, mmap=True)
-    if base == "state" or os.path.exists(os.path.join(norm, "state")) or glob.glob(
-            os.path.join(norm, "*", "state")):
-        raise NotImplementedError(
-            f"{path}: an orbax checkpoint of the JAX package; the port reads its own "
-            f"(`ealdm_torch.main`'s CheckpointManager). Importing orbax states is {_WEIGHTS_ITEM}")
+    if orbax_format.is_item(norm):
+        return read_jax_state(norm)
+    for item in ("state", "default"):  # JAX's last/ or <step>/
+        if orbax_format.is_item(os.path.join(norm, item)):
+            return read_jax_state(os.path.join(norm, item))
     mgr = CheckpointManager(norm, monitor=None)
     return mgr.read(last=last, map_location="cpu", mmap=True)
 

@@ -84,13 +84,14 @@ def test_port_imports_no_jax():
 
 def _sources():
     return sorted(p for p in (REPO / "ealdm_torch").rglob("*")
-                  if p.suffix in (".py", ".cu", ".cuh", ".h"))
+                  if p.suffix in (".py", ".cu", ".cuh", ".h", ".cpp"))
 
 
 IMPORTS_JAX = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|ealdm_tpu)\b", re.M)
 # what the card's machine does not have: a YAML parser, an imaging package,
-# pandas, h5py
-IMPORTS_MISSING = re.compile(r"^\s*(import|from)\s+(yaml|PIL|pandas|h5py)\b", re.M)
+# pandas, h5py, orbax, tensorstore, a zstd module
+IMPORTS_MISSING = re.compile(
+    r"^\s*(import|from)\s+(yaml|PIL|pandas|h5py|orbax|tensorstore|zstandard)\b", re.M)
 
 
 def test_source_scan():
@@ -107,6 +108,7 @@ def test_source_scan():
         assert not banned.search(text), p
     smoke = (REPO / "chip_smoke.py").read_text()
     assert not IMPORTS_JAX.search(smoke)
+    assert not IMPORTS_MISSING.search(smoke)
     assert "torch.compile" not in smoke
 
 
@@ -133,6 +135,20 @@ THIRD_STAGE_SLICE_MODULES = ("metrics.py", "weights.py", "third_stage.py", "mode
 def test_source_scan_covers_the_third_stage_slice():
     scanned = {p.relative_to(REPO / "ealdm_torch").as_posix() for p in _sources()}
     assert set(THIRD_STAGE_SLICE_MODULES) <= scanned
+
+
+# the JAX checkpoints' slice; its decoder is the port's own, not the system's libzstd
+ORBAX_SLICE_MODULES = ("native/zstd.cpp", "utils/zstd.py", "utils/ocdbt.py", "utils/zarr2.py",
+                       "training/orbax_format.py", "utils/flax_import.py",
+                       "training/checkpoint.py")
+
+
+def test_source_scan_covers_the_orbax_slice():
+    scanned = {p.relative_to(REPO / "ealdm_torch").as_posix() for p in _sources()}
+    assert set(ORBAX_SLICE_MODULES) <= scanned
+    for p in _sources():
+        text = p.read_text()
+        assert not re.search(r"#\s*include\s*[<\"]zstd|libzstd\.so|find_library\(.zstd", text), p
 
 
 def test_no_fallback_in_kernel_wrappers():

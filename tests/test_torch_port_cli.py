@@ -475,12 +475,41 @@ def test_knn2img_cli_image_query_from_an_index(tmp_path):
                         str(jpg), "--clip_type", "ViT-B/32", "--outdir", str(out), *CPU])
 
 
-def test_knn2img_refuses_an_orbax_checkpoint(tmp_path):
-    state = tmp_path / "ckpt" / "last" / "state"
-    state.mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_knn2img.main(["--config", str(RDM), "--ckpt", str(state), "--database", "x.npz",
-                        *CPU])
+def test_knn2img_reads_an_orbax_checkpoint(tmp_path):
+    """`--ckpt .../last/state`, a StandardCheckpointer save of the JAX
+    package's TrainState (as JAX's knn2img.py restores it): the model
+    samples with the checkpoint's EMA shadow."""
+    from ealdm_torch.utils.flax_import import flax_to_state_dict
+    from ealdm_tpu.training import TrainState, make_optimizer
+    from ealdm_tpu.training.checkpoint import CheckpointManager as JaxManager
+    from ealdm_tpu.training.ema import ema_init
+    from tests.test_torch_port_cond import flax_shapes_of
+
+    tm, _ = t_config.model_from_config(t_config.load_config([str(RDM)])["model"], device="cpu")
+    params = jax.tree_util.tree_map(jnp.asarray,
+                                    random_tree(flax_shapes_of(tm), seed=8)["params"])
+    shadow = jax.tree_util.tree_map(lambda p: p + 0.5, params)
+    state = TrainState(step=jnp.asarray(5, jnp.int32), params=params,
+                       opt_state=make_optimizer(1e-4, params).init(params),
+                       ema=ema_init(params)._replace(shadow=shadow))
+    mgr = JaxManager(str(tmp_path / "ckpt"), monitor=None)
+    mgr.save_last(jax.device_get(state), 5)
+    mgr.close()
+    ckpt = tmp_path / "ckpt" / "last" / "state"
+    db_path = str(tmp_path / "db.npz")
+    np.savez(db_path, embedding=np.random.RandomState(0).randn(16, 512).astype(np.float32))
+    opt = t_knn2img.get_parser().parse_args(["--config", str(RDM), "--ckpt", str(ckpt),
+                                             "--database", db_path, *CPU])
+    model, _ = t_knn2img.load_model(opt, "cpu")
+    want = flax_to_state_dict(jax.device_get(shadow))
+    for k, p in model.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), want[k], err_msg=k)
+    out = tmp_path / "rdm"
+    t_knn2img.main(["--config", str(RDM), "--ckpt", str(ckpt), "--database", db_path,
+                    "--use_neighbors", "--knn", "2", "--clip_type", "ViT-B/32", "--n_samples",
+                    "1", "--ddim_steps", "2", "--H", "32", "--W", "32", "--outdir", str(out),
+                    "--skip_grid", *CPU])
+    assert len(os.listdir(out / "samples")) == 1
 
 
 # ---------------------------------------------------------------- the card
